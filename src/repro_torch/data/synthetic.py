@@ -1,0 +1,79 @@
+"""Learnable synthetic stand-ins for MNIST / FMNIST / CIFAR-10 / CINIC-10.
+
+The paper's datasets are not bundled with the repository, so this module
+generates class-conditional image distributions with the same shapes and
+difficulty *ordering* (mnist < fmnist < cifar <= cinic) so the paper's
+*relative* claims (rounds-to-target per aggregation method) can be
+reproduced.  Construction per class:
+
+  template_c  = smoothed random field (low-frequency, class-specific)
+  x           = a * template_c + b * distractor + sigma * noise,
+
+with per-sample amplitude jitter, a shared distractor field (makes classes
+non-orthogonal), and per-dataset noise levels.  Labels are balanced.
+
+A numpy copy of the JAX package's ``repro.data.synthetic`` (same seed,
+bit-identical arrays); the token-stream LM task waits for the LLM slice.
+"""
+from __future__ import annotations
+
+import zlib
+from typing import NamedTuple
+
+import numpy as np
+
+SPECS = {
+    #              H   W  C  noise  distract
+    "mnist":      (28, 28, 1, 0.90, 0.6),
+    "fmnist":     (28, 28, 1, 1.20, 0.9),
+    "cifar":      (32, 32, 3, 1.60, 1.2),
+    "cinic":      (32, 32, 3, 1.90, 1.4),
+}
+
+N_CLASSES = 10
+
+
+class Dataset(NamedTuple):
+    x: np.ndarray          # (n, H, W, C) float32 in ~[-1, 2]
+    y: np.ndarray          # (n,) int32
+
+
+def _smooth_field(rng: np.random.Generator, h: int, w: int, c: int,
+                  cutoff: int = 6) -> np.ndarray:
+    """Low-frequency random field via truncated 2-D Fourier synthesis."""
+    field = np.zeros((h, w, c), np.float32)
+    ys = np.linspace(0, 2 * np.pi, h, endpoint=False)[:, None, None]
+    xs = np.linspace(0, 2 * np.pi, w, endpoint=False)[None, :, None]
+    for fy in range(cutoff):
+        for fx in range(cutoff):
+            amp = rng.normal(size=(1, 1, c)) / (1.0 + fy + fx)
+            phase = rng.uniform(0, 2 * np.pi, size=(1, 1, c))
+            field += (amp * np.cos(fy * ys + fx * xs + phase)).astype(
+                np.float32)
+    field /= max(np.abs(field).max(), 1e-6)
+    return field
+
+
+def make_dataset(name: str, n_per_class: int, seed: int = 42,
+                 split: str = "train") -> Dataset:
+    h, w, c, noise, distract = SPECS[name]
+    # class templates depend only on (name, seed); train/test share them
+    # zlib.crc32: stable across processes (python's hash() is salted,
+    # which would silently break the paper's fixed-seed-42 reproducibility)
+    trng = np.random.default_rng(np.random.SeedSequence(
+        [seed, zlib.crc32(name.encode())]))
+    templates = np.stack([_smooth_field(trng, h, w, c)
+                          for _ in range(N_CLASSES)])
+    distractor = _smooth_field(trng, h, w, c)
+
+    srng = np.random.default_rng(np.random.SeedSequence(
+        [seed, zlib.crc32(name.encode()), 0 if split == "train" else 1]))
+    n = n_per_class * N_CLASSES
+    y = np.repeat(np.arange(N_CLASSES, dtype=np.int32), n_per_class)
+    srng.shuffle(y)
+    amp = srng.uniform(0.7, 1.3, size=(n, 1, 1, 1)).astype(np.float32)
+    damp = srng.normal(0, 1, size=(n, 1, 1, 1)).astype(np.float32)
+    eps = srng.normal(0, 1, size=(n, h, w, c)).astype(np.float32)
+    x = (amp * templates[y] + distract * damp * distractor[None]
+         + noise * eps)
+    return Dataset(x.astype(np.float32), y)

@@ -1,0 +1,106 @@
+"""Build the port's CUDA C++ kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
+plain C interface: ``build/kernels/<name>-<hash>.so`` at the root of the
+checkout, where ``<hash>`` covers the source and the compiler flags.  A
+library is built at first use and rebuilt only when that hash changes.
+Linking against nothing of PyTorch keeps a build to seconds (a source that
+includes PyTorch's headers takes minutes).  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source; the message carries its output."""
+
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise KernelBuildError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the port's kernels are built from source")
+
+
+def sources() -> list[str]:
+    """Names of every kernel source under ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in sorted(CSRC.glob("*.cuh")):
+        h.update(dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, float]:
+    """Compile the named sources (default: all) whose library is missing.
+
+    One nvcc per source, all started together.  Returns the seconds each
+    build took (0.0 when its library was already there).  Raises
+    :class:`KernelBuildError` with nvcc's output if any build fails; the
+    ptxas report of a successful build is kept beside the library as
+    ``<name>.log``.
+    """
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {n: 0.0 for n in names}
+    running = []
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, target, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, target, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed on {name}.cu (exit "
+                            f"{proc.returncode}):\n{log}")
+            continue
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        os.replace(tmp, target)         # atomic: readers see all or nothing
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

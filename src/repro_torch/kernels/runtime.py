@@ -1,0 +1,104 @@
+"""Backend policy and launch counters shared by the port's kernel wrappers.
+
+* :func:`resolve_backend` -- ``"auto"`` is ``"kernel"`` for tensors on a
+  CUDA device and ``"ref"`` for tensors on the CPU; nothing else is
+  consulted.  ``"pallas"`` (the JAX package's name) is an alias of
+  ``"kernel"``.
+* :data:`LAUNCHES` -- one plain count per kernel, raised by its wrapper
+  right after a launch succeeded and nowhere else; :data:`PLAIN_CALLS`
+  counts calls of each kernel's plain PyTorch version.
+* :func:`bench_env` -- the header every measurement prints.
+"""
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+BACKENDS = ("auto", "ref", "kernel", "distributed")
+_ALIASES = {"pallas": "kernel"}
+KERNELS = ("packed_agg", "rbla_agg")
+
+#: kernel launches per kernel since the last :func:`reset_counts`
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: plain-version calls per kernel since the last :func:`reset_counts`
+PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
+
+
+def resolve_backend(backend: str, device) -> str:
+    """``"auto" | "ref" | "kernel"`` (or alias) -> ``"ref" | "kernel"``."""
+    backend = _ALIASES.get(backend, backend)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: "
+                         f"{BACKENDS + tuple(_ALIASES)}")
+    if backend == "distributed":
+        raise NotImplementedError(
+            "backend='distributed' (torch.distributed aggregation) is not "
+            "ported yet; it arrives with ROADMAP queue 1 item 18")
+    if backend == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "ref"
+    return backend
+
+
+def use_kernel(backend: str, x: torch.Tensor, name: str) -> bool:
+    """A wrapper's choice for tensor ``x``: launch the kernel (True) or run
+    the plain version (False, only ever for a CPU tensor).  A CUDA tensor
+    always launches; asking for the kernel on a CPU tensor raises."""
+    kind = resolve_backend(backend, x.device)
+    if x.is_cuda:
+        if kind != "kernel":
+            raise ValueError(f"{name}: a CUDA tensor always takes the kernel; "
+                             f"backend={backend!r} asks for the plain version "
+                             f"(call {name}_ref directly)")
+        return True
+    if kind == "kernel":
+        raise ValueError(f"{name}: backend={backend!r} needs CUDA tensors; "
+                         f"got a tensor on {x.device}")
+    return False
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
+                           "False; pass device='cpu' to run the plain path")
+    return device
+
+
+def full_fp32() -> None:
+    """fp32 matmuls and convolutions in full fp32 on the card: cuDNN's
+    convolutions default to TF32 (about three decimal digits), which would
+    put the port's models outside the reference's tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _nvidia_smi() -> str | None:
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return res.stdout.strip()
+
+
+def bench_env() -> dict:
+    """torch and CUDA versions, and the card's name and power limit as
+    ``nvidia-smi`` reports them (None where there is no card)."""
+    cuda = torch.cuda.is_available()
+    return {
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "device_kind": torch.cuda.get_device_name(0) if cuda else None,
+        "n_devices": torch.cuda.device_count() if cuda else 0,
+        "nvidia_smi": _nvidia_smi() if cuda else None,
+    }

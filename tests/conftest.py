@@ -13,3 +13,5 @@ except ImportError:                     # container without hypothesis: stub it
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where CUDA is absent")

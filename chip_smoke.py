@@ -18,8 +18,18 @@ Phases, each printing JSON lines:
   the card; the kernel run must reproduce it;
 * one_round -- one round each of rbla_norm (the norm_restore path) and
   zeropad;
+* flora -- three flora rounds at ``stack_r_cap=512``: rounds 1 and 3 stack
+  (one packed_stack launch per bucket), round 2 re-projects every pair by
+  SVD; the same rounds with the plain versions on the card must agree, and
+  one round at the default cap (2 r_max) re-projects and stacks nothing;
+* robust -- one round each of rbla_clipped, rbla_trimmed and rbla_median
+  (one packed_robust launch per bucket), each against its plain round;
+  then rbla_clipped's cohort again at a clip that fires on half its rows;
+* svd -- one svd round, against its plain round in product space;
 * per_pair -- the last main-path cohort again through the per-pair
-  rbla_agg path, held against the plan's result.
+  rbla_agg path, the last flora cohort within the cap through flora_stack
+  and the last robust cohort through per-pair packed_robust, each held
+  against its plan's result.
 
 Then the ``{"kernels": [...]}`` summary, the card's line from nvidia-smi,
 and the device summary as the last line.  Any failure ends the run with a
@@ -42,11 +52,25 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 REPLACES = {
     "packed_agg": "src/repro/kernels/rbla_agg/kernel.py:115",
     "rbla_agg": "src/repro/kernels/rbla_agg/kernel.py:473",
+    "packed_robust": "src/repro/kernels/rbla_agg/kernel.py:256",
+    "packed_stack": "src/repro/kernels/rbla_agg/kernel.py:335",
+    "flora_stack": "src/repro/kernels/rbla_agg/kernel.py:390",
 }
-SOURCE = "src/repro_torch/kernels/csrc/rbla_agg.cu"
+_CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {"packed_agg": _CSRC + "rbla_agg.cu", "rbla_agg": _CSRC + "rbla_agg.cu",
+          "packed_robust": _CSRC + "packed_robust.cu",
+          "packed_stack": _CSRC + "flora_stack.cu",
+          "flora_stack": _CSRC + "flora_stack.cu"}
 MLP_BUCKETS = ((64, 784), (256, 200), (64, 10))   # (rows, width), r_max=64
 MLP_PAIR_SIDES = ((64, 784, 1), (64, 200, 4), (64, 10, 1))  # + count/round
 N_CLIENTS = 10
+ROBUST_MODES = ("clipped", "trimmed", "median")
+#: flora's per-pair sides (width, count per round) at cap 512: A widths
+#: 784, 200, 200 and transposed-B widths 200, 200, 10
+FLORA_PAIR_SIDES = ((784, 1), (200, 4), (10, 1))
+#: the segments of a flora round within the cap: the global at live rank 64
+#: first, then the staircase cohort's ranks
+FLORA_SEGS = (64, 6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
 
 
 def emit(obj) -> None:
@@ -171,9 +195,164 @@ def check_rbla_case(n, r, d, dtype, method, seed):
     return case
 
 
+def _robust_bytes(x, masks, weights, prev, scales, out_dtype):
+    """Bytes packed_robust must move: the owned rows of x, the masks,
+    weights and scales, the prev rows of rows no client owns, the output."""
+    n, r, d = x.shape
+    owned = masks > 0
+    b = int(owned.sum()) * d * x.element_size() + masks.numel() * 4 + n * 4
+    b += r * d * out_dtype.itemsize
+    if scales is not None:
+        b += scales.numel() * 4
+    if prev is not None:
+        b += int((owned.sum(0) == 0).sum()) * d * out_dtype.itemsize
+    return b
+
+
+def check_robust_case(n, r, d, x_dtype, out_dtype, mode, with_prev, seed):
+    import math
+    import torch
+    from repro_torch.kernels.rbla_agg import packed_robust, packed_robust_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with_scales = x_dtype == torch.int8
+    x, _, masks, weights, prev, scales = _agg_inputs(
+        n, r, d, x_dtype, gen, with_prev, with_scales, out_dtype)
+    kw = dict(mode=mode, clip_norm=2.5, trim_frac=0.2, scales=scales,
+              out_dtype=out_dtype)
+    got = packed_robust(x, masks, weights, prev, **kw)
+    want = packed_robust_ref(x, masks, weights, prev, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    scale = max(1.0, float(want.float().abs().max()))
+    if out_dtype == torch.bfloat16:
+        # element by element: both round one fp32 result to bf16 once, so
+        # they differ by at most one bf16 ulp (<= 2^-7 |want|), plus the
+        # fp32 summation-order error where a mean cancels near zero
+        tol = 2.0 ** -7 * want.float().abs() + 1e-6 * scale
+    else:
+        tol = torch.full_like(diff, 2e-5 * scale)
+    err_over_tol = float((diff / tol).max())
+    ms = time_ms(lambda: packed_robust(x, masks, weights, prev, **kw))
+    plain_ms = time_ms(lambda: packed_robust_ref(x, masks, weights, prev,
+                                                 **kw))
+    # the least work: clipped 2 passes of a multiply-add per owned element,
+    # the order statistics n*log2(n) comparisons per element
+    per_elem = 4 if mode == "clipped" else n * max(1, math.ceil(math.log2(n)))
+    bms, by = bound(_robust_bytes(x, masks, weights, prev, scales, out_dtype),
+                    per_elem * r * d)
+    case = {"kernel": "packed_robust", "shape": [n, r, d], "mode": mode,
+            "x_dtype": str(x_dtype).split(".")[-1],
+            "out_dtype": str(out_dtype).split(".")[-1], "prev": with_prev,
+            "max_abs_err": err, "max_err_over_tol": err_over_tol,
+            "tol": ("2^-7 |want| + 1e-6 max(1, max|want|) per element"
+                    if out_dtype == torch.bfloat16 else 2e-5 * scale),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    emit(case)
+    if not err_over_tol <= 1.0:
+        raise AssertionError(f"packed_robust disagrees with its plain "
+                             f"version: {case}")
+    return case
+
+
+def _stack_bytes(table, x):
+    """Bytes a stack must move: the copied source rows, the table, the
+    output."""
+    rows = table.rows
+    d = x.shape[-1]
+    copied = int((rows[:, 0] != -2).sum())
+    return (copied * d * x.element_size() + rows.size * 4
+            + rows.shape[0] * d * x.element_size())
+
+
+def check_stack_case(label, x, scales, prev, copies_x, copies_prev, out_rows,
+                     table):
+    """packed_stack on the card against its plain version: both are one
+    fp32 multiply per element, so they agree exactly."""
+    import torch
+    from repro_torch.kernels.rbla_agg import packed_stack, packed_stack_ref
+    kw = dict(copies_x=copies_x, copies_prev=copies_prev, out_rows=out_rows)
+    got = packed_stack(x, scales, prev, table=table, **kw)
+    want = packed_stack_ref(x, scales, prev, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ms = time_ms(lambda: packed_stack(x, scales, prev, table=table, **kw))
+    plain_ms = time_ms(lambda: packed_stack_ref(x, scales, prev, **kw))
+    bms, by = bound(_stack_bytes(table, x), out_rows * x.shape[-1])
+    case = {"kernel": "packed_stack", "case": label,
+            "shape": [*x.shape, out_rows], "x_dtype": str(x.dtype).split(".")[-1],
+            "max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    emit(case)
+    if err != 0.0:
+        raise AssertionError(f"packed_stack disagrees with its plain "
+                             f"version: {case}")
+    return case
+
+
+def check_flora_case(label, x, scales, segs, out_rows):
+    import torch
+    from repro_torch.kernels.rbla_agg import (flora_stack, flora_stack_ref,
+                                              flora_table)
+    got = flora_stack(x, scales, segs=segs, out_rows=out_rows)
+    want = flora_stack_ref(x, scales, segs, out_rows)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ms = time_ms(lambda: flora_stack(x, scales, segs=segs, out_rows=out_rows))
+    plain_ms = time_ms(lambda: flora_stack_ref(x, scales, segs, out_rows))
+    table = flora_table(tuple(segs), out_rows, x.shape[1])
+    bms, by = bound(_stack_bytes(table, x), out_rows * x.shape[-1])
+    case = {"kernel": "flora_stack", "case": label,
+            "shape": [*x.shape, out_rows], "x_dtype": str(x.dtype).split(".")[-1],
+            "max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    emit(case)
+    if err != 0.0:
+        raise AssertionError(f"flora_stack disagrees with its plain "
+                             f"version: {case}")
+    return case
+
+
+def _flora_plan_layouts(r_max=64, cap=512):
+    """The packed_stack buckets of a main-path flora round (the staircase
+    cohort at r_max storage, a global of live rank r_max at cap storage):
+    the real plan's copy lists and tables, with inputs of its shapes."""
+    import torch
+    from repro_torch.core import plan as tplan
+    from repro_torch.core.strategy import get_strategy, stack_trees
+    from repro_torch.models.paper_nets import PAPER_MODELS
+    ranks = (6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
+    specs = PAPER_MODELS["mlp"]().lora_specs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def pair(fo, fi, storage, rank):
+        return {"A": torch.randn(storage, fi, generator=gen, device="cuda"),
+                "B": torch.randn(fo, storage, generator=gen, device="cuda"),
+                "rank": torch.tensor(rank, dtype=torch.int32, device="cuda")}
+    clients = [{k: pair(fo, fi, r_max, r) for k, (fo, fi) in specs.items()}
+               for r in ranks]
+    prev = {k: pair(fo, fi, cap, r_max) for k, (fo, fi) in specs.items()}
+    round_ = get_strategy("flora").with_options(stack_r_cap=cap).plan(
+        None, tplan.build_cohort_spec(stack_trees(clients), kind="kernel",
+                                      r_max=r_max, prev_tree=prev))
+    return round_.stack_layouts
+
+
+def _stack_inputs(lay, n, gen):
+    import torch
+    n_scales = lay["table"].n_scales
+    d = lay["width"]
+    x = torch.randn(n, lay["r_in"], d, generator=gen, device="cuda")
+    prev = torch.randn(lay["r_prev"], d, generator=gen, device="cuda")
+    scales = torch.rand(n_scales, generator=gen, device="cuda") + 0.5
+    return x, scales, prev
+
+
 def phase_kernels() -> dict:
-    """Every case of both kernels; returns the per-kernel summary rows
-    (times summed over one main-path round's launches)."""
+    """Every case of every kernel; returns the per-kernel summary rows
+    (times summed over one main-path round's launches: for packed_robust
+    one round of each robust method)."""
     import torch
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     seed = 0
@@ -196,6 +375,57 @@ def phase_kernels() -> dict:
                 seed += 1
                 rbla.append(check_rbla_case(N_CLIENTS, r, d, dtype, method,
                                             seed))
+
+    robust = []
+    for n, r, d in shapes:
+        for mode in ROBUST_MODES:
+            for with_prev in (False, True):
+                for x_dtype, out_dtype in ((f32, f32), (bf16, bf16),
+                                           (i8, f32)):
+                    seed += 1
+                    robust.append(check_robust_case(
+                        n, r, d, x_dtype, out_dtype, mode, with_prev, seed))
+    # the smallest sort network, the 64-slot one, selection by counting
+    for n in (1, 33, 70):
+        for mode in ROBUST_MODES:
+            seed += 1
+            robust.append(check_robust_case(n, 64, 784, f32, f32, mode, True,
+                                            seed))
+
+    from repro_torch.kernels.rbla_agg import stack_table
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    stack = []
+    for lay in _flora_plan_layouts():
+        x, scales, prev = _stack_inputs(lay, N_CLIENTS, gen)
+        stack.append(check_stack_case(
+            f"plan bucket {lay['width']}", x, scales, prev, lay["copies_x"],
+            lay["copies_prev"], lay["out_rows"], lay["table"]))
+    # large: a prev block, then 200 rows of each client; the tail is zero
+    big_x = [(i, 0, 1024 + 200 * i, 200, 1 + i) for i in range(N_CLIENTS)]
+    big_prev = [(0, 0, 1024, 0)]
+    big_table = stack_table(big_x, big_prev, out_rows=4096, n=N_CLIENTS,
+                            r_in=2048, r_prev=2048, n_scales=N_CLIENTS + 1)
+    for dtype in (f32, bf16):
+        x = torch.randn(N_CLIENTS, 2048, 4096, generator=gen,
+                        device="cuda").to(dtype)
+        prev = torch.randn(2048, 4096, generator=gen, device="cuda").to(dtype)
+        scales = torch.rand(N_CLIENTS + 1, generator=gen, device="cuda")
+        stack.append(check_stack_case("large", x, scales, prev, big_x,
+                                      big_prev, 4096, big_table))
+    flora = []
+    for d, _ in FLORA_PAIR_SIDES:
+        for dtype in (f32, bf16):
+            x = torch.randn(N_CLIENTS + 1, 512, d, generator=gen,
+                            device="cuda").to(dtype)
+            scales = torch.rand(N_CLIENTS + 1, generator=gen, device="cuda")
+            flora.append(check_flora_case(f"per-pair {d}", x, scales,
+                                          FLORA_SEGS, 512))
+    for dtype in (f32, bf16):
+        x = torch.randn(N_CLIENTS, 2048, 4096, generator=gen,
+                        device="cuda").to(dtype)
+        scales = torch.rand(N_CLIENTS, generator=gen, device="cuda")
+        flora.append(check_flora_case("large", x, scales,
+                                      (200,) * N_CLIENTS, 4096))
 
     def main_path_sum(cases, match, counts):
         rows = {}
@@ -220,10 +450,28 @@ def phase_kernels() -> dict:
         lambda c, key: (tuple(c["shape"][1:]) == key[:2]
                         and c["x_dtype"] == "float32" and c["method"] == "rbla"),
         {s: s[2] for s in MLP_PAIR_SIDES})
+    # one round of each robust method: its three buckets, fp32, with prev
+    rb = main_path_sum(
+        robust,
+        lambda c, key: (tuple(c["shape"]) == (N_CLIENTS,) + key[1]
+                        and c["mode"] == key[0] and c["x_dtype"] == "float32"
+                        and c["prev"]),
+        {(m, b): 1 for m in ROBUST_MODES for b in MLP_BUCKETS})
+    # one stacking round: the plan's three buckets
+    st = main_path_sum(stack, lambda c, key: c["case"] == key,
+                       {f"plan bucket {w}": 1 for w in (784, 200, 10)})
+    # one per-pair flora round: every A and transposed B side, fp32
+    fl = main_path_sum(
+        flora, lambda c, key: (c["case"] == f"per-pair {key[0]}"
+                               and c["x_dtype"] == "float32"),
+        {side: side[1] for side in FLORA_PAIR_SIDES})
     summary = {}
-    for name, cases, row in (("packed_agg", packed, pk), ("rbla_agg", rbla, rk)):
+    for name, cases, row in (("packed_agg", packed, pk), ("rbla_agg", rbla, rk),
+                             ("packed_robust", robust, rb),
+                             ("packed_stack", stack, st),
+                             ("flora_stack", flora, fl)):
         summary[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": None,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -241,32 +489,46 @@ MAIN_CFG = dict(dataset="mnist", model="mlp", method="rbla", rounds=6,
 
 
 class Recorder:
-    """Wraps a strategy's ``aggregate`` for one run and keeps the last
-    round's (incoming state, updates, returned state)."""
+    """Wraps ``AggregationStrategy.aggregate`` for one run (on the class, so
+    the configured copies a run makes with ``with_options`` are seen too).
+    Keeps the strategy instance, the last round's (incoming state, updates,
+    returned state), and per round the kernel launches it made and the
+    plan it ran (its launches and the pairs it re-projected)."""
 
-    def __init__(self, strategy):
-        self.strategy, self.last = strategy, None
-        orig = strategy.aggregate
+    def __init__(self):
+        from repro_torch.core.strategy import AggregationStrategy
+        from repro_torch.kernels import runtime
+        self.cls, self.orig = AggregationStrategy, AggregationStrategy.aggregate
+        self.strategy, self.last, self.rounds = None, None, []
+        orig = self.orig
 
-        def spy(state, updates, *a, **k):
+        def spy(strategy, state, updates, *a, **k):
             updates = list(updates)
-            out = orig(state, updates, *a, **k)
-            self.last = (state, updates, out)
+            before = dict(runtime.LAUNCHES)
+            out = orig(strategy, state, updates, *a, **k)
+            plans = list(strategy.__dict__.get("_plan_cache", {}).values())
+            self.rounds.append({
+                "launches": {n: runtime.LAUNCHES[n] - before[n]
+                             for n in runtime.KERNELS
+                             if runtime.LAUNCHES[n] != before[n]},
+                "plan_launches": plans[-1].n_kernel_launches,
+                "fallback_pairs": plans[-1].n_fallback_pairs})
+            self.strategy, self.last = strategy, (state, updates, out)
             return out
-        strategy.aggregate = spy
+        AggregationStrategy.aggregate = spy
 
     def close(self):
-        del self.strategy.aggregate          # back to the class's method
+        self.cls.aggregate = self.orig
 
 
 def drive(cfg_kw: dict):
     """One ``run_simulation`` on the card with fresh counts; returns the
-    history, the launch and plain-call counts, and the recorded last round."""
+    history, the launch and plain-call counts, the recorded last round,
+    the seconds and the per-round record."""
     import torch
-    from repro_torch.core.strategy import get_strategy
     from repro_torch.fl import FLConfig, run_simulation
     from repro_torch.kernels import runtime
-    rec = Recorder(get_strategy(cfg_kw["method"]))
+    rec = Recorder()
     try:
         runtime.reset_counts()
         t0 = time.perf_counter()
@@ -276,7 +538,7 @@ def drive(cfg_kw: dict):
         launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
     finally:
         rec.close()
-    return hist, launches, plain, rec.last, seconds
+    return hist, launches, plain, rec.last, seconds, rec
 
 
 def _leaves_on_card(tree) -> list:
@@ -303,7 +565,7 @@ def _rel_err(got_tree, want_tree) -> tuple[float, float]:
 
 def phase_main_path():
     from repro_torch.core.strategy import get_strategy
-    hist, launches, plain, last, secs = drive(MAIN_CFG)
+    hist, launches, plain, last, secs, rec = drive(MAIN_CFG)
     plans = list(get_strategy("rbla").__dict__.get("_plan_cache", {}).values())
     buckets = sorted({p.n_kernel_launches for p in plans})
     emit({"phase": "main_path", "method": "rbla", "config": MAIN_CFG,
@@ -323,13 +585,13 @@ def phase_main_path():
                              "above chance")
     _leaves_on_card(last[2].adapters)
     _leaves_on_card(last[2].base_trainable)
-    return hist, launches, last
+    return hist, launches, last, rec
 
 
 def phase_plain_reference(hist, last):
     """The same run with the plain versions aggregating on the card: the
     kernels' rounds must reproduce it (same init, same batches)."""
-    ref_hist, launches, plain, ref_last, secs = drive(
+    ref_hist, launches, plain, ref_last, secs, _ = drive(
         dict(MAIN_CFG, agg_backend="ref"))
     err, scale = _rel_err(last[2].adapters, ref_last[2].adapters)
     acc_gap = max(abs(a - b) for a, b in zip(hist.test_acc, ref_hist.test_acc))
@@ -345,7 +607,7 @@ def phase_plain_reference(hist, last):
 
 def phase_other_methods():
     for method in ("rbla_norm", "zeropad"):
-        hist, launches, plain, last, secs = drive(
+        hist, launches, plain, last, secs, _ = drive(
             dict(MAIN_CFG, method=method, rounds=1))
         emit({"phase": "one_round", "method": method,
               "test_acc": hist.test_acc, "seconds": secs,
@@ -356,30 +618,180 @@ def phase_other_methods():
         _leaves_on_card(last[2].adapters)
 
 
-def phase_per_pair(last) -> dict:
-    """The last main-path cohort again through the per-pair kernel path
-    (two rbla_agg launches per pair), held against the plan's result."""
+def _products(tree) -> dict:
+    """Each pair's product ``B @ A`` (fp32): what serving applies, and
+    free of the signs an SVD leaves arbitrary."""
+    from repro_torch.lora import is_pair
+    return {k: p["B"].float() @ p["A"].float() for k, p in tree.items()
+            if is_pair(p)}
+
+
+def _product_err(got_tree, want_tree) -> tuple[float, float]:
+    err = scale = 0.0
+    g, w = _products(got_tree), _products(want_tree)
+    for k in w:
+        err = max(err, float((g[k] - w[k]).abs().max()))
+        scale = max(scale, float(w[k].abs().max()))
+    return err, scale
+
+
+def _against_plain(cfg_kw, hist, last, phase):
+    """The same run aggregating with the plain versions on the card: the
+    same accuracy, and adapters within 1e-4 of max|B @ A| in product space
+    (the kernels and the plain versions do the same fp32 arithmetic; the
+    tolerance covers a different summation order)."""
+    ref_hist, launches, plain, ref_last, secs, _ = drive(
+        dict(cfg_kw, agg_backend="ref"))
+    err, scale = _product_err(last[2].adapters, ref_last[2].adapters)
+    emit({"phase": phase + "_plain", "test_acc": ref_hist.test_acc,
+          "seconds": secs, "plain_calls": plain,
+          "product_max_abs_err": err, "tol": 1e-4 * scale})
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: the ref backend launched {launches}")
+    if ref_hist.test_acc != hist.test_acc or not err <= 1e-4 * scale:
+        raise AssertionError(f"{phase}: kernel rounds disagree with plain "
+                             f"rounds ({hist.test_acc} vs "
+                             f"{ref_hist.test_acc}, err {err})")
+
+
+#: flora at a cap the quickstart cohort (ranks 6..64, sum 352) alternates
+#: under: 64 + 352 = 416 rows stack in round 1, 416 + 352 = 768 > 512
+#: re-project to 64 in round 2, and round 3 stacks 416 again
+FLORA_CFG = dict(MAIN_CFG, method="flora", stack_r_cap=512, rounds=3)
+
+
+def phase_flora():
+    hist, launches, plain, last, secs, rec = drive(FLORA_CFG)
+    per_round = [(r["launches"].get("packed_stack", 0), r["fallback_pairs"])
+                 for r in rec.rounds]
+    live = sorted({int(p["rank"]) for p in last[2].adapters.values()})
+    emit({"phase": "flora", "config": FLORA_CFG, "test_acc": hist.test_acc,
+          "round_time_s": hist.round_time_s, "seconds": secs,
+          "launches": launches, "plain_calls": plain,
+          "rounds": rec.rounds, "live_rank": live})
+    if per_round != [(3, 0), (0, 3), (3, 0)]:
+        raise AssertionError(f"flora rounds (packed_stack launches, "
+                             f"re-projected pairs): {per_round}")
+    if launches["packed_stack"] != 6 or any(plain.values()) or live != [416]:
+        raise AssertionError(f"flora: launches {launches}, plain {plain}, "
+                             f"live rank {live}")
+    _leaves_on_card(last[2].adapters)
+    _against_plain(FLORA_CFG, hist, last, "flora")
+
+    # the default cap (2 r_max = 128) never stacks this cohort
+    hist1, launches1, _, _, secs1, rec1 = drive(
+        dict(MAIN_CFG, method="flora", rounds=1))
+    emit({"phase": "flora_default_cap", "test_acc": hist1.test_acc,
+          "seconds": secs1, "launches": launches1, "rounds": rec1.rounds})
+    if launches1["packed_stack"] != 0 or rec1.rounds[0]["fallback_pairs"] != 3:
+        raise AssertionError(f"flora at the default cap: {rec1.rounds}")
+    return launches, rec
+
+
+def phase_robust():
+    out = {}
+    for method in ("rbla_clipped", "rbla_trimmed", "rbla_median"):
+        cfg = dict(MAIN_CFG, method=method, rounds=1)
+        hist, launches, plain, last, secs, rec = drive(cfg)
+        emit({"phase": "robust", "method": method, "test_acc": hist.test_acc,
+              "seconds": secs, "launches": launches, "plain_calls": plain})
+        if launches["packed_robust"] != 3 or any(plain.values()):
+            raise AssertionError(f"{method}: launches {launches}, plain "
+                                 f"{plain}")
+        _leaves_on_card(last[2].adapters)
+        _against_plain(cfg, hist, last, method)
+        out[method] = (launches, rec)
+    return out
+
+
+def _row_norms(updates):
+    """The L2 norm of every owned rank-row the clip sees: each client's
+    live A rows and B columns (the packed rows of the robust plan)."""
     import torch
-    from repro_torch.core.strategy import get_strategy
+    from repro_torch.lora import is_pair
+    norms = []
+    for u in updates:
+        for p in u.adapters.values():
+            if is_pair(p):
+                r = int(p["rank"])
+                norms += [p["A"][:r].float().norm(dim=-1),
+                          p["B"][:, :r].float().norm(dim=0)]
+    return torch.cat(norms)
+
+
+def phase_robust_clip(rec):
+    """rbla_clipped's round again at a clip that fires.  The default clip
+    (100) is above every rank-row of this cohort, so that round is plain
+    rbla; at the median row norm half the rows clip.  The kernel plan must
+    match its plain version and differ from the unclipped round."""
+    import torch
     from repro_torch.kernels import runtime
-    prev_state, updates, out_state = last
+    prev_state, updates, out_state = rec.last
+    norms = _row_norms(updates)
+    clip = float(norms.median())
+    strat = rec.strategy.with_options(clip_norm=clip)
+    args = ([u.adapters for u in updates], [u.n_examples for u in updates])
+    kw = dict(r_max=MAIN_CFG["r_max"], prev_global=prev_state.adapters,
+              client_ranks=torch.tensor([u.rank for u in updates],
+                                        dtype=torch.int32, device="cuda"))
+    runtime.reset_counts()
+    got = strat.aggregate_adapters(*args, **kw)
+    torch.cuda.synchronize()
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    want = strat.aggregate_adapters(*args, backend="ref", **kw)
+    err, scale = _rel_err(got, want)
+    moved, _ = _rel_err(got, out_state.adapters)
+    emit({"phase": "robust_clip_fires", "rows": norms.numel(),
+          "rows_over_default_clip": int((norms > rec.strategy.clip_norm).sum()),
+          "clip_norm": clip, "rows_clipped": int((norms > clip).sum()),
+          "launches": launches, "plain_calls": plain, "max_abs_err": err,
+          "tol": 2e-5 * scale, "moved_from_default_clip": moved})
+    if launches["packed_robust"] != 3 or any(plain.values()):
+        raise AssertionError(f"robust_clip_fires: launches {launches}, "
+                             f"plain {plain}")
+    if not err <= 2e-5 * scale:
+        raise AssertionError("robust_clip_fires: the kernel plan disagrees "
+                             "with its plain version")
+    if not (int((norms > clip).sum()) > 0 and moved > 100 * 2e-5 * scale):
+        raise AssertionError("robust_clip_fires: the clip did not change "
+                             "the round")
+    _leaves_on_card(got)
+
+
+def phase_svd():
+    cfg = dict(MAIN_CFG, method="svd", rounds=1)
+    hist, launches, plain, last, secs, _ = drive(cfg)
+    emit({"phase": "svd", "test_acc": hist.test_acc, "seconds": secs,
+          "launches": launches, "plain_calls": plain})
+    if any(plain.values()):
+        raise AssertionError(f"svd: plain {plain}")
+    _leaves_on_card(last[2].adapters)
+    _against_plain(cfg, hist, last, "svd")
+
+
+def phase_per_pair(rec, kernel, want_launches, tol_rel, phase):
+    """The recorded last cohort of ``rec`` through the strategy's per-pair
+    kernel path (``use_plan=False``), held against the plan's result."""
+    import torch
+    from repro_torch.kernels import runtime
+    prev_state, updates, out_state = rec.last
     ranks = torch.tensor([u.rank for u in updates], dtype=torch.int32,
                          device="cuda")
     runtime.reset_counts()
-    got = get_strategy("rbla").aggregate_adapters(
+    got = rec.strategy.aggregate_adapters(
         [u.adapters for u in updates], [u.n_examples for u in updates],
         r_max=MAIN_CFG["r_max"], client_ranks=ranks,
         prev_global=prev_state.adapters, use_plan=False)
     torch.cuda.synchronize()
     launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
     err, scale = _rel_err(got, out_state.adapters)
-    emit({"phase": "per_pair", "launches": launches, "plain_calls": plain,
-          "max_abs_err": err, "tol": 2e-5 * scale})
-    if launches["rbla_agg"] == 0 or any(plain.values()):
-        raise AssertionError(f"per-pair path: launches {launches}, plain "
-                             f"{plain}")
-    if not err <= 2e-5 * scale:
-        raise AssertionError("per-pair kernel path disagrees with the plan")
+    emit({"phase": phase, "launches": launches, "plain_calls": plain,
+          "max_abs_err": err, "tol": tol_rel * scale})
+    if launches[kernel] != want_launches or any(plain.values()):
+        raise AssertionError(f"{phase}: launches {launches}, plain {plain}")
+    if not err <= tol_rel * scale:
+        raise AssertionError(f"{phase}: the per-pair kernel path disagrees "
+                             "with the plan")
     _leaves_on_card(got)
     return launches
 
@@ -418,12 +830,28 @@ def main() -> int:
     summary = phase_kernels()
     emit({"phase": "kernels", "ok": True})
 
-    hist, main_launches, last = phase_main_path()
+    hist, main_launches, last, main_rec = phase_main_path()
     phase_plain_reference(hist, last)
     phase_other_methods()
-    pair_launches = phase_per_pair(last)
+    flora_launches, flora_rec = phase_flora()
+    robust = phase_robust()
+    phase_robust_clip(robust["rbla_clipped"][1])
+    phase_svd()
+    # the per-pair paths on each phase's last cohort: 2 launches a pair
+    pair_launches = phase_per_pair(main_rec, "rbla_agg", 6, 2e-5, "per_pair")
+    # the last flora cohort is round 3's, within the cap: pure copies with
+    # the plan's scale arithmetic up to its order (a few ulp of B)
+    stack_launches = phase_per_pair(flora_rec, "flora_stack", 6, 1e-6,
+                                    "per_pair_flora")
+    robust_launches = phase_per_pair(robust["rbla_median"][1],
+                                     "packed_robust", 6, 2e-5,
+                                     "per_pair_robust")
     summary["packed_agg"]["launches"] = main_launches["packed_agg"]
     summary["rbla_agg"]["launches"] = pair_launches["rbla_agg"]
+    summary["packed_robust"]["launches"] = sum(
+        launches["packed_robust"] for launches, _ in robust.values())
+    summary["packed_stack"]["launches"] = flora_launches["packed_stack"]
+    summary["flora_stack"]["launches"] = stack_launches["flora_stack"]
 
     emit({"kernels": list(summary.values())})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 """RBLA core: rank-based aggregation of heterogeneous LoRA adapters (Eq.
-6-7, Alg. 1-2), the mean-family strategy registry and its compiled plans."""
+6-7, Alg. 1-2), the strategy registry, its compiled plans and the factored
+low-rank engine."""
 from .masks import (axis_mask, pad_to_rank, rank_mask, slice_to_rank,
                     stacked_rank_masks)
 from .aggregation import fedavg_leaf, rbla_leaf, zeropad_leaf

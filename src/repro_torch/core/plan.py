@@ -11,14 +11,17 @@ A plan turns a round into
    rank multiset, so the whole ``(n, rows)`` owner-mask matrix is built on
    the host once per plan.  Layer-stacked pairs pack like everything else:
    layer ``l`` occupies its own rows with its own mask column.
-2. **Combine.**  One ``packed_agg`` launch per bucket (the plain version on
-   the ``ref`` backend), with ``prev_global`` retention and rbla_norm's
-   norm restoration fused in.
+2. **Combine.**  One launch per bucket (the plain version on the ``ref``
+   backend): ``packed_agg`` for the mean family, with ``prev_global``
+   retention and rbla_norm's norm restoration fused in; ``packed_robust``
+   for the robust family; ``packed_stack`` for flora's copy/scale
+   stacking.  svd buckets pairs by their full geometry instead and runs
+   one batched factored SVD per bucket (``repro_torch.core.lowrank``).
 3. **Cache.**  Plans are cached on the strategy instance keyed by the
    :class:`CohortSpec` (tree structure, shapes, dtypes, rank multiset,
-   backend, device) in a bounded LRU; see ``AggregationStrategy.plan``.
+   backend, device) and the strategy's ``plan_knobs`` in a bounded LRU;
+   see ``AggregationStrategy.plan``.
 
-This slice lowers the mean family (``plan_mode`` "mean" and "mean_norm").
 The per-leaf ``aggregate_tree*`` methods remain the plans' oracles.
 """
 from __future__ import annotations
@@ -29,7 +32,13 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import packed_agg, packed_agg_ref
+from repro_torch.kernels.rbla_agg import (packed_agg, packed_agg_ref,
+                                          packed_robust, packed_robust_ref,
+                                          packed_stack, packed_stack_ref,
+                                          stack_table)
+
+from .aggregation import _EPS
+from .masks import pad_to_rank
 
 PyTree = Any
 
@@ -84,9 +93,17 @@ class PairMeta:
     ranks: tuple               # flattened stacked rank values
     prev_a_shape: tuple | None = None
     prev_b_shape: tuple | None = None
+    prev_rank_shape: tuple | None = None
+    prev_ranks: tuple | None = None
 
     def rank_values(self) -> np.ndarray:
         return np.asarray(self.ranks, np.int64).reshape(self.rank_shape)
+
+    def prev_rank_values(self) -> np.ndarray | None:
+        if self.prev_ranks is None:
+            return None
+        return np.asarray(self.prev_ranks,
+                          np.int64).reshape(self.prev_rank_shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,8 +144,11 @@ def build_cohort_spec(stacked_tree: PyTree, *, kind: str,
             if path not in prev_pairs:
                 raise PlanUnavailable(f"prev tree missing pair at {path}")
             pp = prev_pairs[path]
+            prk = _host(pp["rank"])
             meta.update(prev_a_shape=tuple(pp["A"].shape),
-                        prev_b_shape=tuple(pp["B"].shape))
+                        prev_b_shape=tuple(pp["B"].shape),
+                        prev_rank_shape=tuple(prk.shape),
+                        prev_ranks=tuple(int(v) for v in prk.ravel()))
         pairs.append(PairMeta(**meta))
     if not pairs:
         raise PlanUnavailable("no LoRA pairs in the cohort tree")
@@ -279,17 +299,21 @@ class CompiledRound:
 
     ``__call__(stacked_tree, weights, prev_tree=None)`` runs the round.
     ``kind`` is "packed" (one launch per bucket) or "eager" (the per-leaf
-    path); ``n_kernel_launches`` is the packed plan's launches per round
-    (#buckets).
+    path); ``n_kernel_launches`` is the packed plan's device computations
+    per round (#buckets, plus one per pair re-projected by SVD);
+    ``n_fallback_pairs`` counts the pairs a packed plan still routes
+    through reference pair math (flora's over-cap re-projection).
     """
 
     def __init__(self, strategy, spec: CohortSpec, kind: str,
-                 execute: Callable, *, n_kernel_launches: int | None = None):
+                 execute: Callable, *, n_kernel_launches: int | None = None,
+                 n_fallback_pairs: int = 0):
         self.strategy = strategy
         self.spec = spec
         self.kind = kind
         self._execute = execute
         self.n_kernel_launches = n_kernel_launches
+        self.n_fallback_pairs = n_fallback_pairs
 
     def __call__(self, stacked_tree: PyTree, weights,
                  prev_tree=None) -> PyTree:
@@ -298,13 +322,15 @@ class CompiledRound:
         return self._execute(stacked_tree, w, prev_tree)
 
 
-def _out_rank_leaves(spec: CohortSpec) -> list:
-    """Finalized rank leaves: r_max (or the storage rank) everywhere."""
-    return [torch.full(tuple(meta.rank_shape[1:]),
-                       int(spec.r_max if spec.r_max is not None
-                           else meta.a_shape[-2]),
+def _out_rank_leaves(spec: CohortSpec, r_out_per_pair=None) -> list:
+    """Finalized rank leaves: r_max (or the storage rank) everywhere, or
+    each pair's own output rank (stack plans)."""
+    if r_out_per_pair is None:
+        r_out_per_pair = [spec.r_max if spec.r_max is not None
+                          else meta.a_shape[-2] for meta in spec.pairs]
+    return [torch.full(tuple(meta.rank_shape[1:]), int(r_out),
                        dtype=torch.int32, device=spec.device)
-            for meta in spec.pairs]
+            for meta, r_out in zip(spec.pairs, r_out_per_pair)]
 
 
 def _client_ranks(spec: CohortSpec):
@@ -329,6 +355,12 @@ def _build_mean_round(strategy, spec: CohortSpec,
     rank_leaves = _out_rank_leaves(spec)
     masks = [torch.as_tensor(b.mask, device=spec.device) for b in buckets]
     norm_by = strategy.norm_by
+    # the robust family reuses the packed buckets; its knobs are read here,
+    # once, and are part of the plan's cache key (strategy.plan_knobs)
+    robust = strategy.robustness
+    robust_kw = (dict(mode=robust, clip_norm=float(strategy.clip_norm),
+                      trim_frac=float(strategy.trim_frac))
+                 if robust != "none" else None)
     rebuild = [None]
 
     def execute(stacked_tree, w, prev_tree):
@@ -345,7 +377,14 @@ def _build_mean_round(strategy, spec: CohortSpec,
             if retains:
                 prev = _gather([_pack_prev_side(prev_ab[s.pair_idx][s.side],
                                                 s) for s in b.slots], dim=0)
-            if spec.kind == "kernel":
+            if robust_kw is not None:
+                if spec.kind == "kernel":
+                    out = packed_robust(x, masks[bi], wt, prev,
+                                        backend="kernel", **robust_kw)
+                else:
+                    out = packed_robust_ref(x, masks[bi], wt, prev,
+                                            **robust_kw)
+            elif spec.kind == "kernel":
                 out = packed_agg(x, masks[bi], wt, prev, norm_by=norm_by,
                                  norm_restore=norm_restore, backend="kernel")
             else:
@@ -361,6 +400,244 @@ def _build_mean_round(strategy, spec: CohortSpec,
 
     return CompiledRound(strategy, spec, "packed", execute,
                          n_kernel_launches=len(buckets))
+
+
+# ------------------------------------------------------ packed stack plans --
+def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
+    """flora's packed plan: the stacking round is copies and scales at
+    host-known offsets, one ``packed_stack`` launch per (width, dtype)
+    bucket (the plain version on the ``ref`` backend).  Pairs whose
+    stacked rank exceeds the cap are re-projected by SVD through the
+    strategy's pair math in the same round."""
+    n = spec.n_clients
+
+    # ---- static per-pair stacking geometry ------------------------------
+    plans = []
+    for meta in spec.pairs:
+        ranks = meta.rank_values()
+        if ranks.ndim > 1:           # layer-stacked: flora needs uniform
+            flat = ranks.reshape(n, -1)
+            if not np.all(flat == flat[:, :1]):
+                raise PlanUnavailable(
+                    "flora packs layer-stacked pairs only with uniform "
+                    "per-client ranks")
+            ranks = flat[:, 0]
+        ranks = ranks.reshape(-1).astype(np.int64)
+        _, r_st_a, _, _, _ = _side_geometry(meta, "A")
+        cap = strategy.resolve_cap(spec.r_max, r_storage=r_st_a)
+        strategy._validate_cap(cap, ranks, spec.r_max)
+        prev_rank = prev_r_st = 0
+        if spec.has_prev and meta.prev_ranks is not None:
+            prev_rank = int(np.max(meta.prev_rank_values()))
+            prev_r_st = int(meta.prev_a_shape[-2])
+        live = [i for i in range(n) if int(ranks[i]) > 0]
+        seg_ranks = ([prev_rank] if prev_rank else []) \
+            + [int(ranks[i]) for i in live]
+        r_total = int(sum(seg_ranks))
+        plans.append(dict(ranks=ranks, cap=cap, prev_rank=prev_rank,
+                          prev_r_st=prev_r_st, live=live,
+                          seg_ranks=seg_ranks, r_total=r_total,
+                          packable=r_total <= cap))
+
+    def capped_r_out(p, meta):        # _stack_pair's over-cap branch
+        base = spec.r_max if spec.r_max is not None else meta.a_shape[-2]
+        return min(int(base), p["cap"])
+
+    rank_leaves = _out_rank_leaves(
+        spec, [p["r_total"] if p["packable"] else capped_r_out(p, m)
+               for p, m in zip(plans, spec.pairs)])
+
+    # ---- bucket the packable pairs; out layout = lead x cap per slot ----
+    by_key: dict = {}
+    for pi, meta in enumerate(spec.pairs):
+        if not plans[pi]["packable"]:
+            continue
+        for side in ("A", "B"):
+            lead, r_st, rows, width, dtype = _side_geometry(meta, side)
+            b = by_key.setdefault((width, dtype),
+                                  Bucket(width=width, dtype=dtype, slots=[]))
+            b.slots.append(Slot(pair_idx=pi, side=side, lead=lead,
+                                r_st=r_st, rows=rows, width=width,
+                                dtype=dtype))
+    buckets = list(by_key.values())
+
+    # scale vector: entry 0 is 1.0 (A rows pass verbatim), then one entry
+    # per (packable pair, segment) for the B columns
+    scale_slots = [(pi, j) for pi, p in enumerate(plans) if p["packable"]
+                   for j in range(len(p["seg_ranks"]))]
+    scale_index = {ps: 1 + k for k, ps in enumerate(scale_slots)}
+    n_scales = 1 + len(scale_slots)
+
+    layouts = []
+    for b in buckets:
+        in_off = prev_off = out_off = 0
+        copies_x: list = []
+        copies_prev: list = []
+        for s in b.slots:
+            p = plans[s.pair_idx]
+            nlayers = int(np.prod(s.lead, dtype=np.int64)) if s.lead else 1
+            for layer in range(nlayers):
+                dst = out_off + layer * p["cap"]
+                seg = 0
+                if p["prev_rank"]:
+                    si = scale_index[(s.pair_idx, seg)] if s.side == "B" \
+                        else 0
+                    copies_prev.append((prev_off + layer * p["prev_r_st"],
+                                        dst, p["prev_rank"], si))
+                    dst += p["prev_rank"]
+                    seg += 1
+                for i in p["live"]:
+                    r_i = int(p["ranks"][i])
+                    si = scale_index[(s.pair_idx, seg)] if s.side == "B" \
+                        else 0
+                    copies_x.append((i, in_off + layer * s.r_st, dst, r_i,
+                                     si))
+                    dst += r_i
+                    seg += 1
+            s.offset = out_off
+            out_off += nlayers * p["cap"]
+            in_off += s.rows
+            prev_off += nlayers * p["prev_r_st"]
+        table = None
+        if spec.kind == "kernel":
+            table = stack_table(copies_x, copies_prev, out_rows=out_off,
+                                n=n, r_in=in_off, r_prev=prev_off,
+                                n_scales=n_scales)
+        layouts.append(dict(width=b.width, out_rows=out_off,
+                            copies_x=tuple(copies_x),
+                            copies_prev=tuple(copies_prev), r_in=in_off,
+                            r_prev=prev_off, table=table))
+
+    fallback = [pi for pi, p in enumerate(plans) if not p["packable"]]
+    seg_ranks = [torch.tensor(p["seg_ranks"], dtype=torch.float32,
+                              device=spec.device) if p["packable"] else None
+                 for p in plans]
+    rebuild = [None]
+
+    def execute(stacked_tree, w, prev_tree):
+        if rebuild[0] is None:
+            rebuild[0] = _make_rebuilder(stacked_tree)
+        ab = _ab_list(stacked_tree)
+        prev_ab = _ab_list(prev_tree) if spec.has_prev else None
+        # per-(pair, segment) B-column scales: mhat_j * r_out / r_j
+        mean_w = w.mean()
+        scales = [torch.ones(1, device=w.device)]
+        for pi, p in enumerate(plans):
+            if not p["packable"]:
+                continue
+            masses = ([strategy.prev_weight * mean_w] if p["prev_rank"]
+                      else []) + [w[i] for i in p["live"]]
+            m = torch.stack(masses)
+            mhat = m / (m.sum() + _EPS)
+            scales.append(mhat * float(p["r_total"]) / seg_ranks[pi])
+        scales = torch.cat(scales)
+
+        results: dict = {}
+        for b, lay in zip(buckets, layouts):
+            x = _gather([_pack_side(ab[s.pair_idx][s.side], s)
+                         for s in b.slots], dim=1)
+            prev = None
+            if lay["copies_prev"]:
+                prev = _gather([
+                    _pack_prev_side(prev_ab[s.pair_idx][s.side],
+                                    dataclasses.replace(
+                                        s, r_st=plans[s.pair_idx]["prev_r_st"],
+                                        rows=(s.rows // s.r_st)
+                                        * plans[s.pair_idx]["prev_r_st"]))
+                    for s in b.slots if plans[s.pair_idx]["prev_r_st"]],
+                    dim=0)
+            kw = dict(copies_x=lay["copies_x"],
+                      copies_prev=lay["copies_prev"],
+                      out_rows=lay["out_rows"])
+            if spec.kind == "kernel":
+                out = packed_stack(x, scales, prev, table=lay["table"],
+                                   backend="kernel", **kw)
+            else:
+                out = packed_stack_ref(x, scales, prev, **kw)
+            for s in b.slots:
+                cap = plans[s.pair_idx]["cap"]
+                y = out[s.offset:s.offset + (s.rows // s.r_st) * cap]
+                y = pair_side_rows(y.reshape(s.lead + (cap, s.width)),
+                                   s.side)
+                results[(s.pair_idx, s.side)] = y.to(s.dtype).contiguous()
+        for pi in fallback:          # over the cap: SVD re-projection
+            p = plans[pi]
+            pA = pB = None
+            if spec.has_prev and p["prev_rank"]:
+                pA, pB = prev_ab[pi]["A"], prev_ab[pi]["B"]
+            A_out, B_out, _ = strategy._stack_pair(
+                ab[pi]["A"], ab[pi]["B"], p["ranks"], w, pA, pB,
+                p["prev_rank"] or None, spec.r_max)
+            results[(pi, "A")], results[(pi, "B")] = A_out, B_out
+        return rebuild[0]([{"A": results[(pi, "A")],
+                            "B": results[(pi, "B")],
+                            "rank": rank_leaves[pi]}
+                           for pi in range(len(spec.pairs))])
+
+    round_ = CompiledRound(strategy, spec, "packed", execute,
+                           n_kernel_launches=len(buckets) + len(fallback),
+                           n_fallback_pairs=len(fallback))
+    round_.stack_layouts = layouts   # per bucket: copies, out_rows, table
+    return round_
+
+
+# -------------------------------------------------------- packed svd plans --
+def _build_svd_round(strategy, spec: CohortSpec) -> CompiledRound:
+    """svd's packed plan: pairs bucket by their full geometry (a batched
+    SVD needs both sides of a pair) and each bucket runs one batched
+    factored SVD (``repro_torch.core.lowrank``), the bucket's pairs riding
+    as a leading batch axis.  The ``r_out / rank`` scales are built on the
+    host once per plan."""
+    r_outs = [meta.a_shape[-2] if spec.r_max is None
+              else min(spec.r_max, meta.a_shape[-2]) for meta in spec.pairs]
+    by_key: dict = {}
+    for pi, meta in enumerate(spec.pairs):
+        key = (meta.a_shape, meta.a_dtype, meta.b_shape, meta.b_dtype,
+               meta.rank_shape, r_outs[pi])
+        by_key.setdefault(key, []).append(pi)
+    groups = list(by_key.values())
+    rank_leaves = _out_rank_leaves(spec)
+
+    # per-bucket (n, P, *lead) scales: each pair's (n, *rank_lead) scales
+    # aligned with its trailing leading dims, then stacked after the
+    # client axis like the pairs themselves
+    group_scales = []
+    for idxs in groups:
+        per_pair = []
+        for pi in idxs:
+            meta = spec.pairs[pi]
+            rk = (np.asarray(spec.client_ranks, np.float32)
+                  if spec.client_ranks is not None
+                  else meta.rank_values().astype(np.float32))
+            sc = np.float32(r_outs[pi]) / np.maximum(rk, np.float32(1.0))
+            lead = tuple(meta.a_shape[1:-2])
+            mid = len(lead) - (sc.ndim - 1)
+            sc = sc.reshape(sc.shape[:1] + (1,) * mid + sc.shape[1:])
+            per_pair.append(np.broadcast_to(sc, sc.shape[:1] + lead))
+        group_scales.append(torch.as_tensor(np.stack(per_pair, axis=1),
+                                            device=spec.device))
+    rebuild = [None]
+
+    def execute(stacked_tree, w, prev_tree):
+        if rebuild[0] is None:
+            rebuild[0] = _make_rebuilder(stacked_tree)
+        ab = _ab_list(stacked_tree)
+        results: dict = {}
+        for idxs, scales in zip(groups, group_scales):
+            meta = spec.pairs[idxs[0]]
+            r_st, r_out = meta.a_shape[-2], r_outs[idxs[0]]
+            Bs = torch.stack([ab[pi]["B"] for pi in idxs], dim=1)
+            As = torch.stack([ab[pi]["A"] for pi in idxs], dim=1)
+            Bo, Ao = strategy._project(Bs, As, w, r_out, scales)
+            for j, pi in enumerate(idxs):
+                results[pi] = {
+                    "A": pad_to_rank(Ao[j], -2, r_st).to(meta.a_dtype),
+                    "B": pad_to_rank(Bo[j], -1, r_st).to(meta.b_dtype),
+                    "rank": rank_leaves[pi]}
+        return rebuild[0]([results[pi] for pi in range(len(spec.pairs))])
+
+    return CompiledRound(strategy, spec, "packed", execute,
+                         n_kernel_launches=len(groups))
 
 
 def _build_eager_round(strategy, spec: CohortSpec) -> CompiledRound:
@@ -386,9 +663,10 @@ def _build_eager_round(strategy, spec: CohortSpec) -> CompiledRound:
 def build_plan(strategy, spec: CohortSpec) -> CompiledRound:
     """The :class:`CompiledRound` for ``strategy`` x ``spec``.
 
-    ``plan_mode`` "mean" packs every cohort; "mean_norm" (rbla_norm) packs
-    scalar-rank pairs and leaves layer-stacked ones to the per-leaf path
-    (which refuses them)."""
+    ``plan_mode`` "mean" packs every cohort (the robust family included);
+    "mean_norm" (rbla_norm) packs scalar-rank pairs and leaves
+    layer-stacked ones to the per-leaf path (which refuses them); "stack"
+    is flora's copy/scale round; "svd" the batched factored SVD round."""
     mode = getattr(strategy, "plan_mode", None)
     try:
         if mode == "mean":
@@ -396,6 +674,10 @@ def build_plan(strategy, spec: CohortSpec) -> CompiledRound:
         if mode == "mean_norm" and all(len(m.a_shape) == 3
                                        for m in spec.pairs):
             return _build_mean_round(strategy, spec, norm_restore=True)
+        if mode == "stack":
+            return _build_stack_round(strategy, spec)
+        if mode == "svd":
+            return _build_svd_round(strategy, spec)
     except PlanUnavailable:
         pass
     return _build_eager_round(strategy, spec)

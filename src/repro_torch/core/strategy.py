@@ -15,25 +15,33 @@ behind ``backend="auto" | "ref" | "kernel"`` (``"pallas"`` is an alias of
 ``"kernel"``): ``auto`` runs the kernels for tensors on a CUDA device and
 the plain PyTorch versions for tensors on the CPU.
 
-This slice ports the mean family: fedavg, zeropad, rbla, rbla_ranked and
-rbla_norm.  The svd, flora and robust strategies, encoded (int8/bf16)
-uploads, the async fold and the distributed backend raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The port runs the mean family (fedavg, zeropad, rbla, rbla_ranked,
+rbla_norm), the robust family (rbla_clipped, rbla_trimmed, rbla_median),
+svd (product-space aggregation through ``repro_torch.core.lowrank``) and
+flora (rank-growing stacking).  Encoded (int8/bf16) uploads, the async
+fold and the distributed backend raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import math
 from collections import OrderedDict
 from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import packed_agg, rbla_agg
+from repro_torch.kernels.rbla_agg import (flora_stack, packed_agg,
+                                          packed_robust, packed_robust_ref,
+                                          rbla_agg)
 from repro_torch.kernels.runtime import resolve_backend, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
-from .aggregation import fedavg_leaf, rbla_leaf, zeropad_leaf
-from .masks import stacked_rank_masks
+from .aggregation import _EPS, fedavg_leaf, rbla_leaf, zeropad_leaf
+from .lowrank import product_factors, svd_project_stacked
+from .masks import pad_to_rank, stacked_rank_masks
 from .variants import rank_proportional_weights, rbla_norm_leaf
 
 PyTree = Any
@@ -41,15 +49,6 @@ PyTree = Any
 #: per-strategy-instance LRU bound on cached plans (keyed by the cohort's
 #: rank multiset among other things; a random-cohort service sees many)
 PLAN_CACHE_SIZE = 128
-
-#: registered JAX-package strategies this port does not have yet
-_LATER = {
-    "svd": "ROADMAP queue 1 item 10 (svd slice)",
-    "flora": "ROADMAP queue 1 item 11 (flora slice)",
-    "rbla_clipped": "ROADMAP queue 1 item 12 (robust slice)",
-    "rbla_trimmed": "ROADMAP queue 1 item 12 (robust slice)",
-    "rbla_median": "ROADMAP queue 1 item 12 (robust slice)",
-}
 
 
 # ------------------------------------------------------------ server state --
@@ -102,10 +101,6 @@ def get_strategy(name: "str | AggregationStrategy") -> "AggregationStrategy":
         return name
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _LATER:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet; it arrives with "
-            f"{_LATER[name]}")
     raise ValueError(f"unknown aggregation strategy {name!r}; registered: "
                      f"{list_strategies()}")
 
@@ -239,27 +234,62 @@ class AggregationStrategy:
     #: "fixed": the aggregate's live rank is always r_max
     rank_contract: str = "fixed"
     #: how :meth:`plan` lowers a round: "mean" = packed masked-mean
-    #: buckets, "mean_norm" = + per-row norm restore
+    #: buckets (robust reductions included), "mean_norm" = + per-row norm
+    #: restore, "stack" = flora's copy/scale stacking, "svd" = batched
+    #: factored SVD per same-shape pair bucket
     plan_mode: str | None = None
+    #: Byzantine-robustness contract: "none" (a single adversarial upload
+    #: can move the weighted mean arbitrarily far), "clipped" (per-row
+    #: norm clipping bounds a client's displacement), "trimmed" /
+    #: "median" (per-coordinate order statistics over a row's owners)
+    robustness: str = "none"
+
+    def with_options(self, **options) -> "AggregationStrategy":
+        """A configured copy of this strategy.  Registered instances are
+        shared singletons, so per-run knobs (flora's ``stack_r_cap``, the
+        robust ``clip_norm``/``trim_frac``, svd's ``svd_method``) go on a
+        copy; only attributes the strategy declares are accepted, and the
+        copy starts with no cached plans."""
+        inst = copy.copy(self)
+        for cached in ("_plan_cache", "plan_stats"):
+            inst.__dict__.pop(cached, None)
+        for k, v in options.items():
+            if not hasattr(inst, k) or k.startswith("_"):
+                raise ValueError(
+                    f"strategy {self.name!r} has no option {k!r}")
+            setattr(inst, k, v)
+        return inst
+
+    def server_storage_rank(self, r_max: int | None) -> int | None:
+        """Storage rank of the global adapters: ``r_max`` for fixed-rank
+        strategies; rank-growing ones (flora) need room up to their cap."""
+        return r_max
+
+    def plan_knobs(self) -> tuple:
+        """The options a compiled plan bakes in; part of its cache key, so
+        changing one on an instance never serves a stale plan."""
+        return ()
 
     # ------------------------------------------------------ compiled plans --
     def plan(self, state, cohort_spec):
         """Compiled round for ``cohort_spec`` (see ``repro_torch.core.plan``),
-        cached on this instance in a bounded LRU keyed by the spec;
-        :attr:`plan_stats` counts hits and misses.  ``state`` is unused
-        (the spec encodes the layout) and may be None."""
+        cached on this instance in a bounded LRU keyed by the spec and
+        :meth:`plan_knobs`; :attr:`plan_stats` counts hits and misses.
+        ``state`` is unused (the spec encodes the layout) and may be
+        None."""
         from .plan import build_plan
         cache = self.__dict__.setdefault("_plan_cache", OrderedDict())
         stats = self.__dict__.setdefault("plan_stats",
                                          {"hits": 0, "misses": 0})
-        got = cache.get(cohort_spec)
+        key = (cohort_spec, self.plan_knobs())
+        got = cache.get(key)
         if got is not None:
             stats["hits"] += 1
-            cache.move_to_end(cohort_spec)
+            cache.move_to_end(key)
             return got
         stats["misses"] += 1
         built = build_plan(self, cohort_spec)
-        cache[cohort_spec] = built
+        cache[key] = built
         while len(cache) > PLAN_CACHE_SIZE:
             cache.popitem(last=False)
         return built
@@ -545,4 +575,396 @@ class RBLANormStrategy(AggregationStrategy):
                               backend="kernel").T.contiguous()
             return {"A": outA.to(A.dtype), "B": outB.to(B.dtype),
                     "rank": pair["rank"][0]}
+        return _map_pairs(agg_pair, stacked_tree, prev_tree, strict=True)
+
+
+# ------------------------------------------------------------ robust family --
+class RobustRBLAStrategy(AggregationStrategy):
+    """Byzantine-tolerant RBLA family (pair-structured): the masked
+    rank-row aggregation of Eq. 7 with the weighted mean replaced by a
+    robust reduction over each row's owners.
+
+    * ``rbla_clipped`` -- every client rank-row is L2-clipped to
+      ``clip_norm`` before the masked weighted mean (equal to ``rbla``
+      while every row norm is under the clip).
+    * ``rbla_trimmed`` -- per-coordinate trimmed mean over a row's owners,
+      dropping ``k = min(floor(trim_frac * c), (c-1)//2)`` from each end.
+    * ``rbla_median`` -- coordinate-wise median over a row's owners.
+
+    Trimmed and median are unweighted: example counts are client-reported
+    and so adversary-controlled.  Rows with no owner keep the previous
+    global, as in ``rbla``.  All three lower through the packed mean plan:
+    one ``packed_robust`` launch per (width, dtype) bucket."""
+    norm_by = "mask"
+    use_mask = True
+    retains_prev = True
+    plan_mode = "mean"
+    #: L2 clip applied per (client, rank-row) by "clipped"
+    clip_norm: float = 100.0
+    #: per-end trim fraction of a row's owners used by "trimmed"
+    trim_frac: float = 0.2
+
+    def plan_knobs(self) -> tuple:
+        return (self.robustness, float(self.clip_norm),
+                float(self.trim_frac))
+
+    def leaf(self, stacked, mask, weights, prev=None):
+        # non-pair leaves have no rank-row structure to defend
+        return rbla_leaf(stacked, mask, weights, prev)
+
+    def _robust_pair(self, agg, pair, prev_pair, w, ranks):
+        A, B = pair["A"], pair["B"]
+        pranks = ranks
+        if pranks is None and pair["rank"].ndim == 1:
+            pranks = pair["rank"]
+        if A.ndim != 3 or B.ndim != 3 or pranks is None:
+            raise NotImplementedError(
+                f"{self.name} supports scalar-rank pairs (got "
+                f"A.ndim={A.ndim}); layer-stacked pairs lower through the "
+                "compiled plan, which packs per-layer rows")
+        masks = stacked_rank_masks(A.shape[-2], pranks, device=A.device)
+        pA = pB = None
+        if prev_pair is not None:
+            pA, pB = prev_pair["A"], prev_pair["B"].T
+        outA = agg(A.contiguous(), masks, w, pA)
+        outB = agg(B.transpose(1, 2).contiguous(), masks, w, pB).T
+        return {"A": outA.to(A.dtype), "B": outB.to(B.dtype).contiguous(),
+                "rank": pair["rank"][0]}
+
+    def _map_robust(self, agg, stacked_tree, weights, client_ranks,
+                    prev_tree):
+        w = torch.as_tensor(weights).float()
+        ranks = (None if client_ranks is None
+                 else torch.as_tensor(client_ranks, dtype=torch.int32))
+        kw = dict(mode=self.robustness, clip_norm=self.clip_norm,
+                  trim_frac=self.trim_frac)
+        return _map_pairs(
+            lambda pair, prev_pair: self._robust_pair(
+                lambda *a: agg(*a, **kw), pair, prev_pair, w, ranks),
+            stacked_tree, prev_tree, strict=True)
+
+    def aggregate_tree(self, stacked_tree, mask_tree, weights,
+                       prev_tree=None, *, r_max=None, client_ranks=None):
+        return self._map_robust(packed_robust_ref, stacked_tree, weights,
+                                client_ranks, prev_tree)
+
+    def aggregate_tree_kernel(self, stacked_tree, weights, client_ranks,
+                              prev_tree=None, *, r_max=None):
+        """One ``packed_robust`` launch per pair side (the compiled plan
+        fuses all pairs into one launch per bucket)."""
+        def agg(x, masks, w, prev, **kw):
+            return packed_robust(x, masks, w, prev, backend="kernel", **kw)
+        return self._map_robust(agg, stacked_tree, weights, client_ranks,
+                                prev_tree)
+
+
+@register_strategy
+class RBLAClippedStrategy(RobustRBLAStrategy):
+    name = "rbla_clipped"
+    aliases = ("clipped",)
+    robustness = "clipped"
+
+
+@register_strategy
+class RBLATrimmedStrategy(RobustRBLAStrategy):
+    name = "rbla_trimmed"
+    aliases = ("trimmed",)
+    robustness = "trimmed"
+
+
+@register_strategy
+class RBLAMedianStrategy(RobustRBLAStrategy):
+    name = "rbla_median"
+    aliases = ("median",)
+    robustness = "median"
+
+
+# ----------------------------------------------------------------------- svd --
+@register_strategy
+class SVDStrategy(AggregationStrategy):
+    """Product-space aggregation: weighted-average the effective updates
+    ``(r_out / rank_i) * B_i @ A_i``, truncated-SVD back to rank-``r_out``
+    factors, re-pad to storage rank.  The truncation runs through the
+    factored engine (``repro_torch.core.lowrank``): the weighted product
+    mean is itself a product of concatenated factors, so no dense (out,
+    in) delta is formed.  ``svd_method`` and the ``rsvd_*`` knobs route the
+    engine ("auto" is exact).  The kernel backend shares this math: it is
+    QR and small SVDs, with no reduction a hand-written kernel would
+    take."""
+    name = "svd"
+    norm_by = "mask"
+    plan_mode = "svd"
+    #: lowrank engine knobs: "auto" | "factored" | "dense" | "randomized"
+    svd_method: str = "auto"
+    rsvd_oversample: int = 8
+    rsvd_power_iters: int = 2
+
+    def plan_knobs(self) -> tuple:
+        return (self.svd_method, int(self.rsvd_oversample),
+                int(self.rsvd_power_iters))
+
+    def _pair_scales(self, pranks, r_out: int) -> torch.Tensor:
+        """Per-contributor ``r_out / rank`` scales, (n, *rank_lead)."""
+        return (torch.tensor(float(r_out), dtype=torch.float32)
+                / torch.as_tensor(pranks).float().clamp(min=1.0))
+
+    def _project(self, B, A, w, r_out: int, scales):
+        return svd_project_stacked(B, A, w, r_out, scales=scales,
+                                   method=self.svd_method,
+                                   oversample=self.rsvd_oversample,
+                                   power_iters=self.rsvd_power_iters)
+
+    def aggregate_tree(self, stacked_tree, mask_tree, weights,
+                       prev_tree=None, *, r_max=None, client_ranks=None):
+        w = torch.as_tensor(weights).float()
+
+        def agg_pair(pair, _masks):
+            A, B = pair["A"], pair["B"]
+            r_storage = A.shape[-2]
+            r_out = r_storage if r_max is None else min(r_max, r_storage)
+            pranks = pair["rank"] if client_ranks is None else client_ranks
+            Bo, Ao = self._project(B, A, w, r_out,
+                                   self._pair_scales(pranks, r_out))
+            return {"A": pad_to_rank(Ao.to(A.dtype), -2, r_storage),
+                    "B": pad_to_rank(Bo.to(B.dtype), -1, r_storage),
+                    "rank": pair["rank"][0]}
+        return _map_pairs(agg_pair, stacked_tree, mask_tree, strict=True)
+
+    def aggregate_tree_kernel(self, stacked_tree, weights, client_ranks,
+                              prev_tree=None, *, r_max=None):
+        """The engine's math on the tensors' device (QR and small SVDs;
+        the JAX package also leaves them to the compiler's library)."""
+        return self.aggregate_tree(stacked_tree, None, weights, prev_tree,
+                                   r_max=r_max, client_ranks=client_ranks)
+
+
+# --------------------------------------------------------------------- flora --
+@register_strategy
+class FloraStrategy(AggregationStrategy):
+    """FLoRA-style stacking aggregation (Wang et al., 2024).
+
+    The participants' A/B factors are concatenated along the rank axis, so
+    the aggregate is noise-free but rank-growing: its live rank is the sum
+    of the contributors' ranks.  The previous global is one more
+    contributor, first, with mass ``prev_weight`` x the mean client
+    weight.  Contributor ``i`` (normalised mass ``m_i``, rank ``r_i``)
+    enters with ``s_i = m_i * R_out / r_i`` folded into its B columns, so
+    serving the aggregate at rank ``R_out`` under the ``alpha/rank``
+    convention reproduces ``sum_i m_i (alpha/r_i) B_i A_i`` exactly; A
+    rows pass through.
+
+    Storage is padded to ``stack_r_cap`` (default ``2*r_max``).  When the
+    stacked rank would exceed the cap, the contributors are re-projected
+    to ``r_max`` in product space by a factored SVD instead, and growth
+    restarts from there.  Every path needs concrete client ranks."""
+    name = "flora"
+    aliases = ("stacking",)
+    rank_contract = "stacked"
+    retains_prev = True
+    norm_by = "weight"
+    plan_mode = "stack"
+    stack_r_cap: int | None = None     # None -> 2 * r_max at aggregation
+    prev_weight: float = 1.0           # prev global mass / mean client mass
+
+    def plan_knobs(self) -> tuple:
+        return (self.stack_r_cap, float(self.prev_weight))
+
+    # ------------------------------------------------------ rank plumbing --
+    def resolve_cap(self, r_max: int | None,
+                    r_storage: int | None = None) -> int:
+        if self.stack_r_cap is not None:
+            return int(self.stack_r_cap)
+        base = r_max if r_max is not None else r_storage
+        if base is None:
+            raise ValueError("flora needs r_max (or an explicit "
+                             "stack_r_cap) to size the stacked storage")
+        return 2 * int(base)
+
+    def server_storage_rank(self, r_max: int | None) -> int | None:
+        cap = self.resolve_cap(r_max)
+        self._validate_cap(cap, np.zeros(0, np.int64), r_max)  # fail fast
+        return cap
+
+    @staticmethod
+    def _concrete_ranks(ranks) -> np.ndarray:
+        if ranks is None:
+            raise ValueError(
+                "flora needs the client ranks (pass client_ranks, or "
+                "aggregate adapter trees whose pairs carry scalar ranks)")
+        if isinstance(ranks, torch.Tensor):
+            ranks = ranks.detach().cpu().numpy()
+        arr = np.asarray(ranks).astype(np.int64)
+        if arr.ndim == 2:            # layer-stacked (n, L): must be uniform
+            if not np.all(arr == arr[:, :1]):
+                raise NotImplementedError(
+                    "flora supports layer-stacked pairs only when each "
+                    "client's rank is uniform across layers")
+            arr = arr[:, 0]
+        return arr.reshape(-1)
+
+    def _validate_cap(self, cap: int, ranks: np.ndarray,
+                      r_max: int | None) -> None:
+        mx = int(ranks.max()) if ranks.size else 0
+        if cap < mx:
+            raise ValueError(
+                f"flora: stack_r_cap={cap} < max client rank {mx}; a "
+                "single contributor would not fit the stacked storage -- "
+                "raise stack_r_cap to at least the largest client rank")
+        if r_max is not None and cap < r_max:
+            raise ValueError(
+                f"flora: stack_r_cap={cap} < r_max={r_max}: the SVD "
+                "re-projection target would not fit the stacked storage")
+
+    # -------------------------------------------------------- core pair op --
+    def _stack_pair(self, A, B, ranks: np.ndarray, w, prev_A, prev_B,
+                    prev_rank: int | None, r_max: int | None):
+        """Stack (or SVD-reproject) one gathered pair: ``A`` (n, *lead,
+        r_st, fan_in), ``B`` (n, *lead, fan_out, r_st); ``ranks`` and
+        ``prev_rank`` are host ints.  Returns (A_out, B_out, r_out) at
+        ``stack_r_cap`` storage; contributors are prev first."""
+        n = A.shape[0]
+        cap = self.resolve_cap(r_max, r_storage=A.shape[-2])
+        self._validate_cap(cap, ranks, r_max)
+        wf = torch.as_tensor(w, device=A.device).float()
+
+        seg_ranks: list[int] = []
+        A_parts, B_parts, masses = [], [], []
+        if prev_A is not None and prev_rank:
+            seg_ranks.append(int(prev_rank))
+            A_parts.append(prev_A[..., :int(prev_rank), :])
+            B_parts.append(prev_B[..., :int(prev_rank)])
+            masses.append(self.prev_weight * wf.mean())
+        for i in range(n):
+            r_i = int(ranks[i])
+            if r_i <= 0:
+                continue
+            seg_ranks.append(r_i)
+            A_parts.append(A[i][..., :r_i, :])
+            B_parts.append(B[i][..., :, :r_i])
+            masses.append(wf[i])
+        if not seg_ranks:
+            raise ValueError("flora: empty cohort (all ranks are zero)")
+        m = torch.stack(masses)
+        mhat = m / (m.sum() + _EPS)
+        r_total = int(sum(seg_ranks))
+        A_cat = torch.cat([a.float() for a in A_parts], dim=-2)
+        if r_total <= cap:
+            r_out = r_total
+            scales = mhat * torch.as_tensor(
+                np.float32(r_out) / np.asarray(seg_ranks, np.float32),
+                device=A.device)
+            A_out = A_cat
+            B_out = torch.cat([b.float() * scales[i]
+                               for i, b in enumerate(B_parts)], dim=-1)
+        else:
+            # over the cap: product-space re-projection back to r_max in
+            # factored form (no dense (out, in) delta)
+            r_out = min(int(r_max if r_max is not None else A.shape[-2]),
+                        cap)
+            B_cat = torch.cat(
+                [b.float() * (mhat[i] * float(np.float32(r_out)
+                                              / np.float32(seg_ranks[i])))
+                 for i, b in enumerate(B_parts)], dim=-1)
+            B_out, A_out = product_factors(B_cat, A_cat, r_out)
+        A_out = pad_to_rank(A_out.to(A.dtype), -2, cap)
+        B_out = pad_to_rank(B_out.to(B.dtype), -1, cap)
+        return A_out, B_out, r_out
+
+    def _pair_ranks(self, pair, client_ranks) -> np.ndarray:
+        return self._concrete_ranks(pair["rank"] if client_ranks is None
+                                    else client_ranks)
+
+    @staticmethod
+    def _out_rank_leaf(stacked_rank_leaf, r_out: int) -> torch.Tensor:
+        # drop the client axis: scalar-rank -> (), layer-stacked -> (L,)
+        return torch.full(tuple(stacked_rank_leaf.shape[1:]), r_out,
+                          dtype=torch.int32, device=stacked_rank_leaf.device)
+
+    @staticmethod
+    def _prev_rank_of(prev_pair) -> int | None:
+        if prev_pair is None:
+            return None
+        return int(torch.as_tensor(prev_pair["rank"]).max())
+
+    def finalize_tree(self, out: PyTree, r_max: int | None) -> PyTree:
+        return out                       # live ranks already written
+
+    # ------------------------------------------------- (b) tree traversal --
+    def aggregate_tree(self, stacked_tree, mask_tree, weights,
+                       prev_tree=None, *, r_max=None, client_ranks=None):
+        w = torch.as_tensor(weights).float()
+
+        def agg_pair(pair, _masks, prev_pair):
+            pA = prev_pair["A"] if prev_pair is not None else None
+            pB = prev_pair["B"] if prev_pair is not None else None
+            A_out, B_out, r_out = self._stack_pair(
+                pair["A"], pair["B"], self._pair_ranks(pair, client_ranks),
+                w, pA, pB, self._prev_rank_of(prev_pair), r_max)
+            return {"A": A_out, "B": B_out,
+                    "rank": self._out_rank_leaf(pair["rank"], r_out)}
+        return _map_pairs(agg_pair, stacked_tree, mask_tree, prev_tree,
+                          strict=True)
+
+    # --------------------------------------------- (c) per-pair kernel path --
+    def aggregate_tree_kernel(self, stacked_tree, weights, client_ranks,
+                              prev_tree=None, *, r_max=None):
+        """The stack is a pure copy/scale, so one ``flora_stack`` launch
+        per pair side places every contributor's live rows at its offset
+        (a layer-stacked pair in the same launch, one table block per
+        layer).  Over-cap cohorts are re-projected by SVD through the pair
+        math, for which the TPU package has no kernel either."""
+        w = weights.float()
+
+        def agg_pair(pair, prev_pair):
+            A, B = pair["A"], pair["B"]
+            ranks = self._pair_ranks(pair, client_ranks)
+            prev_rank = self._prev_rank_of(prev_pair)
+            pA = prev_pair["A"] if prev_pair is not None else None
+            pB = prev_pair["B"] if prev_pair is not None else None
+            cap = self.resolve_cap(r_max, r_storage=A.shape[-2])
+            self._validate_cap(cap, ranks, r_max)
+
+            has_prev = pA is not None and bool(prev_rank)
+            seg_ranks = [int(prev_rank)] if has_prev else []
+            live = [i for i in range(len(ranks)) if int(ranks[i]) > 0]
+            seg_ranks += [int(ranks[i]) for i in live]
+            r_total = int(sum(seg_ranks))
+            if r_total > cap:
+                A_out, B_out, r_out = self._stack_pair(
+                    A, B, ranks, w, pA, pB, prev_rank, r_max)
+                return {"A": A_out, "B": B_out,
+                        "rank": self._out_rank_leaf(pair["rank"], r_out)}
+
+            # uniform-storage contributor stacks (prev first), rank axis
+            # leading in each layer: B rides transposed
+            lead = tuple(A.shape[1:-2])
+            n_layers = math.prod(lead)
+            r_st = max(A.shape[-2], pA.shape[-2] if has_prev else 0)
+
+            def rows(t, n):          # (n, *lead, r, width) -> (n, L*r_st, width)
+                t = pad_to_rank(t.float(), -2, r_st)
+                return t.reshape(n, n_layers * r_st, t.shape[-1])
+            keep = torch.as_tensor(live, dtype=torch.long, device=A.device)
+            partsA = [rows(A[keep], len(live))]
+            partsBt = [rows(B[keep].transpose(-1, -2), len(live))]
+            masses = [w[i] for i in live]
+            if has_prev:
+                partsA.insert(0, rows(pA[None], 1))
+                partsBt.insert(0, rows(pB[None].transpose(-1, -2), 1))
+                masses.insert(0, self.prev_weight * w.mean())
+            m = torch.stack(masses)
+            mhat = m / (m.sum() + _EPS)
+            scales = mhat * torch.as_tensor(
+                np.float32(r_total) / np.asarray(seg_ranks, np.float32),
+                device=A.device)
+            kw = dict(segs=seg_ranks, out_rows=cap, layers=n_layers,
+                      backend="kernel")
+            A_out = flora_stack(torch.cat(partsA), torch.ones_like(scales),
+                                **kw)
+            Bt_out = flora_stack(torch.cat(partsBt), scales, **kw)
+            A_out = A_out.reshape(lead + (cap, A.shape[-1]))
+            B_out = Bt_out.reshape(lead + (cap, B.shape[-2])).transpose(-1, -2)
+            return {"A": A_out.to(A.dtype),
+                    "B": B_out.to(B.dtype).contiguous(),
+                    "rank": self._out_rank_leaf(pair["rank"], r_total)}
         return _map_pairs(agg_pair, stacked_tree, prev_tree, strict=True)

@@ -1,7 +1,6 @@
-"""Beyond-paper variants of the mean family (see the JAX package's
-``repro.core.variants``): rank-proportional client weights (rbla_ranked)
-and per-row norm restoration (rbla_norm).  ``svd_project_pair`` waits for
-the svd slice."""
+"""Beyond-paper variants (see the JAX package's ``repro.core.variants``):
+rank-proportional client weights (rbla_ranked), per-row norm restoration
+(rbla_norm) and product-space aggregation of a pair (svd)."""
 from __future__ import annotations
 
 import torch
@@ -37,3 +36,18 @@ def rbla_norm_leaf(stacked: torch.Tensor, mask: torch.Tensor | None,
     shape = [1] * agg.ndim
     shape[leaf_row_axis] = agg.shape[leaf_row_axis]
     return (agg * scale.reshape(shape)).to(stacked.dtype)
+
+
+def svd_project_pair(stacked_B: torch.Tensor, stacked_A: torch.Tensor,
+                     ranks: torch.Tensor, weights: torch.Tensor, r_out: int,
+                     scales: torch.Tensor | None = None):
+    """Aggregate stacked LoRA pairs in product space and re-factor by a
+    truncated SVD: stacked_B (n, out, r_max), stacked_A (n, r_max, in) ->
+    (B, A) of inner dim ``r_out`` in the inputs' dtypes.  Row masking is
+    implicit (padded rows are zero); the truncation runs through the
+    factored engine (``repro_torch.core.lowrank``), so no dense (out, in)
+    product is formed."""
+    from .lowrank import svd_project_stacked
+    B, A = svd_project_stacked(stacked_B, stacked_A, weights, r_out,
+                               scales=scales)
+    return B.to(stacked_B.dtype), A.to(stacked_A.dtype)

@@ -35,9 +35,15 @@ PyTree = Any
 class FLConfig:
     dataset: str = "mnist"
     model: str = "mlp"
-    method: str = "rbla"           # fedavg | zeropad | rbla | rbla_ranked |
-                                   # rbla_norm -- or "fft" (full fine-tune)
+    method: str = "rbla"           # any registered strategy: rbla |
+                                   # zeropad | fedavg | rbla_ranked |
+                                   # rbla_norm | rbla_clipped | rbla_trimmed
+                                   # | rbla_median | svd | flora -- or
+                                   # "fft" (full fine-tune)
     agg_backend: str = "auto"      # auto | ref | kernel (alias: pallas)
+    stack_r_cap: int | None = None  # rank-changing strategies (flora):
+                                    # stacked-rank cap / server storage
+                                    # rank (None = the strategy default)
     n_clients: int = 10
     rounds: int = 50
     local_epochs: int = 1
@@ -73,6 +79,10 @@ def _build_sim(cfg: FLConfig, device: torch.device, params=None,
     closure.  ``params``/``adapters`` replace the seeded initial model
     (already in the port's format, on ``device``)."""
     strategy = get_strategy(cfg.method)     # a typo fails before any setup
+    if cfg.stack_r_cap is not None:
+        # a configured copy: registered instances are shared singletons,
+        # and a strategy without the knob refuses it here
+        strategy = strategy.with_options(stack_r_cap=cfg.stack_r_cap)
     model = (PAPER_MODELS[cfg.model]() if cfg.model != "cnn_cifar" else
              PAPER_MODELS[cfg.model](n_dense=2 if cfg.dataset == "cifar"
                                      else 4))
@@ -91,8 +101,11 @@ def _build_sim(cfg: FLConfig, device: torch.device, params=None,
         frozen_base, base_trainable = split_base_params(params,
                                                         model.lora_specs)
         if adapters is None:
+            # rank-growing strategies (flora) keep the global at a larger
+            # storage rank (the stack cap); it starts at live rank r_max
+            r_storage = strategy.server_storage_rank(cfg.r_max) or cfg.r_max
             adapters = tree_map(lambda t: t.to(device), init_adapters(
-                gen, model.lora_specs, cfg.r_max, cfg.r_max))
+                gen, model.lora_specs, r_storage, cfg.r_max))
     else:                       # FFT trains every parameter
         frozen_base, base_trainable, adapters = {}, params, None
     state = ServerState(adapters=adapters, base_trainable=base_trainable,
@@ -153,7 +166,9 @@ def run_simulation(cfg: FLConfig, verbose: bool = False, *, device="cuda",
             c = clients[ci]
             # CPU generator: the batch indices are the same on every device
             gen = torch.Generator().manual_seed(int(rng.integers(0, 2 ** 31)))
-            # set_ranks copies: a client never aliases the server's storage
+            # re-cut from the (possibly rank-grown) global to the client's
+            # rank at r_max storage; set_ranks copies, so a client never
+            # aliases the server's storage
             local_ad = (set_ranks(state.adapters, c.rank, r_storage=cfg.r_max)
                         if rig.mode == "lora" else None)
             idx = batch_indices(rnd, ci) if batch_indices is not None else None

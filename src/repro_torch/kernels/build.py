@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
 plain C interface: ``build/kernels/<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` covers the source and the compiler flags.  A
-library is built at first use and rebuilt only when that hash changes.
-Linking against nothing of PyTorch keeps a build to seconds (a source that
-includes PyTorch's headers takes minutes).  Nothing here runs at import.
+checkout, where ``<hash>`` covers the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags.  A library is built at first use
+and rebuilt only when that hash changes.  Linking against nothing of
+PyTorch keeps a build to seconds (a source that includes PyTorch's headers
+takes minutes).  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -103,4 +104,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            # common.cuh: every library's text of a CUDA error code
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
         return lib

@@ -1,0 +1,69 @@
+// Helpers shared by the port's kernel sources (rbla_agg.cu, packed_robust.cu,
+// flora_stack.cu).  Each source compiles into its own library, so every
+// definition here exists once per library.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// dtype codes of the C interfaces (the wrappers' _IN_CODES / _OUT_CODES)
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// VEC consecutive elements moved as one access (16 bytes for the input type
+// when VEC = 16 / sizeof(T)).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Vec {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+  const Vec<T, VEC> t = *reinterpret_cast<const Vec<T, VEC>*>(p);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) out[k] = to_f32(t.v[k]);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&in)[VEC]) {
+  Vec<T, VEC> t;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) t.v[k] = from_f32<T>(in[k]);
+  *reinterpret_cast<Vec<T, VEC>*>(p) = t;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// true for a null pointer, so an absent operand never blocks the vector path
+inline bool aligned(const void* p, size_t bytes) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+}  // namespace
+
+// Every library answers its launch errors through this one symbol.
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

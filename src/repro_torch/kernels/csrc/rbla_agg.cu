@@ -29,53 +29,12 @@
 // given stream, never synchronises, allocates nothing, and returns the CUDA
 // error code of the launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
 constexpr int kMeanThreads = 256;
 constexpr int kNormThreads = 128;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
-  return static_cast<float>(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// VEC consecutive elements moved as one access (16 bytes for the input type
-// when VEC = 16 / sizeof(T)).
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
-
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
-  const Vec<T, VEC> t = *reinterpret_cast<const Vec<T, VEC>*>(p);
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) out[k] = to_f32(t.v[k]);
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&in)[VEC]) {
-  Vec<T, VEC> t;
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) t.v[k] = from_f32<T>(in[k]);
-  *reinterpret_cast<Vec<T, VEC>*>(p) = t;
-}
 
 // Shared prologue: per-client effective weight w_n * m_{n,r} and dequant scale
 // for this block's row.  The mask comes either from the (N, R) owner-mask
@@ -148,12 +107,6 @@ __global__ void __launch_bounds__(kMeanThreads) mean_kernel(
                       prev != nullptr ? prev + row * width + c : nullptr);
     store_vec<Tout, VEC>(out + row * width + c, acc);
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // One block per row.  Pass 1: the masked mean into fp32 scratch, plus each
@@ -249,10 +202,6 @@ __global__ void __launch_bounds__(kNormThreads) norm_kernel(
 }
 
 size_t elem_size(int dtype) { return dtype == kF32 ? 4 : dtype == kBF16 ? 2 : 1; }
-
-bool aligned(const void* p, size_t bytes) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
 
 struct Args {
   const void* x;
@@ -356,10 +305,6 @@ int rbla_rank_agg(const void* x, int dtype, const int* ranks, const float* weigh
   const Args a{x, nullptr, ranks, weights, nullptr, nullptr, out, nullptr, n, r, d,
                by_weight, 0, static_cast<cudaStream_t>(stream)};
   return dispatch(a, dtype, dtype);
-}
-
-const char* rbla_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Wrappers of the aggregation kernels in ``csrc/rbla_agg.cu``.
+"""Wrappers of the aggregation kernels in ``csrc/rbla_agg.cu``,
+``csrc/packed_robust.cu`` and ``csrc/flora_stack.cu``.
 
 Same arguments as the JAX package's ``repro.kernels.rbla_agg.ops``
 (``backend`` takes the place of ``interpret``).  Trailing dims flatten into
@@ -11,13 +12,16 @@ JAX plans call inside a traced round -- is the same function.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 
 from .. import build, runtime
-from .ref import packed_agg_ref, rbla_agg_ref
+from .ref import (ROBUST_MODES, flora_stack_ref, packed_agg_ref,
+                  packed_robust_ref, packed_stack_ref, rbla_agg_ref)
 
 #: legacy method names -> the kernels' two normalisation modes
 _NORM_BY = {"rbla": "mask", "zeropad": "weight"}
@@ -35,8 +39,6 @@ def _lib() -> ctypes.CDLL:
     lib.rbla_packed_agg.restype = _I
     lib.rbla_rank_agg.argtypes = [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P]
     lib.rbla_rank_agg.restype = _I
-    lib.rbla_error_string.argtypes = [_I]
-    lib.rbla_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -65,11 +67,17 @@ def _norm_code(norm_by: str) -> int:
     return int(norm_by == "weight")
 
 
-def _check_launch(err: int, name: str) -> None:
+def _check_launch(err: int, name: str, lib: ctypes.CDLL) -> None:
+    """Raise with the CUDA error text if a launch through ``lib`` returned
+    an error."""
     if err != 0:
-        msg = _lib().rbla_error_string(err).decode()
+        msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error "
                            f"{err})")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _packed_agg_cuda(x, masks, weights, prev, scales, out_dtype, norm_by,
@@ -108,8 +116,8 @@ def _packed_agg_cuda(x, masks, weights, prev, scales, out_dtype, norm_by,
             _OUT_CODES[out_dtype],
             None if scratch is None else scratch.data_ptr(), n, r, d,
             by_weight, int(norm_restore),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(err, "packed_agg")
+            _stream(dev))
+    _check_launch(err, "packed_agg", _lib())
     runtime.LAUNCHES["packed_agg"] += 1
     return out
 
@@ -176,8 +184,8 @@ def _rbla_agg_cuda(x, ranks, weights, norm_by):
         err = _lib().rbla_rank_agg(
             x.data_ptr(), _OUT_CODES[x.dtype], ranks.data_ptr(),
             weights.data_ptr(), out.data_ptr(), n, r, d, by_weight,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(err, "rbla_agg")
+            _stream(dev))
+    _check_launch(err, "rbla_agg", _lib())
     runtime.LAUNCHES["rbla_agg"] += 1
     return out
 
@@ -202,5 +210,284 @@ def rbla_agg(x, ranks, weights, *, method: str = "rbla",
     return out.reshape((r,) + lead)
 
 
-__all__ = ["packed_agg", "packed_agg_inline", "rbla_agg", "packed_agg_ref",
-           "rbla_agg_ref"]
+# ------------------------------------------------------------ packed_robust --
+_MODE_CODES = {"clipped": 0, "trimmed": 1, "median": 2}
+#: the largest cohort the packed_robust kernel takes (its per-row shared
+#: memory holds a few floats per client); larger cohorts raise
+MAX_ROBUST_CLIENTS = 2048
+
+
+@functools.cache
+def _robust_lib() -> ctypes.CDLL:
+    lib = build.load("packed_robust")
+    lib.robust_packed_agg.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _L, _L,
+                                      _L, _I, ctypes.c_float, ctypes.c_float,
+                                      _P]
+    lib.robust_packed_agg.restype = _I
+    return lib
+
+
+def _packed_robust_cuda(x, masks, weights, prev, scales, out_dtype, mode,
+                        clip_norm, trim_frac):
+    n, r, d = x.shape
+    dev = x.device
+    if x.dtype not in _IN_CODES:
+        raise TypeError(f"packed_robust: x dtype {x.dtype} not in "
+                        f"{list(_IN_CODES)}")
+    if out_dtype not in _OUT_CODES:
+        raise TypeError(f"packed_robust: out_dtype {out_dtype} not in "
+                        f"{list(_OUT_CODES)}")
+    if not 1 <= n <= MAX_ROBUST_CLIENTS:
+        raise ValueError(f"packed_robust: the kernel takes 1 to "
+                         f"{MAX_ROBUST_CLIENTS} clients, got {n}")
+    if not x.is_contiguous():
+        raise ValueError("packed_robust: x must be contiguous")
+    masks = _on(masks, dev, torch.float32, "masks")
+    weights = _on(weights, dev, torch.float32, "weights")
+    if scales is not None:
+        scales = _on(scales, dev, torch.float32, "scales")
+    if prev is not None:
+        prev = _on(prev, dev, out_dtype, "prev")
+    out = torch.empty((r, d), dtype=out_dtype, device=dev)
+    if r * d == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _robust_lib().robust_packed_agg(
+            x.data_ptr(), _IN_CODES[x.dtype], masks.data_ptr(),
+            weights.data_ptr(), None if prev is None else prev.data_ptr(),
+            None if scales is None else scales.data_ptr(), out.data_ptr(),
+            _OUT_CODES[out_dtype], n, r, d, _MODE_CODES[mode],
+            float(clip_norm), float(trim_frac), _stream(dev))
+    _check_launch(err, "packed_robust", _robust_lib())
+    runtime.LAUNCHES["packed_robust"] += 1
+    return out
+
+
+def packed_robust(x, masks, weights, prev=None, *, mode: str,
+                  clip_norm: float = 0.0, trim_frac: float = 0.0,
+                  scales=None, out_dtype=None, backend: str = "auto"):
+    """Byzantine-robust bucket aggregation: ``mode`` "clipped" (per-row L2
+    clip, then the masked weighted mean), "trimmed" (per-coordinate
+    trimmed mean over a row's owners) or "median" (coordinate-wise median
+    over them); rows no client owns keep ``prev``.  Layout, ``scales`` and
+    ``out_dtype`` as in :func:`packed_agg` (dequantisation comes before the
+    clip or the sort); see ``packed_robust_ref`` for the exact contract."""
+    x2, lead = _flat(x, "packed_robust")
+    n, r, d = x2.shape
+    if tuple(masks.shape) != (n, r):
+        raise ValueError(f"packed_robust: masks {tuple(masks.shape)} != "
+                         f"({n}, {r})")
+    if scales is not None and tuple(scales.shape) != (n, r):
+        raise ValueError(f"packed_robust: scales {tuple(scales.shape)} != "
+                         f"({n}, {r})")
+    if mode not in ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {mode!r}; options: "
+                         f"{list(ROBUST_MODES)}")
+    out_dtype = out_dtype or x.dtype
+    pv = None
+    if prev is not None:
+        if tuple(prev.shape) != (r,) + lead:
+            raise ValueError(f"packed_robust: prev {tuple(prev.shape)} != "
+                             f"{(r,) + lead}")
+        pv = prev.reshape(r, d)
+    kw = dict(mode=mode, clip_norm=clip_norm, trim_frac=trim_frac)
+    if runtime.use_kernel(backend, x, "packed_robust"):
+        out = _packed_robust_cuda(x2, masks, weights, pv, scales, out_dtype,
+                                  **kw)
+    else:
+        out = packed_robust_ref(x2, masks, torch.as_tensor(weights), pv,
+                                scales=scales, out_dtype=out_dtype, **kw)
+    return out.reshape((r,) + lead)
+
+
+# ---------------------------------------------------- packed_stack / flora --
+_STACK_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FROM_PREV, _ZERO_ROW = -1, -2
+
+
+@functools.cache
+def _stack_lib() -> ctypes.CDLL:
+    lib = build.load("flora_stack")
+    lib.flora_stack_rows.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _P]
+    lib.flora_stack_rows.restype = _I
+    return lib
+
+
+@dataclasses.dataclass(eq=False)
+class StackTable:
+    """A stacking layout as runtime data for the stack kernel: one
+    ``(source, source row, scale index)`` int32 triple per output row,
+    where the source is a client index, -1 (the previous global) or -2 (a
+    zero row), plus the geometry it was checked against.  Build it with
+    :func:`stack_table` (or :func:`flora_table`); the device copy is made
+    once per device."""
+    rows: np.ndarray                   # (out_rows, 3) int32
+    n: int
+    r_in: int
+    r_prev: int
+    n_scales: int
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def out_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+    def on(self, device) -> torch.Tensor:
+        key = str(device)
+        got = self._on_device.get(key)
+        if got is None:
+            got = self._on_device[key] = torch.as_tensor(
+                self.rows, device=device)
+        return got
+
+
+def stack_table(copies_x=(), copies_prev=(), *, out_rows: int, n: int,
+                r_in: int, r_prev: int = 0, n_scales: int) -> StackTable:
+    """The per-row table of a ``packed_stack`` copy list, validated as the
+    TPU kernel validates it (a copy out of range raises ``ValueError``).
+    Copies are laid down in order, x copies before prev copies, so a later
+    copy wins where two overlap."""
+    rows = np.empty((out_rows, 3), np.int32)
+    rows[:] = (_ZERO_ROW, 0, 0)
+    for (src, s0, d0, nr, si) in copies_x:
+        if not (0 <= src < n and 0 <= s0 and 0 <= nr and s0 + nr <= r_in
+                and 0 <= d0 and d0 + nr <= out_rows
+                and 0 <= si < n_scales):
+            raise ValueError(f"packed_stack: bad copy {(src, s0, d0, nr, si)}")
+        rows[d0:d0 + nr, 0] = src
+        rows[d0:d0 + nr, 1] = np.arange(s0, s0 + nr)
+        rows[d0:d0 + nr, 2] = si
+    for (s0, d0, nr, si) in copies_prev:
+        if not (0 <= s0 and 0 <= nr and s0 + nr <= r_prev
+                and 0 <= d0 and d0 + nr <= out_rows
+                and 0 <= si < n_scales):
+            raise ValueError(f"packed_stack: bad prev copy {(s0, d0, nr, si)}")
+        rows[d0:d0 + nr, 0] = _FROM_PREV
+        rows[d0:d0 + nr, 1] = np.arange(s0, s0 + nr)
+        rows[d0:d0 + nr, 2] = si
+    return StackTable(rows=rows, n=n, r_in=r_in, r_prev=r_prev,
+                      n_scales=n_scales)
+
+
+def _check_segs(segs, n: int, r: int, out_rows: int) -> tuple:
+    segs = tuple(int(s) for s in segs)
+    if len(segs) != n:
+        raise ValueError(f"{len(segs)} segments for {n} contributors")
+    if any(s < 0 or s > r for s in segs):
+        raise ValueError(f"segment sizes {segs} outside [0, {r}]")
+    if sum(segs) > out_rows:
+        raise ValueError(f"stacked rows {sum(segs)} exceed out_rows="
+                         f"{out_rows}")
+    return segs
+
+
+@functools.lru_cache(maxsize=256)
+def flora_table(segs: tuple, out_rows: int, r: int,
+                layers: int = 1) -> StackTable:
+    """The table of ``flora_stack``: in each of ``layers`` blocks of ``r``
+    input rows, contributor i's first ``segs[i]`` rows at the running
+    offset of that layer's ``out_rows`` output rows, scaled by
+    ``scales[i]``; the rest zero."""
+    copies = []
+    for layer in range(layers):
+        off = layer * out_rows
+        for i, s in enumerate(segs):
+            copies.append((i, layer * r, off, s, i))
+            off += s
+    return stack_table(copies, out_rows=layers * out_rows, n=len(segs),
+                       r_in=layers * r, n_scales=len(segs))
+
+
+def _stack_cuda(x, scales, prev, table: StackTable, name: str):
+    n, r_in, d = x.shape
+    dev = x.device
+    if x.dtype not in _STACK_CODES:
+        raise TypeError(f"{name}: x dtype {x.dtype} not in "
+                        f"{list(_STACK_CODES)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    scales = _on(scales, dev, torch.float32, "scales")
+    if prev is not None:
+        if prev.device != dev or prev.dtype != x.dtype:
+            raise ValueError(f"{name}: prev must be a {x.dtype} tensor on "
+                             f"{dev}, got {prev.dtype} on {prev.device}")
+        prev = prev.contiguous()
+    out = torch.empty((table.out_rows, d), dtype=x.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _stack_lib().flora_stack_rows(
+            x.data_ptr(), _STACK_CODES[x.dtype],
+            None if prev is None else prev.data_ptr(), scales.data_ptr(),
+            table.on(dev).data_ptr(), out.data_ptr(), r_in, table.out_rows,
+            d, _stream(dev))
+    _check_launch(err, name, _stack_lib())
+    runtime.LAUNCHES[name] += 1
+    return out
+
+
+def packed_stack(x, scales, prev=None, *, copies_x=(), copies_prev=(),
+                 out_rows: int, table: StackTable | None = None,
+                 backend: str = "auto"):
+    """Fused FLoRA stacking over a packed bucket (the flora plan's op).
+
+    ``x``: (N, R_in, D); ``scales``: (S,); ``prev``: (R_prev, D) or None;
+    ``copies_x`` entries ``(client, src_row, dst_row, rows, scale_idx)``
+    and ``copies_prev`` entries ``(src_row, dst_row, rows, scale_idx)``
+    place scaled rows; rows no copy touches are zero.  ``table``: the
+    layout already built by :func:`stack_table` (a plan caches it); when
+    given, the copies are not read again.  -> (out_rows, D) in x's dtype.
+    """
+    n, r_in, d = x.shape
+    r_prev = 0 if prev is None else int(prev.shape[0])
+    if copies_prev and prev is None:
+        raise ValueError("packed_stack: prev copies but no prev buffer")
+    if prev is not None and prev.shape[-1] != d:
+        raise ValueError(f"packed_stack: prev width {prev.shape[-1]} != {d}")
+    n_scales = int(torch.as_tensor(scales).shape[0])
+    if table is None:
+        table = stack_table(copies_x, copies_prev, out_rows=out_rows, n=n,
+                            r_in=r_in, r_prev=r_prev, n_scales=n_scales)
+    elif (table.out_rows, table.n, table.r_in, table.n_scales) != (
+            out_rows, n, r_in, n_scales) or table.r_prev > r_prev:
+        raise ValueError("packed_stack: the table was built for another "
+                         "geometry")
+    if runtime.use_kernel(backend, x, "packed_stack"):
+        return _stack_cuda(x, scales, prev, table, "packed_stack")
+    return packed_stack_ref(x, scales, prev, copies_x=copies_x,
+                            copies_prev=copies_prev, out_rows=out_rows)
+
+
+def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,
+                backend: str = "auto"):
+    """Stack contributors' leading rank rows (FLoRA aggregation):
+    ``out[off_i : off_i + segs[i]] = scales[i] * x[i, :segs[i]]`` with
+    ``off_i`` the running sum of ``segs``; the rows beyond are zero.
+    x: (N, R, *dims); trailing dims flatten into D and are restored.
+
+    ``layers`` > 1 stacks a layer-stacked pair in the same launch: x is
+    (N, layers * R, *dims), each contributor's layers one after another,
+    every layer is stacked on its own with the same ``segs`` and
+    ``scales``, and the result is (layers * out_rows, *dims)."""
+    x2, lead = _flat(x, "flora_stack")
+    n, rows, d = x2.shape
+    if layers < 1 or rows % layers:
+        raise ValueError(f"flora_stack: {rows} rows do not split into "
+                         f"{layers} layers")
+    r = rows // layers
+    segs = _check_segs(segs, n, r, out_rows)
+    if runtime.use_kernel(backend, x, "flora_stack"):
+        out = _stack_cuda(x2, scales, None,
+                          flora_table(segs, out_rows, r, layers),
+                          "flora_stack")
+    else:       # the layer axis rides as a trailing dim of the plain version
+        xl = x2.reshape(n, layers, r, d).transpose(1, 2)
+        out = flora_stack_ref(xl, scales, segs, out_rows).transpose(0, 1)
+    return out.reshape((layers * out_rows,) + lead)
+
+
+__all__ = ["packed_agg", "packed_agg_inline", "rbla_agg", "packed_robust",
+           "packed_stack", "flora_stack", "StackTable", "stack_table",
+           "flora_table", "packed_agg_ref", "rbla_agg_ref",
+           "packed_robust_ref", "packed_stack_ref", "flora_stack_ref",
+           "MAX_ROBUST_CLIENTS"]

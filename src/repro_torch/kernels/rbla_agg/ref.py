@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the aggregation kernels.
 
-Each function computes exactly what its CUDA kernel in
-``csrc/rbla_agg.cu`` computes (no epsilon where a denominator is known to be
-positive, ``num / wtot`` for ``norm_by="weight"``), in fp32.  The CPU path
-of the wrappers and the strategies' ``ref`` backend run these; on the card
-they are the oracle the kernels are held against.
+Each function computes exactly what its CUDA kernel in ``csrc/`` computes
+(no epsilon where a denominator is known to be positive, ``num / wtot``
+for ``norm_by="weight"``), in fp32.  The CPU path of the wrappers and the
+strategies' ``ref`` backend run these; on the card they are the oracle the
+kernels are held against.
 """
 from __future__ import annotations
 
@@ -66,3 +66,109 @@ def rbla_agg_ref(x, ranks, weights, *, norm_by: str = "mask"):
     num = (wm[:, :, None] * x.float()).sum(0)
     return _finish(num, wm.sum(0)[:, None], w.sum(), norm_by,
                    None).to(x.dtype)
+
+
+def flora_stack_ref(x, scales, segs, out_rows: int):
+    """x (N, R, D); scales (N,); segs (N,) host ints -> (out_rows, D) in
+    x's dtype: contributor i's first ``segs[i]`` rows, scaled, at the
+    running offset ``sum(segs[:i])``; the rows beyond ``sum(segs)`` are
+    zero."""
+    runtime.PLAIN_CALLS["flora_stack"] += 1
+    sc = torch.as_tensor(scales, dtype=torch.float32, device=x.device)
+    out = torch.zeros((out_rows,) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    off = 0
+    for i, s in enumerate(int(v) for v in segs):
+        out[off:off + s] = (sc[i] * x[i, :s].float()).to(x.dtype)
+        off += s
+    return out
+
+
+def packed_stack_ref(x, scales, prev=None, *, copies_x=(), copies_prev=(),
+                     out_rows: int):
+    """x (N, R_in, D); scales (S,); prev (R_prev, D) or None -> (out_rows,
+    D) in x's dtype.  ``copies_x`` entries ``(client, src_row, dst_row,
+    rows, scale_idx)`` and then ``copies_prev`` entries ``(src_row,
+    dst_row, rows, scale_idx)`` write ``scales[scale_idx] * rows`` at
+    ``dst_row``, in that order (a later copy wins an overlap); rows no copy
+    touches are zero."""
+    runtime.PLAIN_CALLS["packed_stack"] += 1
+    sc = torch.as_tensor(scales, dtype=torch.float32, device=x.device)
+    out = torch.zeros((out_rows, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    for (src, s0, d0, nr, si) in copies_x:
+        out[d0:d0 + nr] = (sc[si] * x[src, s0:s0 + nr].float()).to(x.dtype)
+    for (s0, d0, nr, si) in copies_prev:
+        out[d0:d0 + nr] = (sc[si] * prev[s0:s0 + nr].float()).to(x.dtype)
+    return out
+
+
+#: sentinel pushed into unowned slots before the per-coordinate sort:
+#: above any sane upload, and two of them still average to a finite fp32
+_SENTINEL = 1e30
+ROBUST_MODES = ("clipped", "median", "trimmed")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {mode!r}; options: "
+                         f"{list(ROBUST_MODES)}")
+
+
+def packed_robust_ref(x, masks, weights, prev=None, *, mode: str,
+                      clip_norm: float = 0.0, trim_frac: float = 0.0,
+                      scales=None, out_dtype=None):
+    """x (N, R, D); masks (N, R); weights (N,); prev (R, D) or None;
+    scales (N, R) or None -> (R, D) in ``out_dtype`` (default x's).
+
+    ``"clipped"``: each client row, dequantised, is scaled by ``min(1,
+    clip_norm / max(||row||, 1e-12))`` and then enters the masked weighted
+    mean of :func:`packed_agg_ref`; a client adds nothing to a row whose
+    weight times mask is 0, whatever its values.  ``"trimmed"`` / ``"median"``:
+    unweighted order statistics over the c owners of each row (mask > 0).
+    Unowned slots hold :data:`_SENTINEL`, ``torch.sort`` orders the client
+    axis (NaN sorts last), and positions ``[k, c - k)`` are averaged with
+    ``k = min(floor(trim_frac * c), (c - 1) // 2)`` in fp32; the median
+    averages positions ``(c - 1) // 2`` and ``c // 2``; a NaN among a
+    row's owned values makes that output NaN.  Rows no client owns keep
+    ``prev`` (or 0)."""
+    _check_mode(mode)
+    runtime.PLAIN_CALLS["packed_robust"] += 1
+    xf = x.float()
+    if scales is not None:
+        xf = scales.float()[:, :, None] * xf
+    m = masks.float()
+    fb = (prev.float() if prev is not None
+          else torch.zeros(x.shape[1:], device=x.device))
+    out_dtype = out_dtype or x.dtype
+    if mode == "clipped":
+        w = weights.float()
+        norms = xf.square().sum(-1).sqrt()                    # (N, R)
+        clip = torch.clamp(torch.tensor(clip_norm, dtype=torch.float32)
+                           / norms.clamp(min=1e-12), max=1.0)
+        wm = w[:, None] * m
+        part = wm[:, :, None] * (clip[:, :, None] * xf)
+        num = torch.where(wm[:, :, None] != 0, part, 0.0).sum(0)
+        den = wm.sum(0)[:, None]
+        out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), fb)
+        return out.to(out_dtype)
+    n = x.shape[0]
+    owned = m > 0
+    s = torch.sort(torch.where(owned[:, :, None], xf, _SENTINEL),
+                   dim=0).values
+    c = owned.sum(0).to(torch.int32)                          # (R,)
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)[:, None]
+    if mode == "median":
+        lo = ((c - 1).div(2, rounding_mode="floor")).clamp(min=0)[None, :]
+        hi = c.div(2, rounding_mode="floor")[None, :]
+        sel = 0.5 * ((idx == lo).float() + (idx == hi).float())
+        out = (sel[:, :, None] * s).sum(0)
+    else:
+        tf = torch.tensor(trim_frac, dtype=torch.float32)
+        k = torch.minimum(torch.floor(tf * c.float()).to(torch.int32),
+                          (c - 1).div(2, rounding_mode="floor").clamp(min=0))
+        inc = ((idx >= k[None, :]) & (idx < (c - k)[None, :])).float()
+        cnt = (c - 2 * k).float().clamp(min=1.0)[:, None]
+        out = (inc[:, :, None] * s).sum(0) / cnt
+    out = torch.where((c > 0)[:, None], out, fb)
+    return out.to(out_dtype)

@@ -17,7 +17,8 @@ import torch
 
 BACKENDS = ("auto", "ref", "kernel", "distributed")
 _ALIASES = {"pallas": "kernel"}
-KERNELS = ("packed_agg", "rbla_agg")
+KERNELS = ("packed_agg", "rbla_agg", "packed_robust", "packed_stack",
+           "flora_stack")
 
 #: kernel launches per kernel since the last :func:`reset_counts`
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

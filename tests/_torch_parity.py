@@ -2,6 +2,8 @@
 place converts between JAX, numpy and torch and states the tolerance rule
 of ``tests/test_kernels.py`` (rtol = tol, atol = tol * max(1, max|want|);
 tol 2e-5 in fp32, 2e-2 in bf16)."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +50,71 @@ def port_tree(jax_tree, device="cpu"):
     return from_jax_params(jax_tree_to_numpy(jax_tree), device)
 
 
+def sim_reference_inputs(cfg, r_storage=None):
+    """The JAX run's initial model (adapters at ``r_storage`` storage,
+    default ``cfg.r_max``) and every client's batch indices, rebuilt as
+    ``repro.fl.simulator`` and ``repro.fl.client`` make them: ``key, pkey,
+    akey = jax.random.split(PRNGKey(seed), 3)`` for ``model.init`` /
+    ``init_adapters``; per client per round ``fit_key = PRNGKey(int(
+    rng.integers(0, 2**31)))`` from ``np.random.default_rng(seed)``, then
+    ``idx_key, _ = jax.random.split(fit_key)`` and
+    ``sample_batch_indices``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.data import make_dataset, staircase_partition
+    from repro.data.pipeline import sample_batch_indices
+    from repro.fl.selection import select_clients
+    from repro.lora import init_adapters
+    from repro.models.paper_nets import PAPER_MODELS
+    model = PAPER_MODELS[cfg.model]()
+    _, pkey, akey = jax.random.split(jax.random.PRNGKey(cfg.seed), 3)
+    params = model.init(pkey)
+    adapters = init_adapters(akey, model.lora_specs, r_storage or cfg.r_max,
+                             cfg.r_max)
+    train = make_dataset(cfg.dataset, cfg.n_per_class, cfg.seed, "train")
+    clients = staircase_partition(train, cfg.n_clients, cfg.r_max,
+                                  cfg.ratio_step, cfg.seed)
+    max_n = max(len(c.x) for c in clients)
+    steps = max(1, (max_n * cfg.local_epochs) // cfg.batch_size)
+    rng = np.random.default_rng(cfg.seed)
+    idx = {}
+    for rnd in range(cfg.rounds):
+        for ci in select_clients(cfg.n_clients, rnd, cfg.participation,
+                                 cfg.seed):
+            fit_key = jax.random.PRNGKey(int(rng.integers(0, 2 ** 31)))
+            idx_key, _ = jax.random.split(fit_key)
+            idx[rnd, ci] = np.array(sample_batch_indices(
+                idx_key, jnp.asarray(clients[ci].n, jnp.int32),
+                cfg.batch_size, steps))
+    return params, adapters, idx
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def spy_states(monkeypatch, cls):
+    """Record, as numpy trees, the adapters and base trainables of every
+    server state ``cls.aggregate`` returns (patched on the class, so the
+    configured copies of ``with_options`` are seen too; copied at once,
+    because the JAX loop donates each round's buffers to the next)."""
+    seen = []
+    orig = cls.aggregate
+
+    def spy(self, *a, **k):
+        state = orig(self, *a, **k)
+        seen.append(SimpleNamespace(
+            adapters=_np_tree(state.adapters),
+            base_trainable=_np_tree(state.base_trainable)))
+        return state
+    monkeypatch.setattr(cls, "aggregate", spy)
+    return seen
+
+
 def need_cuda():
     """Skip (inside a test, never at import) when there is no card."""
     if not torch.cuda.is_available():
@@ -57,4 +124,5 @@ def need_cuda():
 
 __all__ = ["F32_TOL", "BF16_TOL", "np32", "assert_close",
            "assert_trees_close", "jax_tree_to_numpy", "port_tree",
-           "need_cuda", "from_jax_adapters", "from_jax_params", "to_numpy"]
+           "sim_reference_inputs", "spy_states", "need_cuda",
+           "from_jax_adapters", "from_jax_params", "to_numpy"]

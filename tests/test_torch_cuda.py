@@ -15,7 +15,10 @@ from _torch_parity import BF16_TOL, F32_TOL, assert_close, need_cuda
 from repro_torch.core import strategy as ts
 from repro_torch.fl import FLConfig, run_simulation
 from repro_torch.kernels import runtime
-from repro_torch.kernels.rbla_agg import (packed_agg, packed_agg_ref,
+from repro_torch.kernels.rbla_agg import (flora_stack, flora_stack_ref,
+                                          packed_agg, packed_agg_ref,
+                                          packed_robust, packed_robust_ref,
+                                          packed_stack, packed_stack_ref,
                                           rbla_agg, rbla_agg_ref)
 from repro_torch.tree import tree_map
 
@@ -153,7 +156,7 @@ def test_strategy_kernel_paths_match_ref(name):
             for side in ("A", "B"):
                 assert got[k][side].is_cuda
                 assert_close(got[k][side], want[k][side])
-    assert runtime.PLAIN_CALLS == {"packed_agg": 0, "rbla_agg": 0}
+    assert runtime.PLAIN_CALLS == dict.fromkeys(runtime.KERNELS, 0)
     assert runtime.LAUNCHES["packed_agg"] >= 3
 
 
@@ -168,3 +171,197 @@ def test_simulation_kernel_rounds_match_plain_rounds():
     want = run_simulation(FLConfig(agg_backend="ref", **kw))
     np.testing.assert_allclose(got.test_acc, want.test_acc, atol=0.01)
     np.testing.assert_allclose(got.train_loss, want.train_loss, rtol=1e-3)
+
+
+# ------------------------------------------------------------ packed_robust --
+ROBUST_KNOBS = dict(clip_norm=2.5, trim_frac=0.2)
+
+
+def _robust_inputs(n, r, d, dtype, seed, with_prev):
+    """Like ``_inputs``, with rank-0 clients, unowned rows and a column of
+    ties across clients."""
+    x, masks, weights, prev, scales, out_dtype = _inputs(n, r, d, dtype, seed,
+                                                         with_prev)
+    masks[0] = 0.0
+    x[:, :, min(1, d - 1)] = 7 if dtype == "int8" else 0.5
+    return x, masks, weights, prev, scales, out_dtype
+
+
+def _check_robust(x, masks, weights, prev, scales, out_dtype, mode):
+    kw = dict(mode=mode, scales=scales, out_dtype=out_dtype, **ROBUST_KNOBS)
+    before = runtime.LAUNCHES["packed_robust"]
+    got = packed_robust(x, masks, weights, prev, **kw)
+    assert runtime.LAUNCHES["packed_robust"] == before + 1
+    want = packed_robust_ref(x, masks, weights, prev, **kw)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == out_dtype
+    assert_close(got, want, BF16_TOL if out_dtype == torch.bfloat16
+                 else F32_TOL)
+
+
+@pytest.mark.parametrize("with_prev", [False, True])
+@pytest.mark.parametrize("n", [1, 10, 33, 70])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("mode", ["clipped", "trimmed", "median"])
+def test_packed_robust_kernel_matches_plain(mode, dtype, d, n, with_prev):
+    """Every mode and input type, at the register networks for 8 and 64
+    clients and at 70 (selection by counting)."""
+    need_cuda()
+    _check_robust(*_robust_inputs(n, 64, d, dtype, n + d, with_prev), mode)
+
+
+@pytest.mark.parametrize("mode", ["clipped", "trimmed", "median"])
+def test_packed_robust_kernel_large_misaligned_and_nan(mode):
+    need_cuda()
+    x, masks, weights, prev, _, _ = _robust_inputs(10, 512, 4096, "f32", 2,
+                                                   True)
+    _check_robust(x, masks, weights, prev, None, torch.float32, mode)
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    _check_robust(shifted, masks, weights, prev, None, torch.float32, mode)
+    owner = int(masks[:, 3].argmax())
+    x[owner, 3, 5] = float("nan")
+    got = packed_robust(x, masks, weights, prev, mode=mode, **ROBUST_KNOBS)
+    want = packed_robust_ref(x, masks, weights, prev, mode=mode,
+                             **ROBUST_KNOBS)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[3]).any())
+
+
+def test_packed_robust_kernel_refuses_too_many_clients():
+    need_cuda()
+    x = torch.zeros(2049, 2, 3, device="cuda")
+    with pytest.raises(ValueError, match="2048"):
+        packed_robust(x, torch.ones(2049, 2, device="cuda"),
+                      torch.ones(2049, device="cuda"), mode="median")
+
+
+# ----------------------------------------------------------- stack kernels --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDTHS + (4096,))
+def test_flora_stack_kernel_matches_plain(d, dtype):
+    need_cuda()
+    rng = np.random.default_rng(d)
+    x = torch.as_tensor(rng.normal(size=(11, 64, d)).astype(np.float32)).to(
+        dtype).cuda()
+    scales = torch.as_tensor(rng.uniform(0.1, 3.0, 11).astype(np.float32))
+    segs = (64, 0, 13, 19, 26, 32, 38, 45, 51, 58, 64)
+    before = runtime.LAUNCHES["flora_stack"]
+    got = flora_stack(x, scales.cuda(), segs=segs, out_rows=512)
+    assert runtime.LAUNCHES["flora_stack"] == before + 1
+    want = flora_stack_ref(x, scales.cuda(), segs, 512)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("d", WIDTHS)
+def test_packed_stack_kernel_matches_plain(d, misaligned):
+    """Overlapping x and prev copies (the later one wins), zero rows, and a
+    pointer off 16-byte alignment (the scalar path)."""
+    need_cuda()
+    rng = np.random.default_rng(d)
+    x = torch.as_tensor(rng.normal(size=(3, 6, d)).astype(np.float32)).cuda()
+    if misaligned:
+        flat = torch.empty(x.numel() + 1, device="cuda")
+        x = flat[1:].view(x.shape).copy_(x)
+    prev = torch.as_tensor(rng.normal(size=(4, d)).astype(np.float32)).cuda()
+    scales = torch.tensor([0.5, 2.0, 3.0], device="cuda")
+    kw = dict(copies_x=((0, 1, 0, 2, 1), (2, 0, 4, 3, 2), (1, 2, 5, 2, 0)),
+              copies_prev=((0, 8, 2, 1), (1, 3, 2, 2)), out_rows=11)
+    before = runtime.LAUNCHES["packed_stack"]
+    got = packed_stack(x, scales, prev, **kw)
+    assert runtime.LAUNCHES["packed_stack"] == before + 1
+    want = packed_stack_ref(x, scales, prev, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# ------------------------------------------- strategies of the later slice --
+def _products(tree):
+    return {k: (p["B"].float() @ p["A"].float(), int(p["rank"]))
+            for k, p in tree.items()}
+
+
+@pytest.mark.parametrize("name,options", [
+    ("rbla_clipped", dict(clip_norm=2.5)), ("rbla_trimmed", {}),
+    ("rbla_median", {}), ("svd", {}), ("flora", dict(stack_r_cap=64)),
+    ("flora", dict(stack_r_cap=16))])
+def test_later_strategy_kernel_paths_match_ref(name, options):
+    """Plan and per-pair kernel paths against the ref backend on the
+    card: robust and stacking factors within fp32 tolerance, svd and
+    flora's re-projection in product space."""
+    need_cuda()
+    clients, ranks, weights, prev = _cohort(0)
+    strat = ts.get_strategy(name).with_options(**options)
+    want = strat.aggregate_adapters(clients, weights, r_max=8,
+                                    client_ranks=ranks, prev_global=prev,
+                                    backend="ref")
+    cuda = lambda t: t.cuda()                                 # noqa: E731
+    cclients = [tree_map(cuda, c) for c in clients]
+    runtime.reset_counts()
+    for use_plan in (True, False):
+        got = strat.aggregate_adapters(cclients, weights.cuda(), r_max=8,
+                                       client_ranks=ranks.cuda(),
+                                       prev_global=tree_map(cuda, prev),
+                                       use_plan=use_plan)
+        g, w = _products(got), _products(want)
+        for k in want:
+            assert got[k]["A"].is_cuda and g[k][1] == w[k][1]
+            assert_close(g[k][0], w[k][0], msg=f"{k} plan={use_plan}")
+            if name.startswith("rbla") or g[k][1] > 8:
+                for side in ("A", "B"):
+                    assert_close(got[k][side], want[k][side])
+    assert not any(runtime.PLAIN_CALLS.values()), runtime.PLAIN_CALLS
+    kernel = {"rbla_clipped": "packed_robust", "rbla_trimmed":
+              "packed_robust", "rbla_median": "packed_robust"}.get(name)
+    if name == "flora" and options["stack_r_cap"] == 64:
+        assert runtime.LAUNCHES["packed_stack"] == 3
+        assert runtime.LAUNCHES["flora_stack"] == 2 * len(want)
+    if kernel:
+        assert runtime.LAUNCHES[kernel] == 3 + 2 * len(want)
+
+
+def _layered(t, layers=3):
+    """A scalar-rank cohort tree as a layer-stacked one: every leaf
+    repeated over a leading layer axis (ranks uniform over the layers)."""
+    return tree_map(lambda x: torch.stack([x] * layers), t)
+
+
+@pytest.mark.parametrize("cap", [64, 16])
+def test_flora_per_pair_kernel_stacks_layer_stacked_pairs(cap):
+    """A layer-stacked cohort through the per-pair path on the card: within
+    the cap one ``flora_stack`` launch per pair side, equal to the ref
+    path's stack; over it the SVD re-projection, in product space."""
+    need_cuda()
+    clients, ranks, weights, prev = _cohort(1)
+    clients = [_layered(c) for c in clients]
+    prev = _layered(prev)
+    strat = ts.get_strategy("flora").with_options(stack_r_cap=cap)
+    want = strat.aggregate_adapters(clients, weights, r_max=8,
+                                    client_ranks=ranks, prev_global=prev,
+                                    backend="ref", use_plan=False)
+    cuda = lambda t: t.cuda()                                 # noqa: E731
+    runtime.reset_counts()
+    got = strat.aggregate_adapters([tree_map(cuda, c) for c in clients],
+                                   weights.cuda(), r_max=8,
+                                   client_ranks=ranks.cuda(),
+                                   prev_global=tree_map(cuda, prev),
+                                   use_plan=False)
+    torch.cuda.synchronize()
+    assert not any(runtime.PLAIN_CALLS.values()), runtime.PLAIN_CALLS
+    within = int(ranks.sum()) + 8 <= cap
+    assert runtime.LAUNCHES["flora_stack"] == (2 * len(want) if within else 0)
+    for k in want:
+        assert got[k]["A"].is_cuda and got[k]["A"].shape == want[k]["A"].shape
+        assert torch.equal(got[k]["rank"].cpu(), want[k]["rank"])
+        if within:
+            for side in ("A", "B"):
+                assert_close(got[k][side], want[k][side])
+        else:
+            assert_close(got[k]["B"].double() @ got[k]["A"].double(),
+                         want[k]["B"].double() @ want[k]["A"].double())

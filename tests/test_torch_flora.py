@@ -1,0 +1,440 @@
+"""The port's flora slice: ``flora_stack`` and ``packed_stack`` (plain
+versions and the stack kernel's per-row table) against the JAX package,
+``FloraStrategy`` and its packed plan against the JAX strategy within and
+over the cap, and three synchronous rounds against
+``repro.fl.run_simulation``.
+
+Stacking is copies and one fp32 multiply per element, so the plain
+versions match the JAX oracles exactly; a round that re-projects by SVD is
+compared in product space (``B @ A``), where the signs of singular vectors
+cancel, within 2e-5 of max|want| (fp32 QR/SVD of two LAPACK builds).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _cohorts import SPECS, hetero_cohort
+from _torch_parity import (assert_close, assert_trees_close, port_tree,
+                           sim_reference_inputs, spy_states)
+
+from repro.core import plan as jplan
+from repro.core import strategy as js
+from repro.fl import FLConfig as JConfig
+from repro.fl import run_simulation as j_run
+from repro.kernels.rbla_agg import ops as jops
+from repro.kernels.rbla_agg import ref as jref
+from repro_torch.core import plan as tplan
+from repro_torch.core import strategy as ts
+from repro_torch.fl import FLConfig, run_simulation
+from repro_torch.kernels import runtime
+from repro_torch.kernels.rbla_agg import (flora_stack, flora_table,
+                                          packed_stack, packed_stack_ref,
+                                          stack_table)
+
+R_MAX = 8
+
+
+def _apply_table(rows, x, prev, scales):
+    """What the stack kernel computes from its table, in numpy: output row
+    i is ``scales[si] * source[src_row]`` or zero."""
+    out = np.zeros((rows.shape[0], x.shape[-1]), np.float32)
+    for i, (src, r, si) in enumerate(rows):
+        if src == -2:
+            continue
+        row = prev[r] if src == -1 else x[src, r]
+        out[i] = np.float32(scales[si]) * row.astype(np.float32)
+    return out
+
+
+# ------------------------------------------------------------ flora_stack --
+@pytest.mark.parametrize("segs,out_rows", [((3, 0, 5), 10), ((6, 6, 6), 18),
+                                            ((0, 1, 0), 4)])
+def test_flora_stack_plain_matches_jax(segs, out_rows):
+    rng = np.random.default_rng(sum(segs))
+    x = rng.normal(size=(3, 6, 7)).astype(np.float32)
+    sc = rng.uniform(0.2, 3.0, 3).astype(np.float32)
+    got = flora_stack(torch.as_tensor(x), torch.as_tensor(sc), segs=segs,
+                      out_rows=out_rows)
+    want = jref.flora_stack_ref(jnp.asarray(x), jnp.asarray(sc), segs,
+                                out_rows)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    kern = jops.flora_stack(jnp.asarray(x), jnp.asarray(sc), segs=segs,
+                            out_rows=out_rows, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(kern))
+    np.testing.assert_array_equal(
+        _apply_table(flora_table(segs, out_rows, 6).rows, x, None, sc),
+        got.numpy())
+
+
+def test_flora_stack_trailing_dims_and_bf16():
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.normal(size=(2, 4, 3, 5)).astype(np.float32))
+    got = flora_stack(x.bfloat16(), torch.tensor([1.0, 0.5]), segs=(2, 4),
+                      out_rows=7)
+    assert got.shape == (7, 3, 5) and got.dtype == torch.bfloat16
+    want = jref.flora_stack_ref(
+        jnp.asarray(x.numpy().reshape(2, 4, 15), jnp.bfloat16),
+        jnp.asarray([1.0, 0.5]), (2, 4), 7)
+    assert_close(got.reshape(7, 15), want, tol=0.0)
+
+
+def test_flora_stack_validation():
+    x = torch.zeros(2, 4, 3)
+    with pytest.raises(ValueError, match="segments for 2"):
+        flora_stack(x, torch.ones(2), segs=(1,), out_rows=4)
+    with pytest.raises(ValueError, match="outside"):
+        flora_stack(x, torch.ones(2), segs=(5, 0), out_rows=8)
+    with pytest.raises(ValueError, match="exceed out_rows"):
+        flora_stack(x, torch.ones(2), segs=(3, 3), out_rows=5)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flora_stack(x, torch.ones(2), segs=(1, 1), out_rows=4,
+                    backend="kernel")
+    runtime.reset_counts()
+    flora_stack(x, torch.ones(2), segs=(1, 1), out_rows=4)
+    assert runtime.PLAIN_CALLS["flora_stack"] == 1
+
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+def test_flora_stack_layers_match_jax_per_layer(layers):
+    """A layer-stacked pair in one call: every layer stacked on its own,
+    exactly as the JAX oracle stacks that layer; the kernel's table (one
+    block per layer) reproduces it."""
+    rng = np.random.default_rng(10 + layers)
+    segs, r, out_rows = (3, 0, 5, 2), 6, 12
+    x = rng.normal(size=(4, layers * r, 7)).astype(np.float32)
+    sc = rng.uniform(0.2, 3.0, 4).astype(np.float32)
+    runtime.reset_counts()
+    got = flora_stack(torch.as_tensor(x), torch.as_tensor(sc), segs=segs,
+                      out_rows=out_rows, layers=layers).numpy()
+    assert runtime.PLAIN_CALLS["flora_stack"] == 1
+    assert got.shape == (layers * out_rows, 7)
+    for layer in range(layers):
+        want = jref.flora_stack_ref(
+            jnp.asarray(x[:, layer * r:(layer + 1) * r]), jnp.asarray(sc),
+            segs, out_rows)
+        np.testing.assert_array_equal(
+            got[layer * out_rows:(layer + 1) * out_rows], np.asarray(want))
+    np.testing.assert_array_equal(
+        _apply_table(flora_table(segs, out_rows, r, layers).rows, x, None,
+                     sc), got)
+    with pytest.raises(ValueError, match="do not split"):
+        flora_stack(torch.as_tensor(x), torch.as_tensor(sc), segs=segs,
+                    out_rows=out_rows, layers=layers + 4)
+
+# ----------------------------------------------------------- packed_stack --
+COPIES_X = ((0, 1, 0, 2, 1), (2, 0, 4, 3, 2), (1, 2, 5, 2, 0))
+COPIES_PREV = ((0, 8, 2, 1), (1, 3, 2, 2))      # overlaps an x copy at 3-5
+
+
+def test_packed_stack_plain_matches_jax():
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(3, 6, 7)).astype(np.float32)
+    prev = rng.normal(size=(4, 7)).astype(np.float32)
+    sc = np.array([0.5, 2.0, 3.0], np.float32)
+    kw = dict(copies_x=COPIES_X, copies_prev=COPIES_PREV, out_rows=11)
+    got = packed_stack(torch.as_tensor(x), torch.as_tensor(sc),
+                       torch.as_tensor(prev), **kw).numpy()
+    jargs = (jnp.asarray(x), jnp.asarray(sc), jnp.asarray(prev))
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.packed_stack_ref(*jargs, **kw)))
+    np.testing.assert_array_equal(got, np.asarray(
+        jops.packed_stack(*jargs, interpret=True, **kw)))
+    table = stack_table(COPIES_X, COPIES_PREV, out_rows=11, n=3, r_in=6,
+                        r_prev=4, n_scales=3)
+    np.testing.assert_array_equal(_apply_table(table.rows, x, prev, sc), got)
+
+
+@pytest.mark.parametrize("copy,match", [
+    ((3, 0, 0, 1, 0), "bad copy"), ((0, 5, 0, 2, 0), "bad copy"),
+    ((0, 0, 10, 2, 0), "bad copy"), ((0, 0, 0, 1, 3), "bad copy")])
+def test_packed_stack_refuses_bad_copies(copy, match):
+    x = torch.zeros(3, 6, 7)
+    with pytest.raises(ValueError, match=match):
+        packed_stack(x, torch.ones(3), copies_x=(copy,), out_rows=11)
+
+
+def test_packed_stack_refuses_bad_prev_copies():
+    x = torch.zeros(3, 6, 7)
+    with pytest.raises(ValueError, match="no prev buffer"):
+        packed_stack(x, torch.ones(3), copies_prev=((0, 0, 1, 0),),
+                     out_rows=4)
+    with pytest.raises(ValueError, match="bad prev copy"):
+        packed_stack(x, torch.ones(3), torch.zeros(2, 7),
+                     copies_prev=((1, 0, 2, 0),), out_rows=4)
+    table = stack_table(out_rows=4, n=3, r_in=6, n_scales=3)
+    with pytest.raises(ValueError, match="another geometry"):
+        packed_stack(x, torch.ones(3), out_rows=5, table=table)
+
+
+# ------------------------------------------------------------- strategies --
+@functools.cache
+def _cohort(seed, prev_rank):
+    """Five clients at storage R_MAX; a previous global at storage 4 *
+    R_MAX with live rank ``prev_rank`` (0: no previous global)."""
+    adapters, ranks, weights = hetero_cohort(n=5, seed=seed, r_hi=R_MAX)
+    prev = None
+    if prev_rank:
+        rng = np.random.default_rng(seed + 7)
+        prev = {}
+        for k, (fo, fi) in SPECS.items():
+            A = np.zeros((4 * R_MAX, fi), np.float32)
+            B = np.zeros((fo, 4 * R_MAX), np.float32)
+            A[:prev_rank] = rng.normal(size=(prev_rank, fi))
+            B[:, :prev_rank] = rng.normal(size=(fo, prev_rank))
+            prev[k] = {"A": A, "B": B, "rank": np.int32(prev_rank)}
+    return adapters, ranks, weights, prev
+
+
+def _products(tree):
+    """Each pair's live product ``B[:, :r] @ A[:r]`` and its rank."""
+    out = {}
+    for k, p in tree.items():
+        A, B = np.asarray(p["A"], np.float32), np.asarray(p["B"], np.float32)
+        r = int(np.asarray(p["rank"]))
+        out[k] = (B[:, :r] @ A[:r], r)
+    return out
+
+
+def _run_both(cap, prev_rank, seed=0, use_plan=True):
+    adapters, ranks, weights, prev = _cohort(seed, prev_rank)
+    jprev = None if prev is None else jax.tree.map(jnp.asarray, prev)
+    want = js.get_strategy("flora").with_options(
+        stack_r_cap=cap).aggregate_adapters(
+            adapters, weights, r_max=R_MAX, client_ranks=ranks,
+            prev_global=jprev, backend="ref")
+    got = ts.get_strategy("flora").with_options(
+        stack_r_cap=cap).aggregate_adapters(
+            [port_tree(a) for a in adapters],
+            torch.as_tensor(np.array(weights)), r_max=R_MAX,
+            client_ranks=torch.as_tensor(np.array(ranks)),
+            prev_global=None if prev is None else port_tree(prev),
+            backend="ref", use_plan=use_plan)
+    return got, want, int(np.sum(ranks)) + prev_rank
+
+
+@pytest.mark.parametrize("use_plan", [True, False])
+@pytest.mark.parametrize("prev_rank", [0, 5])
+def test_flora_within_the_cap_matches_reference(prev_rank, use_plan):
+    """Within the cap the stacked factors themselves agree: one fp32
+    multiply per element on both sides."""
+    got, want, total = _run_both(4 * R_MAX, prev_rank, use_plan=use_plan)
+    assert total <= 4 * R_MAX
+    assert_trees_close(got, want, msg=f"prev={prev_rank} plan={use_plan}")
+    assert all(int(p["rank"]) == total for p in got.values())
+
+
+@pytest.mark.parametrize("use_plan", [True, False])
+@pytest.mark.parametrize("prev_rank", [0, 5])
+def test_flora_over_the_cap_matches_reference_in_product_space(prev_rank,
+                                                               use_plan):
+    got, want, total = _run_both(2 * R_MAX, prev_rank, use_plan=use_plan)
+    assert total > 2 * R_MAX
+    g, w = _products(got), _products(want)
+    for k in w:
+        assert g[k][1] == w[k][1] == R_MAX
+        assert_close(g[k][0], w[k][0], msg=k)
+        assert got[k]["A"].shape == (2 * R_MAX, SPECS[k][1])
+
+
+@pytest.mark.parametrize("cap,prev_rank", [(4 * R_MAX, 5), (2 * R_MAX, 5),
+                                           (4 * R_MAX, 0)])
+def test_flora_plan_counts_match_reference(cap, prev_rank):
+    adapters, ranks, weights, prev = _cohort(0, prev_rank)
+    jspec = jplan.build_cohort_spec(
+        js.stack_trees(adapters), kind="ref", r_max=R_MAX,
+        client_ranks=ranks,
+        prev_tree=None if prev is None else jax.tree.map(jnp.asarray, prev))
+    jround = js.get_strategy("flora").with_options(stack_r_cap=cap).plan(
+        None, jspec)
+    tround = ts.get_strategy("flora").with_options(stack_r_cap=cap).plan(
+        None, tplan.build_cohort_spec(
+            ts.stack_trees([port_tree(a) for a in adapters]), kind="ref",
+            r_max=R_MAX, client_ranks=torch.as_tensor(np.array(ranks)),
+            prev_tree=None if prev is None else port_tree(prev)))
+    assert tround.kind == jround.kind == "packed"
+    assert tround.n_kernel_launches == jround.n_kernel_launches
+    assert tround.n_fallback_pairs == jround.n_fallback_pairs
+
+
+
+def _layered_cohort(seed, n=4, layers=3, prev_rank=0):
+    """``n`` clients with layer-stacked pairs (A (L, R_MAX, in), B (L, out,
+    R_MAX), one rank per client uniform over the L layers) as JAX trees,
+    and a layer-stacked previous global at storage 4 R_MAX."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.integers(1, R_MAX + 1, n)
+
+    def pair(fo, fi, storage, rank):
+        A = np.zeros((layers, storage, fi), np.float32)
+        B = np.zeros((layers, fo, storage), np.float32)
+        A[:, :rank] = rng.normal(size=(layers, rank, fi))
+        B[:, :, :rank] = rng.normal(size=(layers, fo, rank))
+        return {"A": jnp.asarray(A), "B": jnp.asarray(B),
+                "rank": jnp.full((layers,), rank, jnp.int32)}
+    adapters = [{k: pair(fo, fi, R_MAX, int(r)) for k, (fo, fi) in
+                 SPECS.items()} for r in ranks]
+    prev = ({k: pair(fo, fi, 4 * R_MAX, prev_rank) for k, (fo, fi) in
+             SPECS.items()} if prev_rank else None)
+    weights = jnp.asarray(rng.uniform(0.5, 2.0, n), jnp.float32)
+    return adapters, jnp.asarray(ranks, jnp.int32), weights, prev
+
+
+@pytest.mark.parametrize("cap,prev_rank", [(4 * R_MAX, 0), (4 * R_MAX, 5),
+                                           (R_MAX, 5)])
+def test_per_pair_path_stacks_layer_stacked_pairs(monkeypatch, cap,
+                                                  prev_rank):
+    """``aggregate_tree_kernel`` on a layer-stacked cohort: within the cap
+    the layer axis folds into the rank axis and one ``flora_stack`` call
+    per side stacks every layer (run here on the plain version, which the
+    wrapper takes for CPU tensors); over the cap the pair is re-projected.
+    Within the cap the factors match the JAX strategy to fp32 tolerance
+    (one multiply per element on both sides); over it, in product space."""
+    adapters, ranks, weights, prev = _layered_cohort(2, prev_rank=prev_rank)
+    want = js.get_strategy("flora").with_options(
+        stack_r_cap=cap).aggregate_adapters(
+            adapters, weights, r_max=R_MAX, client_ranks=ranks,
+            prev_global=prev, backend="ref")
+    calls = []
+
+    def plain_stack(*a, **k):
+        calls.append(k["layers"])
+        return flora_stack(*a, **dict(k, backend="ref"))
+    monkeypatch.setattr(ts, "flora_stack", plain_stack)
+    got = ts.get_strategy("flora").with_options(
+        stack_r_cap=cap).aggregate_tree_kernel(
+            ts.stack_trees([port_tree(a) for a in adapters]),
+            torch.as_tensor(np.array(weights)),
+            torch.as_tensor(np.array(ranks)),
+            None if prev is None else port_tree(prev), r_max=R_MAX)
+    total = int(np.sum(ranks)) + prev_rank
+    if total <= cap:
+        assert calls == [3] * 2 * len(SPECS)
+        assert_trees_close(got, want, msg=f"cap={cap} prev={prev_rank}")
+        return
+    assert calls == []
+    for k in SPECS:
+        assert got[k]["A"].shape == want[k]["A"].shape
+        np.testing.assert_array_equal(got[k]["rank"].numpy(),
+                                      np.asarray(want[k]["rank"]))
+        for layer in range(3):
+            assert_close(got[k]["B"][layer].double() @ got[k]["A"][layer].double(),
+                         np.asarray(want[k]["B"][layer], np.float64)
+                         @ np.asarray(want[k]["A"][layer], np.float64),
+                         msg=f"{k}/{layer}")
+
+def test_flora_plan_tables_reproduce_the_plain_stack():
+    """Copy lists taken from a real plan: the JAX stacking oracle, the
+    port's plain version and the kernel's per-row table agree."""
+    adapters, ranks, weights, prev = _cohort(1, 5)
+    tround = ts.get_strategy("flora").with_options(stack_r_cap=4 * R_MAX).plan(
+        None, tplan.build_cohort_spec(
+            ts.stack_trees([port_tree(a) for a in adapters]), kind="ref",
+            r_max=R_MAX, client_ranks=torch.as_tensor(np.array(ranks)),
+            prev_tree=port_tree(prev)))
+    rng = np.random.default_rng(3)
+    assert len(tround.stack_layouts) == 3
+    for lay in tround.stack_layouts:
+        n_scales = 1 + max(c[-1] for c in lay["copies_x"])
+        x = rng.normal(size=(5, lay["r_in"], 4)).astype(np.float32)
+        prev_rows = rng.normal(size=(lay["r_prev"], 4)).astype(np.float32)
+        sc = rng.uniform(0.1, 2.0, n_scales).astype(np.float32)
+        kw = dict(copies_x=lay["copies_x"], copies_prev=lay["copies_prev"],
+                  out_rows=lay["out_rows"])
+        got = packed_stack_ref(torch.as_tensor(x), torch.as_tensor(sc),
+                               torch.as_tensor(prev_rows), **kw).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jref.packed_stack_ref(
+            jnp.asarray(x), jnp.asarray(sc), jnp.asarray(prev_rows), **kw)))
+        table = stack_table(lay["copies_x"], lay["copies_prev"],
+                            out_rows=lay["out_rows"], n=5, r_in=lay["r_in"],
+                            r_prev=lay["r_prev"], n_scales=n_scales)
+        np.testing.assert_array_equal(
+            _apply_table(table.rows, x, prev_rows, sc), got)
+
+
+def test_default_cap_never_stacks_the_quickstart_cohort():
+    """At the default cap (2 r_max = 128) the quickstart cohort (ranks
+    6..64, sum 352) plus a global at live rank 64 over-runs every round,
+    so every pair re-projects and no stacking launch happens; at cap 512
+    the first round stacks, and a global at live rank 416 over-runs it."""
+    ranks = np.array([6, 13, 19, 26, 32, 38, 45, 51, 58, 64])
+    specs = {"fc1": (6, 9), "fc2": (4, 6)}
+    rng = np.random.default_rng(0)
+    clients = [{k: {"A": rng.normal(size=(64, fi)).astype(np.float32),
+                    "B": rng.normal(size=(fo, 64)).astype(np.float32),
+                    "rank": np.int32(r)} for k, (fo, fi) in specs.items()}
+               for r in ranks]
+
+    def counts(cap, prev_rank):
+        storage = cap if cap is not None else 128
+        prev = {k: {"A": np.zeros((storage, fi), np.float32),
+                    "B": np.zeros((fo, storage), np.float32),
+                    "rank": np.int32(prev_rank)}
+                for k, (fo, fi) in specs.items()}
+        jround = js.get_strategy("flora").with_options(stack_r_cap=cap).plan(
+            None, jplan.build_cohort_spec(
+                js.stack_trees(jax.tree.map(jnp.asarray, clients)),
+                kind="ref", r_max=64, prev_tree=jax.tree.map(jnp.asarray,
+                                                             prev)))
+        tround = ts.get_strategy("flora").with_options(stack_r_cap=cap).plan(
+            None, tplan.build_cohort_spec(
+                ts.stack_trees([port_tree(c) for c in clients]), kind="ref",
+                r_max=64, prev_tree=port_tree(prev)))
+        got = (len(tround.stack_layouts), tround.n_fallback_pairs)
+        assert tround.n_kernel_launches == jround.n_kernel_launches
+        assert tround.n_fallback_pairs == jround.n_fallback_pairs
+        return got
+    assert counts(None, 64) == (0, 2)
+    assert counts(512, 64) == (3, 0)     # 64 + 352 = 416 <= 512: stacks
+    assert counts(512, 416) == (0, 2)    # 416 + 352 = 768 > 512
+
+
+def test_flora_rank_plumbing():
+    flora = ts.get_strategy("flora")
+    assert flora.server_storage_rank(64) == 128
+    assert flora.with_options(stack_r_cap=512).server_storage_rank(64) == 512
+    with pytest.raises(ValueError, match="r_max=64"):
+        flora.with_options(stack_r_cap=32).server_storage_rank(64)
+    assert "stack_r_cap" not in vars(flora)           # the singleton stays
+    with pytest.raises(ValueError, match="no option"):
+        run_simulation(FLConfig(method="rbla", stack_r_cap=16, rounds=1),
+                       device="cpu")
+
+
+# ------------------------------------------------------------- simulation --
+CFG = dict(dataset="mnist", model="mlp", rounds=3, n_clients=4,
+           n_per_class=20, n_test_per_class=10, local_epochs=1,
+           batch_size=16, lr=0.01, r_max=8, seed=42)
+#: client ranks 1, 2, 2, 8 (sum 13) and a global entering at live rank 8:
+#: round 1 stacks 21 <= 24 rows, round 2 has 21 + 13 = 34 > 24 and
+#: re-projects to 8 by SVD, round 3 stacks 21 again
+CAP = 24
+
+
+def test_three_rounds_alternate_and_match_reference(monkeypatch):
+    """Per-round accuracy within one test example (0.01 of 100) in the
+    re-projection round 2 and in round 3, which starts from it (two
+    LAPACK builds' SVDs); identical in round 1, which only stacks."""
+    jcfg = JConfig(method="flora", stack_r_cap=CAP, **CFG)
+    params, adapters, idx = sim_reference_inputs(jcfg, r_storage=CAP)
+    jseen = spy_states(monkeypatch, js.AggregationStrategy)
+    jhist = j_run(jcfg)
+    tseen = spy_states(monkeypatch, ts.AggregationStrategy)
+    thist = run_simulation(
+        FLConfig(method="flora", stack_r_cap=CAP, **CFG), device="cpu",
+        params=port_tree(params), adapters=port_tree(adapters),
+        batch_indices=lambda rnd, ci: torch.as_tensor(idx[rnd, ci]))
+    live = [[int(p["rank"]) for p in s.adapters.values()] for s in tseen]
+    assert live == [[21] * 3, [8] * 3, [21] * 3]
+    assert [[int(p["rank"]) for p in s.adapters.values()]
+            for s in jseen] == live
+    assert thist.test_acc[0] == jhist.test_acc[0]
+    np.testing.assert_allclose(thist.test_acc, jhist.test_acc, atol=0.01)
+    for got, want in zip(tseen, jseen):
+        g, w = _products(got.adapters), _products(want.adapters)
+        for k in w:
+            assert_close(g[k][0], w[k][0], tol=1e-3, msg=k)

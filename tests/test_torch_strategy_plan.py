@@ -155,10 +155,6 @@ def test_aggregate_round_matches_reference():
 
 
 def test_unported_paths_raise():
-    for name in ("svd", "flora", "rbla_clipped", "rbla_trimmed",
-                 "rbla_median"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.get_strategy(name)
     with pytest.raises(ValueError, match="unknown aggregation strategy"):
         ts.get_strategy("nope")
     tads, tranks, tw, _ = _port(0)
@@ -175,7 +171,9 @@ def test_unported_paths_raise():
         rbla.aggregate_adapters(tads, tw, backend="kernel")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rbla.aggregate_adapters(tads, tw, backend="pallas", use_plan=False)
-    assert ts.list_strategies() == sorted(MEAN_FAMILY)
+    assert ts.list_strategies() == js.list_strategies() == sorted(
+        MEAN_FAMILY + ["rbla_clipped", "rbla_trimmed", "rbla_median", "svd",
+                       "flora"])
 
 
 def test_aggregate_defaults_to_the_card():

@@ -29,7 +29,23 @@ Phases, each printing JSON lines:
 * per_pair -- the last main-path cohort again through the per-pair
   rbla_agg path, the last flora cohort within the cap through flora_stack
   and the last robust cohort through per-pair packed_robust, each held
-  against its plan's result.
+  against its plan's result;
+* async_main -- ``run_async_simulation`` of the same model and clients,
+  fully async rbla with polynomial staleness, 60 uploads: one axpy_fold
+  launch per fold bucket and per base leaf, no plain version; then the
+  same run with the plain versions on the card, which it must reproduce;
+* async_semi -- the same with a buffer of 5: one packed_agg launch per
+  bucket per flush;
+* async_codecs -- the last cohort int8- and bf16-encoded into one buffered
+  flush (packed_agg with fused dequantisation), against the fp32 flush
+  within the codec's tolerance and against its plain version;
+* async_bf16_accum -- bf16 accumulators with stochastic rounding and
+  server momentum: bit-identical under one seed, near the fp32 run;
+* async_methods -- one fully async pass each of zeropad, fedavg (the
+  default fold: packed_agg and axpy_fold), flora (the streaming stack)
+  and rbla_norm (replay);
+* per_pair_fold -- one rbla fold with the packed path declined (two
+  axpy_fold launches a pair), equal to the packed fold bit for bit.
 
 Then the ``{"kernels": [...]}`` summary, the card's line from nvidia-smi,
 and the device summary as the last line.  Any failure ends the run with a
@@ -39,6 +55,7 @@ device or no port beside the script.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import sys
 import time
@@ -55,12 +72,14 @@ REPLACES = {
     "packed_robust": "src/repro/kernels/rbla_agg/kernel.py:256",
     "packed_stack": "src/repro/kernels/rbla_agg/kernel.py:335",
     "flora_stack": "src/repro/kernels/rbla_agg/kernel.py:390",
+    "axpy_fold": "src/repro/kernels/rbla_agg/kernel.py:442",
 }
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"packed_agg": _CSRC + "rbla_agg.cu", "rbla_agg": _CSRC + "rbla_agg.cu",
           "packed_robust": _CSRC + "packed_robust.cu",
           "packed_stack": _CSRC + "flora_stack.cu",
-          "flora_stack": _CSRC + "flora_stack.cu"}
+          "flora_stack": _CSRC + "flora_stack.cu",
+          "axpy_fold": _CSRC + "axpy_fold.cu"}
 MLP_BUCKETS = ((64, 784), (256, 200), (64, 10))   # (rows, width), r_max=64
 MLP_PAIR_SIDES = ((64, 784, 1), (64, 200, 4), (64, 10, 1))  # + count/round
 N_CLIENTS = 10
@@ -71,6 +90,15 @@ FLORA_PAIR_SIDES = ((784, 1), (200, 4), (10, 1))
 #: the segments of a flora round within the cap: the global at live rank 64
 #: first, then the staircase cohort's ranks
 FLORA_SEGS = (64, 6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
+#: one rbla fold of the MLP: its three packed buckets (rows, width) with
+#: per-row rates, then the three base trainables (the biases) mixed at one
+#: rate each
+FOLD_BUCKETS = ((64, 784), (256, 200), (64, 10))
+FOLD_BASE_LEAVES = ((200,), (200,), (10,))
+#: relative Frobenius tolerance of an encoded flush against the fp32 one
+#: (benchmarks/bench_async_agg.py CODEC_TOL): bf16 keeps 8 mantissa bits,
+#: int8 one of 254 levels per row
+CODEC_TOL = {"bf16": 1e-2, "int8": 2e-2}
 
 
 def emit(obj) -> None:
@@ -92,6 +120,29 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``calls`` calls of
+    ``fn`` issued back to back, per call.  The host runs ahead of the card,
+    so where a call's device work outlasts its host work this is the
+    device time; :func:`time_ms` waits for each call and also counts the
+    host work before the launch."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -314,6 +365,80 @@ def check_flora_case(label, x, scales, segs, out_rows):
     return case
 
 
+def check_axpy_case(label, y, x, alpha, generator_seed=None):
+    """axpy_fold on the card against its plain version.  The kernel rounds
+    its three fp32 operations as the plain version does, so they agree to
+    the bit; the stated tolerance is 2e-5 max|want| in fp32 and one bf16
+    ulp per element in bf16.  With a generator the fp32 result is rounded
+    to bf16 stochastically: within one ulp of the plain fp32 fold, and the
+    same bits for the same seed."""
+    import torch
+    from repro_torch.kernels.rbla_agg import axpy_fold, axpy_fold_ref
+
+    def gen():
+        return (None if generator_seed is None else
+                torch.Generator(device="cuda").manual_seed(generator_seed))
+    got = axpy_fold(y, x, alpha, generator=gen())
+    exact = axpy_fold_ref(y, x, alpha, out_dtype=torch.float32)
+    want = axpy_fold_ref(y, x, alpha)
+    torch.cuda.synchronize()
+    diff = (got.float() - (exact if generator_seed is not None
+                           else want.float())).abs()
+    err = float(diff.max())
+    if y.dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * exact.abs() + 1e-30
+        tol_text = "one bf16 ulp per element (2^-7 |want|)"
+    else:
+        tol = torch.full_like(diff, 2e-5 * max(1.0, float(want.abs().max())))
+        tol_text = 2e-5 * max(1.0, float(want.abs().max()))
+    ok = bool((diff <= tol).all())
+    if generator_seed is not None:
+        ok = ok and torch.equal(got, axpy_fold(y, x, alpha, generator=gen()))
+    ms = time_ms(lambda: axpy_fold(y, x, alpha, generator=gen()))
+    plain_ms = time_ms(lambda: axpy_fold_ref(y, x, alpha))
+    r = y.shape[0] if y.ndim else 1
+    if isinstance(alpha, torch.Tensor) and alpha.ndim:
+        w = alpha.to(y.dtype)[(slice(None),) + (None,) * (y.ndim - 1)]
+    else:
+        w = float(alpha)
+    yc, xc = y.contiguous(), x.to(y.dtype).contiguous()
+    library_ms = time_ms(lambda: torch.lerp(yc, xc, w))
+    device_ms = time_ms_back_to_back(
+        lambda: axpy_fold(y, x, alpha, generator=gen()))
+    library_device_ms = time_ms_back_to_back(lambda: torch.lerp(yc, xc, w))
+    n = y.numel()
+    per_row = isinstance(alpha, torch.Tensor) and alpha.ndim == 1
+    bms, by = bound(n * (y.element_size() + x.element_size()
+                         + y.element_size()) + (4 * r if per_row else 0),
+                    3 * n)
+    case = {"kernel": "axpy_fold", "case": label, "shape": list(y.shape),
+            "y_dtype": str(y.dtype).split(".")[-1],
+            "x_dtype": str(x.dtype).split(".")[-1],
+            "contiguous": y.is_contiguous(), "per_row_alpha": per_row,
+            "stochastic_rounding": generator_seed is not None,
+            "max_abs_err": err, "tol": tol_text, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "back_to_back_ms": device_ms,
+            "library_back_to_back_ms": library_device_ms}
+    emit(case)
+    if not ok:
+        raise AssertionError(f"axpy_fold disagrees with its plain version: "
+                             f"{case}")
+    return case
+
+
+def _fold_inputs(shape, gen, dtype=None, x_dtype=None, zero_rows=True):
+    import torch
+    f32 = torch.float32
+    y = torch.randn(*shape, generator=gen, device="cuda").to(dtype or f32)
+    x = torch.randn(*shape, generator=gen, device="cuda").to(
+        x_dtype or dtype or f32)
+    alpha = torch.rand(shape[0], generator=gen, device="cuda")
+    if zero_rows:                       # rows the client does not own
+        alpha[torch.rand(shape[0], generator=gen, device="cuda") < 0.3] = 0.0
+    return y, x, alpha
+
+
 def _flora_plan_layouts(r_max=64, cap=512):
     """The packed_stack buckets of a main-path flora round (the staircase
     cohort at r_max storage, a global of live rank r_max at cap storage):
@@ -427,14 +552,34 @@ def phase_kernels() -> dict:
         flora.append(check_flora_case("large", x, scales,
                                       (200,) * N_CLIENTS, 4096))
 
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    axpy = []
+    for r, d in FOLD_BUCKETS + ((512, 1024),):
+        y, x, alpha = _fold_inputs((r, d), gen)
+        axpy.append(check_axpy_case(f"bucket {r}x{d}", y, x, alpha))
+    for shape in FOLD_BASE_LEAVES[1:]:          # (200,) and (10,)
+        y, x, _ = _fold_inputs(shape, gen)
+        axpy.append(check_axpy_case(f"base leaf {shape[0]}", y, x, 0.3))
+    y, x, alpha = _fold_inputs((256, 200), gen, bf16)
+    axpy.append(check_axpy_case("bf16 256x200", y, x, alpha))
+    axpy.append(check_axpy_case("bf16 256x200 stochastic rounding", y, x,
+                                alpha, generator_seed=5))
+    y, x, alpha = _fold_inputs((200, 64), gen)
+    axpy.append(check_axpy_case("transposed B 64x200", y.T, x.T,
+                                alpha[:64]))
+    for dtype in (f32, bf16):
+        y, x, alpha = _fold_inputs((2048, 4096), gen, dtype)
+        axpy.append(check_axpy_case(f"large {str(dtype)[6:]}", y, x, alpha))
+
     def main_path_sum(cases, match, counts):
         rows = {}
         for key, k in counts.items():
             hit = [c for c in cases if match(c, key)]
             if len(hit) != 1:
                 raise AssertionError(f"no unique case for {key}")
-            for f in ("ms", "plain_ms", "bound_ms"):
-                rows[f] = rows.get(f, 0.0) + k * hit[0][f]
+            for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                if hit[0][f] is not None:
+                    rows[f] = rows.get(f, 0.0) + k * hit[0][f]
         return rows
 
     # one main-path round: rbla buckets in fp32, mask-normalised, with prev
@@ -465,18 +610,25 @@ def phase_kernels() -> dict:
         flora, lambda c, key: (c["case"] == f"per-pair {key[0]}"
                                and c["x_dtype"] == "float32"),
         {side: side[1] for side in FLORA_PAIR_SIDES})
+    # one main-path rbla fold: its three buckets, then the three biases
+    # (the two 200-wide ones share one case)
+    ax = main_path_sum(
+        axpy, lambda c, key: c["case"] == key,
+        {**{f"bucket {r}x{d}": 1 for r, d in FOLD_BUCKETS},
+         "base leaf 200": 2, "base leaf 10": 1})
     summary = {}
     for name, cases, row in (("packed_agg", packed, pk), ("rbla_agg", rbla, rk),
                              ("packed_robust", robust, rb),
                              ("packed_stack", stack, st),
-                             ("flora_stack", flora, fl)):
+                             ("flora_stack", flora, fl),
+                             ("axpy_fold", axpy, ax)):
         summary[name] = {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": None,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": row.get("library_ms")}
     return summary
 
 
@@ -796,6 +948,270 @@ def phase_per_pair(rec, kernel, want_launches, tol_rel, phase):
     return launches
 
 
+# -------------------------------------------------------------- async slice --
+#: the async FLaaS service on the main path's model and clients: fully
+#: async rbla, polynomial staleness, 60 uploads, an evaluation every 10
+ASYNC_CFG = dict(MAIN_CFG, buffer_size=1, staleness="polynomial",
+                 total_updates=60, eval_every=10)
+
+
+class AsyncRecorder:
+    """Wraps ``AsyncAggregator.submit`` for one run: keeps the service and
+    each client's last upload (the staircase gives every client its own
+    rank, so the rank names the client)."""
+
+    def __init__(self):
+        from repro_torch.fl import AsyncAggregator
+        self.cls, self.orig = AsyncAggregator, AsyncAggregator.submit
+        self.agg, self.last = None, {}
+        orig = self.orig
+
+        def spy(agg, update, *a, **k):
+            self.agg, self.last[update.rank] = agg, update
+            return orig(agg, update, *a, **k)
+        AsyncAggregator.submit = spy
+
+    def close(self):
+        self.cls.submit = self.orig
+
+    def cohort(self) -> list:
+        return [self.last[r] for r in sorted(self.last)]
+
+
+def drive_async(cfg_kw: dict):
+    """One ``run_async_simulation`` on the card with fresh counts; returns
+    the history, the launch and plain-call counts, the recorder (the
+    service and the last cohort) and the seconds."""
+    import torch
+    from repro_torch.fl import AsyncFLConfig, run_async_simulation
+    from repro_torch.kernels import runtime
+    rec = AsyncRecorder()
+    try:
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        hist = run_async_simulation(AsyncFLConfig(**cfg_kw), device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    finally:
+        rec.close()
+    return hist, launches, plain, rec, seconds
+
+
+def _async_line(phase, cfg, hist, launches, plain, rec, secs, **extra):
+    emit({"phase": phase, "config": cfg, "test_acc": hist.test_acc,
+          "sim_time_s": hist.sim_time_s,
+          "mean_staleness": hist.mean_staleness,
+          "round_time_s": hist.round_time_s, "seconds": secs,
+          "n_folded": rec.agg.n_folded, "n_flushes": rec.agg.n_flushes,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v}, **extra})
+
+
+def phase_async_main():
+    hist, launches, plain, rec, secs = drive_async(ASYNC_CFG)
+    folds = rec.agg.n_folded
+    per_fold = launches["axpy_fold"] / max(folds, 1)
+    _async_line("async_main", ASYNC_CFG, hist, launches, plain, rec, secs,
+                axpy_fold_per_fold=per_fold)
+    want = len(FOLD_BUCKETS) + len(FOLD_BASE_LEAVES)
+    if folds != ASYNC_CFG["total_updates"] or per_fold != want:
+        raise AssertionError(f"async_main: {launches['axpy_fold']} axpy_fold "
+                             f"launches over {folds} folds, expected {want} "
+                             "a fold")
+    if any(plain.values()) or any(v for k, v in launches.items()
+                                  if k != "axpy_fold"):
+        raise AssertionError(f"async_main: launches {launches}, plain "
+                             f"{plain}")
+    # a fully async running mean over every upload since the anchor moves
+    # slowly (the CPU run of this config stays near 0.08): the run is held
+    # to its plain-version twin below, not to an accuracy floor
+    if not (len(hist.test_acc) == 6 and all(0.0 <= a <= 1.0 for a in
+                                            hist.test_acc)
+            and all(math.isfinite(v) for v in hist.train_loss)):
+        raise AssertionError(f"async_main: history {hist}")
+    _leaves_on_card(rec.agg.state.adapters)
+    _leaves_on_card(rec.agg.state.base_trainable)
+
+    # the same run folding with the plain versions on the card
+    ref_hist, ref_launches, ref_plain, ref_rec, ref_secs = drive_async(
+        dict(ASYNC_CFG, agg_backend="ref"))
+    err, scale = _rel_err(rec.agg.state.adapters, ref_rec.agg.state.adapters)
+    emit({"phase": "async_main_plain", "test_acc": ref_hist.test_acc,
+          "seconds": ref_secs, "plain_calls": ref_plain,
+          "adapters_max_abs_err": err, "tol": 2e-5 * scale})
+    if any(ref_launches.values()) or ref_plain["axpy_fold"] != \
+            launches["axpy_fold"]:
+        raise AssertionError("async_main_plain: the ref backend did not run "
+                             "the plain version")
+    if ref_hist.test_acc != hist.test_acc or not err <= 2e-5 * scale:
+        raise AssertionError(f"async_main: kernel folds disagree with plain "
+                             f"folds ({hist.test_acc} vs {ref_hist.test_acc}"
+                             f", err {err})")
+    return launches, rec
+
+
+def phase_async_semi():
+    cfg = dict(ASYNC_CFG, buffer_size=5)
+    hist, launches, plain, rec, secs = drive_async(cfg)
+    _async_line("async_semi", cfg, hist, launches, plain, rec, secs)
+    flushes = rec.agg.n_flushes
+    if flushes != cfg["total_updates"] // 5 or \
+            launches["packed_agg"] != 3 * flushes or any(plain.values()):
+        raise AssertionError(f"async_semi: {flushes} flushes, launches "
+                             f"{launches}, plain {plain}")
+    _leaves_on_card(rec.agg.state.adapters)
+
+
+def _frobenius(got, want) -> float:
+    """Relative Frobenius distance over the float leaves."""
+    from repro_torch.tree import tree_leaves
+    num = den = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        if w.is_floating_point():
+            num += float(((g.float() - w.float()) ** 2).sum())
+            den += float((w.float() ** 2).sum())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _flush_cohort(state, updates, codec="none", backend="auto", **kw):
+    """One buffered flush of ``updates`` (encoded with ``codec``) into a
+    fresh service at ``state``; returns the service and the counts."""
+    import torch
+    from repro_torch.core.codec import encode_update
+    from repro_torch.fl import AsyncAggregator
+    from repro_torch.kernels import runtime
+    agg = AsyncAggregator("rbla", state, buffer_size=len(updates),
+                          backend=backend, **kw)
+    runtime.reset_counts()
+    for u in updates:
+        agg.submit(encode_update(u, codec))
+    torch.cuda.synchronize()
+    return agg, dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+
+
+def phase_async_codecs(rec):
+    """The last cohort of async_main, encoded, into one buffered flush."""
+    state, cohort = rec.agg.state, rec.cohort()
+    base, _, _ = _flush_cohort(state, cohort)
+    out = {}
+    for codec in ("int8", "bf16"):
+        agg, launches, plain = _flush_cohort(state, cohort, codec)
+        ref, _, ref_plain = _flush_cohort(state, cohort, codec,
+                                          backend="ref")
+        rel = _frobenius(agg.state.adapters, base.state.adapters)
+        err, scale = _rel_err(agg.state.adapters, ref.state.adapters)
+        emit({"phase": "async_codecs", "codec": codec, "clients": len(cohort),
+              "launches": {k: v for k, v in launches.items() if v},
+              "plain_calls": {k: v for k, v in plain.items() if v},
+              "wire_bytes": agg.wire_bytes_received,
+              "fp32_wire_bytes": base.wire_bytes_received,
+              "rel_frobenius_vs_fp32": rel, "codec_tol": CODEC_TOL[codec],
+              "plain_max_abs_err": err, "plain_tol": 2e-5 * scale})
+        if launches["packed_agg"] != 3 or any(plain.values()) or \
+                ref_plain["packed_agg"] != 3:
+            raise AssertionError(f"async_codecs {codec}: launches "
+                                 f"{launches}, plain {plain}")
+        if not (rel <= CODEC_TOL[codec] and err <= 2e-5 * scale):
+            raise AssertionError(f"async_codecs {codec}: {rel} vs fp32, "
+                                 f"{err} vs its plain version")
+        _leaves_on_card(agg.state.adapters)
+        out[codec] = launches
+    return out
+
+
+def phase_async_bf16_accum(rec):
+    """bf16 accumulators with stochastic rounding and server momentum: the
+    last cohort folded one update at a time.  The same seed gives the same
+    bits; the result stays within the bf16 tolerance of the fp32 run."""
+    import torch
+    from repro_torch.fl import AsyncAggregator
+    from repro_torch.kernels import runtime
+    from repro_torch.tree import tree_leaves
+    state, cohort = rec.agg.state, rec.cohort()
+
+    def run(accum):
+        agg = AsyncAggregator("rbla", state, accum_dtype=accum,
+                              server_momentum=0.5, seed=0)
+        for u in cohort:
+            agg.submit(u)
+        torch.cuda.synchronize()
+        return agg
+    runtime.reset_counts()
+    a = run(torch.bfloat16)
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    b, fp32 = run(torch.bfloat16), run(None)
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a.state.adapters), tree_leaves(b.state.adapters)))
+    rel = _frobenius(a.state.adapters, fp32.state.adapters)
+    emit({"phase": "async_bf16_accum", "folds": a.n_folded,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v},
+          "bit_identical_under_one_seed": same,
+          "rel_frobenius_vs_fp32": rel, "tol": 2e-2,
+          "dtype": str(a.state.adapters["fc1"]["A"].dtype)})
+    if not same or not rel <= 2e-2 or any(plain.values()):
+        raise AssertionError("async_bf16_accum failed")
+    if a.state.adapters["fc1"]["A"].dtype != torch.bfloat16:
+        raise AssertionError("async_bf16_accum: accumulators are not bf16")
+    _leaves_on_card(a.state.adapters)
+
+
+def phase_async_methods():
+    """One fully async pass (one upload per client) of each other method:
+    zeropad and fedavg take the default fold (a one-client packed_agg
+    round, then axpy_fold per float leaf), flora its streaming stack (base
+    leaves through axpy_fold) and rbla_norm the replay path (packed_agg
+    with norm_restore over the updates since the anchor)."""
+    n = ASYNC_CFG["n_clients"]
+    per_fold = {"zeropad": {"packed_agg": 3, "axpy_fold": 9},
+                "fedavg": {"packed_agg": 3, "axpy_fold": 9},
+                "flora": {"axpy_fold": 3},
+                "rbla_norm": {"packed_agg": 3}}
+    for method, want in per_fold.items():
+        cfg = dict(ASYNC_CFG, method=method, total_updates=n, eval_every=n)
+        hist, launches, plain, rec, secs = drive_async(cfg)
+        _async_line("async_methods", {"method": method}, hist, launches,
+                    plain, rec, secs)
+        got = {k: v for k, v in launches.items() if v}
+        if got != {k: v * n for k, v in want.items()} or any(plain.values()):
+            raise AssertionError(f"async_methods {method}: launches {got}, "
+                                 f"plain {plain}")
+        _leaves_on_card(rec.agg.state.adapters)
+
+
+def phase_per_pair_fold(rec):
+    """One rbla fold of the last cohort's first upload into the final
+    async_main state, packed and with the packed path declined."""
+    import torch
+    from repro_torch.core.strategy import get_strategy
+    from repro_torch.kernels import runtime
+    from repro_torch.tree import tree_leaves
+    strat, state, upd = get_strategy("rbla"), rec.agg.state, rec.cohort()[0]
+    counts = []
+    outs = []
+    for use_plan in (True, False):
+        runtime.reset_counts()
+        out, _ = strat.fold(state, upd, use_plan=use_plan)
+        torch.cuda.synchronize()
+        counts.append((dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)))
+        outs.append(out)
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves((outs[0].adapters, outs[0].base_trainable)),
+        tree_leaves((outs[1].adapters, outs[1].base_trainable))))
+    n_pairs = len(state.adapters)
+    emit({"phase": "per_pair_fold",
+          "packed_launches": counts[0][0]["axpy_fold"],
+          "per_pair_launches": counts[1][0]["axpy_fold"],
+          "plain_calls": sum(sum(c[1].values()) for c in counts),
+          "bit_identical": same})
+    if (counts[0][0]["axpy_fold"] != 3 + len(FOLD_BASE_LEAVES)
+            or counts[1][0]["axpy_fold"] != 2 * n_pairs + len(FOLD_BASE_LEAVES)
+            or any(sum(c[1].values()) for c in counts) or not same):
+        raise AssertionError("per_pair_fold: the per-pair fold does not "
+                             "reproduce the packed fold")
+
+
 def main() -> int:
     try:
         import torch
@@ -810,6 +1226,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({SRC})",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build, runtime
     runtime.full_fp32()
@@ -852,6 +1269,15 @@ def main() -> int:
         launches["packed_robust"] for launches, _ in robust.values())
     summary["packed_stack"]["launches"] = flora_launches["packed_stack"]
     summary["flora_stack"]["launches"] = stack_launches["flora_stack"]
+
+    async_launches, async_rec = phase_async_main()
+    phase_async_semi()
+    phase_async_codecs(async_rec)
+    phase_async_bf16_accum(async_rec)
+    phase_async_methods()
+    phase_per_pair_fold(async_rec)
+    summary["axpy_fold"]["launches"] = async_launches["axpy_fold"]
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": list(summary.values())})
     print(smi, flush=True)

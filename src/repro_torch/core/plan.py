@@ -17,12 +17,18 @@ A plan turns a round into
    for the robust family; ``packed_stack`` for flora's copy/scale
    stacking.  svd buckets pairs by their full geometry instead and runs
    one batched factored SVD per bucket (``repro_torch.core.lowrank``).
+   Encoded (int8/bf16) cohorts keep each client's wire dtype in the packed
+   payload and hand the int8 scales to the kernel, which dequantises on
+   the load.
 3. **Cache.**  Plans are cached on the strategy instance keyed by the
    :class:`CohortSpec` (tree structure, shapes, dtypes, rank multiset,
-   backend, device) and the strategy's ``plan_knobs`` in a bounded LRU;
-   see ``AggregationStrategy.plan``.
+   codec mix, backend, device) and the strategy's ``plan_knobs`` in a
+   bounded LRU; see ``AggregationStrategy.plan``.
 
-The per-leaf ``aggregate_tree*`` methods remain the plans' oracles.
+The async fold reuses the layout: :func:`build_fold_plan` packs the server
+state and one arriving update into the same buckets and folds them in one
+``axpy_fold`` launch per bucket.  The per-leaf ``aggregate_tree*`` methods
+remain the plans' oracles.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import (packed_agg, packed_agg_ref,
+from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_ref,
+                                          packed_agg, packed_agg_ref,
                                           packed_robust, packed_robust_ref,
                                           packed_stack, packed_stack_ref,
                                           stack_table)
@@ -116,6 +123,9 @@ class CohortSpec:
     client_ranks: tuple | None
     has_prev: bool
     device: str
+    #: per-client upload codec names ("none" | "bf16" | "int8") of an
+    #: encoded cohort; None for a plain stacked cohort
+    codecs: tuple | None = None
 
 
 def build_cohort_spec(stacked_tree: PyTree, *, kind: str,
@@ -155,6 +165,72 @@ def build_cohort_spec(stacked_tree: PyTree, *, kind: str,
     return CohortSpec(n_clients=pairs[0].a_shape[0], kind=kind, r_max=r_max,
                       pairs=tuple(pairs), client_ranks=client_ranks,
                       has_prev=prev_tree is not None, device=device)
+
+
+def build_encoded_cohort_spec(client_trees: Sequence, codecs, *, kind: str,
+                              r_max: int | None = None, client_ranks=None,
+                              prev_tree: PyTree | None = None) -> CohortSpec:
+    """Describe an *encoded* cohort: per-client adapter trees in their wire
+    dtypes (``repro_torch.core.codec``), never stacked -- stacking int8 next
+    to fp32 would promote, i.e. stage an fp32 copy.  ``codecs`` is the
+    per-client codec tuple (``cohort_codecs``); the pair metadata records
+    the decoded (fp32) dtypes, so bucketing and unpacking match the fp32
+    cohort and only ``spec.codecs`` tells the wire layout."""
+    codecs = tuple(codecs)
+    n = len(client_trees)
+    if len(codecs) != n:
+        raise PlanUnavailable(f"{len(codecs)} codecs for {n} clients")
+    if any(c not in ("none", "bf16", "int8") for c in codecs):
+        raise PlanUnavailable(
+            "per-pair mixed codecs inside one client are not plannable")
+    prev_pairs = (dict(_walk_pairs(prev_tree))
+                  if prev_tree is not None else {})
+    walked = [list(_walk_pairs(t)) for t in client_trees]
+    paths = [p for p, _ in walked[0]]
+    for i, wl in enumerate(walked[1:], start=1):
+        if [p for p, _ in wl] != paths:
+            raise PlanUnavailable(
+                f"client {i}'s tree structure differs from client 0's")
+    if client_ranks is not None:
+        client_ranks = tuple(int(v) for v in _host(client_ranks).ravel())
+    inferred: list | None = [] if client_ranks is None else None
+    pairs = []
+    device = None
+    for pi, path in enumerate(paths):
+        shapes, rks = [], []
+        for i in range(n):
+            pair = walked[i][pi][1]
+            device = device or str(pair["A"].device)
+            shapes.append((tuple(pair["A"].shape), tuple(pair["B"].shape)))
+            rks.append(_host(pair["rank"]))
+        if any(m != shapes[0] for m in shapes[1:]):
+            raise PlanUnavailable(
+                f"clients disagree on pair shapes at {path}")
+        rk = np.stack(rks)
+        if inferred is not None and pi == 0 and rk.ndim == 1:
+            inferred.extend(int(v) for v in rk)
+        meta = dict(path=path, a_shape=(n,) + shapes[0][0],
+                    a_dtype=torch.float32, b_shape=(n,) + shapes[0][1],
+                    b_dtype=torch.float32, rank_shape=tuple(rk.shape),
+                    ranks=tuple(int(v) for v in rk.ravel()))
+        if prev_tree is not None:
+            if path not in prev_pairs:
+                raise PlanUnavailable(f"prev tree missing pair at {path}")
+            pp = prev_pairs[path]
+            prk = _host(pp["rank"])
+            meta.update(prev_a_shape=tuple(pp["A"].shape),
+                        prev_b_shape=tuple(pp["B"].shape),
+                        prev_rank_shape=tuple(prk.shape),
+                        prev_ranks=tuple(int(v) for v in prk.ravel()))
+        pairs.append(PairMeta(**meta))
+    if not pairs:
+        raise PlanUnavailable("no LoRA pairs in the cohort trees")
+    if client_ranks is None and inferred:
+        client_ranks = tuple(inferred)
+    return CohortSpec(n_clients=n, kind=kind, r_max=r_max,
+                      pairs=tuple(pairs), client_ranks=client_ranks,
+                      has_prev=prev_tree is not None, device=device,
+                      codecs=codecs)
 
 
 # ---------------------------------------------------------- packed layout --
@@ -343,6 +419,8 @@ def _client_ranks(spec: CohortSpec):
 # ------------------------------------------------------ packed mean plans --
 def _build_mean_round(strategy, spec: CohortSpec,
                       norm_restore: bool = False) -> CompiledRound:
+    if spec.codecs is not None:
+        return _build_encoded_mean_round(strategy, spec, norm_restore)
     buckets = _make_buckets(spec, strategy.use_mask)
     retains = strategy.retains_prev and spec.has_prev
     if retains:
@@ -391,6 +469,128 @@ def _build_mean_round(strategy, spec: CohortSpec,
                 out = packed_agg_ref(x, masks[bi], wt, prev, norm_by=norm_by,
                                      norm_restore=norm_restore)
             outs.append(out)
+        unpacked = [{} for _ in spec.pairs]
+        for bi, b in enumerate(buckets):
+            for s in b.slots:
+                unpacked[s.pair_idx][s.side] = _unpack_slot(outs[bi], s)
+        return rebuild[0]([{"A": u["A"], "B": u["B"], "rank": rank_leaves[i]}
+                           for i, u in enumerate(unpacked)])
+
+    return CompiledRound(strategy, spec, "packed", execute,
+                         n_kernel_launches=len(buckets))
+
+
+# ---------------------------------------------- encoded (quantised) plans --
+def _enc_ab_list(tree) -> list:
+    """Like :func:`_ab_list`, keeping the int8 codec's per-row scale
+    leaves with each pair."""
+    out = []
+    for _, p in _walk_pairs(tree):
+        d = {"A": p["A"], "B": p["B"]}
+        for k in ("A_scale", "B_scale"):
+            if k in p:
+                d[k] = p[k]
+        out.append(d)
+    return out
+
+
+def _pack_client_side(x: torch.Tensor, slot: Slot, wire: bool):
+    """(*lead, ...) single-client leaf -> (rows, width); ``wire=True`` keeps
+    the upload's wire dtype (int8/bf16), so no fp32 copy is staged."""
+    x = pair_side_rows(x, slot.side).reshape(slot.rows, slot.width)
+    return x if wire else x.float()
+
+
+def _pack_client_scale(pair, slot: Slot) -> torch.Tensor:
+    """Per-row dequantisation scales of one pair side -> (rows,) fp32.
+    Both sides carry a ``(*lead, r)`` scale leaf on the packed row
+    convention (B's packed rows are its columns)."""
+    s = pair["A_scale" if slot.side == "A" else "B_scale"]
+    return s.float().reshape(slot.rows)
+
+
+def _build_encoded_mean_round(strategy, spec: CohortSpec,
+                              norm_restore: bool = False) -> CompiledRound:
+    """Mean (and robust) packed round over an encoded cohort.
+
+    Clients group by codec in first-appearance order.  Each bucket packs one
+    ``(n_g, rows, width)`` payload per group in the group's wire dtype, plus
+    ``(n_g, rows)`` fp32 scales for an int8 group.  A uniform-codec cohort
+    keeps one launch per bucket: the scales ride into ``packed_agg`` /
+    ``packed_robust`` as runtime data and the kernel dequantises on the
+    load, writing fp32.  A cohort that mixes codecs across clients
+    dequantises each group into one fp32 buffer and runs the same single
+    launch per bucket on it (the robust order statistics need every client
+    in one buffer anyway)."""
+    buckets = _make_buckets(spec, strategy.use_mask)
+    retains = strategy.retains_prev and spec.has_prev
+    if retains:
+        for meta in spec.pairs:       # mean plans overlay prev row for row
+            if (meta.prev_a_shape != meta.a_shape[1:]
+                    or meta.prev_b_shape != meta.b_shape[1:]):
+                raise PlanUnavailable(
+                    "prev leaf shapes differ from the cohort's")
+    cr = _client_ranks(spec)
+    rank_leaves = _out_rank_leaves(spec)
+    order: dict = {}
+    for i, c in enumerate(spec.codecs):
+        order.setdefault(c, []).append(i)
+    groups = [(c, tuple(ix)) for c, ix in order.items()]
+    # per-bucket owner masks in group order (host-sliced once per plan)
+    cat_ix = [i for _, ix in groups for i in ix]
+    masks = [torch.as_tensor(b.mask[cat_ix], device=spec.device)
+             for b in buckets]
+    perm = torch.as_tensor(cat_ix, dtype=torch.long, device=spec.device)
+    norm_by = strategy.norm_by
+    robust = strategy.robustness
+    robust_kw = (dict(mode=robust, clip_norm=float(strategy.clip_norm),
+                      trim_frac=float(strategy.trim_frac))
+                 if robust != "none" else None)
+    kernel = spec.kind == "kernel"
+    rebuild = [None]
+
+    def combine(x, m, wt, prev, scales):
+        kw = dict(scales=scales, out_dtype=torch.float32)
+        if robust_kw is not None:
+            kw.update(robust_kw)
+            if kernel:
+                return packed_robust(x, m, wt, prev, backend="kernel", **kw)
+            return packed_robust_ref(x, m, wt, prev, **kw)
+        kw.update(norm_by=norm_by, norm_restore=norm_restore)
+        if kernel:
+            return packed_agg(x, m, wt, prev, backend="kernel", **kw)
+        return packed_agg_ref(x, m, wt, prev, **kw)
+
+    def execute(client_trees, w, prev_tree):
+        if rebuild[0] is None:
+            rebuild[0] = _make_rebuilder(client_trees[0])
+        clients = [_enc_ab_list(t) for t in client_trees]
+        wt = strategy.transform_weights(w, cr)[perm]
+        prev_ab = _ab_list(prev_tree) if retains else None
+        outs = []
+        for bi, b in enumerate(buckets):
+            xs, ss = [], []
+            for cname, ix in groups:
+                xs.append(torch.stack([_gather(
+                    [_pack_client_side(clients[i][s.pair_idx][s.side], s,
+                                       wire=cname != "none")
+                     for s in b.slots], dim=0) for i in ix]))
+                ss.append(torch.stack([_gather(
+                    [_pack_client_scale(clients[i][s.pair_idx], s)
+                     for s in b.slots], dim=0) for i in ix])
+                    if cname == "int8" else None)
+            prev = None
+            if retains:
+                prev = _gather([_pack_prev_side(prev_ab[s.pair_idx][s.side],
+                                                s) for s in b.slots], dim=0)
+            if len(groups) == 1:
+                x, scales = xs[0], ss[0]
+            else:
+                x = torch.cat([xg.float() if sg is None
+                               else sg[:, :, None] * xg.float()
+                               for xg, sg in zip(xs, ss)])
+                scales = None
+            outs.append(combine(x, masks[bi], wt, prev, scales))
         unpacked = [{} for _ in spec.pairs]
         for bi, b in enumerate(buckets):
             for s in b.slots:
@@ -666,8 +866,17 @@ def build_plan(strategy, spec: CohortSpec) -> CompiledRound:
     ``plan_mode`` "mean" packs every cohort (the robust family included);
     "mean_norm" (rbla_norm) packs scalar-rank pairs and leaves
     layer-stacked ones to the per-leaf path (which refuses them); "stack"
-    is flora's copy/scale round; "svd" the batched factored SVD round."""
+    is flora's copy/scale round; "svd" the batched factored SVD round.
+    Encoded cohorts plan only on the mean family; any other case raises
+    :class:`PlanUnavailable` for them, and the caller decodes."""
     mode = getattr(strategy, "plan_mode", None)
+    if spec.codecs is not None:
+        if mode == "mean" or (mode == "mean_norm" and all(
+                len(m.a_shape) == 3 for m in spec.pairs)):
+            return _build_mean_round(strategy, spec,
+                                     norm_restore=mode == "mean_norm")
+        raise PlanUnavailable("encoded cohorts plan only on the mean family "
+                              "(scalar-rank pairs for mean_norm)")
     try:
         if mode == "mean":
             return _build_mean_round(strategy, spec)
@@ -683,5 +892,78 @@ def build_plan(strategy, spec: CohortSpec) -> CompiledRound:
     return _build_eager_round(strategy, spec)
 
 
+# ------------------------------------------------------------- fold plans --
+def build_state_spec(adapters: PyTree, *, kind: str) -> CohortSpec:
+    """A :class:`CohortSpec` for a *server state* tree (no client axis):
+    the fold plan's cache key -- shapes, dtypes, device and backend.  Rank
+    values are not part of it: folds take them as data, so one plan serves
+    every client."""
+    pairs = []
+    device = None
+    for path, pair in _walk_pairs(adapters):
+        A, B = pair["A"], pair["B"]
+        device = device or str(A.device)
+        rk_shape = tuple(torch.as_tensor(pair["rank"]).shape)
+        pairs.append(PairMeta(
+            path=path, a_shape=(1,) + tuple(A.shape), a_dtype=A.dtype,
+            b_shape=(1,) + tuple(B.shape), b_dtype=B.dtype,
+            rank_shape=(1,) + rk_shape,
+            ranks=(0,) * int(np.prod(rk_shape, dtype=np.int64))))
+    if not pairs:
+        raise PlanUnavailable("no LoRA pairs in the state tree")
+    return CohortSpec(n_clients=1, kind=kind, r_max=None, pairs=tuple(pairs),
+                      client_ranks=None, has_prev=False, device=device)
+
+
+def build_fold_plan(strategy, spec: CohortSpec) -> Callable:
+    """Packed per-update fold (the async hot path).
+
+    The server state and the arriving update pack into the same (width,
+    dtype) buckets as a one-client cohort and fold in **one** ``axpy_fold``
+    **launch per bucket** (its plain version on the ``ref`` backend): cost
+    O(state), whatever the number of pairs.  Returns ``fold_fn(state_ab,
+    upd_ab, row_mass, wa, rank_leaves) -> (new_ab, new_row_mass)``, where
+    ``rank_leaves`` are the update's per-pair rank tensors on the device
+    (data, so one plan serves every client) and every output is a new
+    tensor: the state is never written."""
+    buckets = _make_buckets(spec, use_mask=True)
+    dev = torch.device(spec.device)
+    kernel = spec.kind == "kernel"
+
+    def fold_fn(state_ab, upd_ab, row_mass, wa, rank_leaves):
+        alphas, new_mass = [], []
+        for pi, meta in enumerate(spec.pairs):
+            r_st = meta.a_shape[-2]
+            owned = (torch.arange(r_st, device=dev)
+                     < rank_leaves[pi][..., None]).float()
+            dmass = row_mass[pi]
+            alphas.append(torch.where(owned > 0, wa / (dmass + wa), 0.0))
+            new_mass.append(dmass + wa * owned)
+        outs = []
+        for b in buckets:
+            y = _gather([_pack_prev_side(state_ab[s.pair_idx][s.side], s)
+                         for s in b.slots], dim=0)
+            x = _gather([_pack_prev_side(upd_ab[s.pair_idx][s.side], s)
+                         for s in b.slots], dim=0)
+            a_parts = []
+            for s in b.slots:
+                al = alphas[s.pair_idx]
+                mid = len(s.lead) - (al.ndim - 1)
+                al = al.reshape(tuple(al.shape[:-1]) + (1,) * mid
+                                + (al.shape[-1],))
+                a_parts.append(al.expand(s.lead + (s.r_st,)).reshape(s.rows))
+            a = _gather(a_parts, dim=0)
+            outs.append(axpy_fold(y, x, a, backend="kernel") if kernel
+                        else axpy_fold_ref(y, x, a))
+        new_ab = [{} for _ in spec.pairs]
+        for bi, b in enumerate(buckets):
+            for s in b.slots:
+                new_ab[s.pair_idx][s.side] = _unpack_slot(outs[bi], s)
+        return new_ab, new_mass
+
+    return fold_fn
+
+
 __all__ = ["CohortSpec", "PairMeta", "CompiledRound", "PlanUnavailable",
-           "build_cohort_spec", "build_plan", "pair_side_rows"]
+           "build_cohort_spec", "build_encoded_cohort_spec", "build_plan",
+           "build_fold_plan", "build_state_spec", "pair_side_rows"]

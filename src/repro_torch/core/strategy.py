@@ -9,7 +9,12 @@ Each method is one :class:`AggregationStrategy` that owns
   (:meth:`AggregationStrategy.aggregate_tree_kernel`), and
 * (d) a **compiled plan** (``repro_torch.core.plan``): packed buckets, one
   ``packed_agg`` launch per bucket -- the default route of
-  :meth:`AggregationStrategy.aggregate_adapters`,
+  :meth:`AggregationStrategy.aggregate_adapters`, and
+* (e) a **per-update fold** for the async aggregation service
+  (:meth:`AggregationStrategy.fold` and the ``supports_incremental``
+  declaration; see ``repro_torch.fl.async_agg``): the server state and the
+  arriving update pack into the plan's buckets and fold in one
+  ``axpy_fold`` launch per bucket,
 
 behind ``backend="auto" | "ref" | "kernel"`` (``"pallas"`` is an alias of
 ``"kernel"``): ``auto`` runs the kernels for tensors on a CUDA device and
@@ -18,9 +23,10 @@ the plain PyTorch versions for tensors on the CPU.
 The port runs the mean family (fedavg, zeropad, rbla, rbla_ranked,
 rbla_norm), the robust family (rbla_clipped, rbla_trimmed, rbla_median),
 svd (product-space aggregation through ``repro_torch.core.lowrank``) and
-flora (rank-growing stacking).  Encoded (int8/bf16) uploads, the async
-fold and the distributed backend raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+flora (rank-growing stacking), on plain or encoded (int8/bf16,
+``repro_torch.core.codec``) uploads, one cohort at a time or one update at
+a time.  The distributed backend raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import (flora_stack, packed_agg,
+from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_ref,
+                                          flora_stack, packed_agg,
                                           packed_robust, packed_robust_ref,
                                           rbla_agg)
 from repro_torch.kernels.runtime import resolve_backend, resolve_device
@@ -72,6 +79,26 @@ class ClientUpdate:
     base_trainable: PyTree
     n_examples: float = 1.0
     rank: int | None = None
+
+
+@dataclasses.dataclass
+class FoldState:
+    """Accumulator threaded through a sequence of per-update folds.
+
+    ``mass``: accumulated raw weight mass (the running mean's denominator
+    for base trainables and ``norm_by="weight"`` strategies).
+    ``row_mass``: per-pair per-rank-row owner mass (Eq. 7's denominator in
+    streaming form): the adapters with each pair replaced by a
+    ``rank_leaf_shape + (r_storage,)`` fp32 tensor, or ``None``.
+    ``n_folds``: updates folded since the anchor.  ``extra``: strategy-
+    private bookkeeping (flora's segment ledger).  ``momentum``: the
+    service's server-momentum buffer over the adapters' float leaves, or
+    ``None``."""
+    mass: float = 0.0
+    row_mass: PyTree | None = None
+    n_folds: int = 0
+    extra: Any = None
+    momentum: PyTree | None = None
 
 
 # ---------------------------------------------------------------- registry --
@@ -193,14 +220,23 @@ def _retain_prev(tree: PyTree, prev: PyTree,
     return _map_pairs(fix, tree, prev)
 
 
-def _reject_encoded(client_adapters: Sequence[PyTree]) -> None:
-    for ad in client_adapters:
-        for pair in _pairs(ad):
-            if ("A_scale" in pair or "B_scale" in pair
-                    or pair["A"].dtype == torch.bfloat16):
-                raise NotImplementedError(
-                    "encoded (int8/bf16) uploads are not ported yet; they "
-                    "arrive with ROADMAP queue 1 item 13 (codec slice)")
+def _flat_pair_values(tree: PyTree) -> list:
+    """Values at the pair positions of a ``_map_pairs`` output whose pairs
+    were replaced by bare values (a ``row_mass`` tree), in traversal
+    order."""
+    vals: list = []
+
+    def go(t):
+        if isinstance(t, Mapping) and not _is_pair(t):
+            for v in t.values():
+                go(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                go(v)
+        elif t is not None:
+            vals.append(t)
+    go(tree)
+    return vals
 
 
 def _pairs(tree) -> list:
@@ -212,6 +248,12 @@ def _pairs(tree) -> list:
 def _device_of(tree) -> torch.device | None:
     leaves = tree_leaves(tree)
     return leaves[0].device if leaves else None
+
+
+def _state_device(state: ServerState) -> torch.device:
+    """Where a server state lives: the device of its first tensor."""
+    got = _device_of(state.adapters) or _device_of(state.base_trainable)
+    return got if got is not None else torch.device("cpu")
 
 
 # ------------------------------------------------------------ the protocol --
@@ -243,6 +285,9 @@ class AggregationStrategy:
     #: norm clipping bounds a client's displacement), "trimmed" /
     #: "median" (per-coordinate order statistics over a row's owners)
     robustness: str = "none"
+    #: folding a cohort one update at a time (:meth:`fold`) reproduces the
+    #: one-shot :meth:`aggregate`; the async service replays the rest
+    supports_incremental: bool = False
 
     def with_options(self, **options) -> "AggregationStrategy":
         """A configured copy of this strategy.  Registered instances are
@@ -251,7 +296,7 @@ class AggregationStrategy:
         copy; only attributes the strategy declares are accepted, and the
         copy starts with no cached plans."""
         inst = copy.copy(self)
-        for cached in ("_plan_cache", "plan_stats"):
+        for cached in ("_plan_cache", "plan_stats", "_fold_plan_cache"):
             inst.__dict__.pop(cached, None)
         for k, v in options.items():
             if not hasattr(inst, k) or k.startswith("_"):
@@ -305,6 +350,21 @@ class AggregationStrategy:
         except PlanUnavailable:
             return None
         return self.plan(None, spec)
+
+    def _plan_encoded_round(self, client_adapters, codecs, kind, *, r_max,
+                            client_ranks, prev):
+        """Plan for an *encoded* cohort (per-client trees, never stacked);
+        ``None`` sends the caller to the decode-eagerly path.  Shares
+        :meth:`plan`'s cache: a codec-mix change re-plans, a rank-multiset
+        repeat under the same mix hits."""
+        from .plan import PlanUnavailable, build_encoded_cohort_spec
+        try:
+            spec = build_encoded_cohort_spec(
+                client_adapters, codecs, kind=kind, r_max=r_max,
+                client_ranks=client_ranks, prev_tree=prev)
+            return self.plan(None, spec)
+        except PlanUnavailable:
+            return None
 
     # ------------------------------------------------------ (a) leaf math --
     def leaf(self, stacked, mask, weights, prev=None):
@@ -385,9 +445,29 @@ class AggregationStrategy:
         Stacks the uploads and runs the round through a cached compiled
         plan (one fused launch per bucket); ``use_plan=False`` takes the
         per-leaf path (``aggregate_tree_kernel`` on the kernel backend,
-        ``aggregate_tree`` on ref).  Live ranks are reset to ``r_max``."""
+        ``aggregate_tree`` on ref).  Live ranks are reset to ``r_max``.
+
+        Encoded uploads (``repro_torch.core.codec``): the mean family plans
+        them directly -- per-client wire-dtype payloads, dequantisation
+        fused into ``packed_agg``/``packed_robust``, one launch per bucket
+        for a uniform codec.  Every other strategy, a client whose pairs
+        mix codecs, and an unplannable cohort decode eagerly and take the
+        standard path."""
         from repro_torch.lora import adapter_masks
-        _reject_encoded(client_adapters)
+
+        from .codec import cohort_codecs, decode_adapters
+        codecs = cohort_codecs(client_adapters)
+        if codecs is not None:
+            kind_enc = resolve_backend(backend, _device_of(client_adapters))
+            if (use_plan and "mixed" not in codecs
+                    and self.plan_mode in ("mean", "mean_norm")):
+                prev_enc = prev_global if self.retains_prev else None
+                round_ = self._plan_encoded_round(
+                    client_adapters, codecs, kind_enc, r_max=r_max,
+                    client_ranks=client_ranks, prev=prev_enc)
+                if round_ is not None:
+                    return round_(client_adapters, weights, prev_enc)
+            client_adapters = [decode_adapters(a) for a in client_adapters]
         stacked = stack_trees(client_adapters)
         device = _device_of(stacked)
         if client_ranks is None:
@@ -462,15 +542,79 @@ class AggregationStrategy:
                            current_rank=current_rank)
 
     # ---------------------------------------------------- per-update fold --
-    def init_fold(self, state):
-        raise NotImplementedError(
-            "the per-update fold is not ported yet; it arrives with ROADMAP "
-            "queue 1 item 14 (async slice)")
+    def init_fold(self, state: ServerState) -> FoldState:
+        """Fresh accumulator for a sequence of :meth:`fold` calls anchored
+        at ``state`` (strategies that stream per-row mass override it)."""
+        return FoldState()
 
-    def fold(self, state, update, weight=None, **kw):
-        raise NotImplementedError(
-            "the per-update fold is not ported yet; it arrives with ROADMAP "
-            "queue 1 item 14 (async slice)")
+    def fold(self, state: ServerState, update: ClientUpdate,
+             weight: float | None = None, *,
+             fold_state: FoldState | None = None,
+             backend: str = "auto") -> tuple[ServerState, FoldState]:
+        """Fold ONE arriving update into ``state`` (the async hot path).
+
+        ``weight`` is the update's effective mass (its ``n_examples``
+        scaled by any staleness discount; default the plain
+        ``n_examples``).  The update is aggregated as a single-element
+        cohort through :meth:`aggregate`, then mixed into the state at
+        rate ``alpha = w / (mass + w)`` -- a running weighted mean, exact
+        for fedavg and zeropad.  On the kernel backend the mix is one
+        ``axpy_fold`` launch per float leaf.  The state's tensors are never
+        written: the new state holds new tensors.  Returns ``(new_state,
+        fold_state)``."""
+        fs = fold_state if fold_state is not None else self.init_fold(state)
+        w = float(update.n_examples if weight is None else weight)
+        if w <= 0:
+            raise ValueError(f"fold needs a positive weight, got {w}")
+        device = _state_device(state)
+        agg = self.aggregate(state, [update], weights=[w], backend=backend,
+                             device=device)
+        alpha = w / (fs.mass + w)
+        kind = resolve_backend(backend, device)
+        new_adapters = state.adapters
+        if state.adapters is not None and agg.adapters is not None:
+            new_adapters = _mix_trees(state.adapters, agg.adapters, alpha,
+                                      kind=kind)
+        new_base = _mix_trees(state.base_trainable, agg.base_trainable,
+                              alpha, kind=kind)
+        new_fs = FoldState(mass=fs.mass + w, row_mass=fs.row_mass,
+                           n_folds=fs.n_folds + 1)
+        current_rank = (adapter_live_ranks(new_adapters)
+                        if new_adapters is not None else state.current_rank)
+        return ServerState(
+            adapters=new_adapters, base_trainable=new_base,
+            round=state.round + 1, r_max=state.r_max,
+            client_ranks=agg.client_ranks,
+            current_rank=current_rank), new_fs
+
+
+def _mix_leaf(old: torch.Tensor, new: torch.Tensor, alpha, *,
+              kind: str = "ref") -> torch.Tensor:
+    """One fold step on one leaf: ``old + alpha * (new - old)`` as a new
+    tensor in old's dtype.
+
+    ``alpha`` is a number (the uniform server mix) or a tensor shaped like
+    old's leading dims (one rate per leading index: RBLA's per-rank-row
+    mix).  Those leading dims flatten into the rows of one ``axpy_fold``
+    launch (``kind="kernel"``) or of its plain version (``"ref"``).
+    Integer leaves (rank bookkeeping) take ``new``."""
+    if not old.is_floating_point():
+        return new
+    k = alpha.ndim if isinstance(alpha, torch.Tensor) else 0
+    lead = tuple(old.shape[:k] if k else old.shape[:1])
+    rows = math.prod(lead)
+    y = old.reshape((rows,) + tuple(old.shape[len(lead):]))
+    x = new.reshape(y.shape)
+    a = alpha.reshape(rows) if k else alpha
+    out = (axpy_fold(y, x, a, backend="kernel") if kind == "kernel"
+           else axpy_fold_ref(y, x, a))
+    return out.reshape(old.shape)
+
+
+def _mix_trees(old: PyTree, new: PyTree, alpha, *,
+               kind: str = "ref") -> PyTree:
+    """Leafwise :func:`_mix_leaf` over parallel trees (one alpha)."""
+    return tree_map(lambda o, n: _mix_leaf(o, n, alpha, kind=kind), old, new)
 
 
 # --------------------------------------------------------- the strategies --
@@ -483,6 +627,8 @@ class FedAvgStrategy(AggregationStrategy):
     use_mask = False
     kernel_method = "zeropad"          # full-rank masks => weighted mean
     plan_mode = "mean"
+    # the default fold IS the exact streaming form of a weighted mean
+    supports_incremental = True
 
     def leaf(self, stacked, mask, weights, prev=None):
         return fedavg_leaf(stacked, weights)
@@ -496,6 +642,9 @@ class ZeropadStrategy(AggregationStrategy):
     norm_by = "weight"
     kernel_method = "zeropad"
     plan_mode = "mean"
+    # a weighted mean of masked uploads: the default fold streams it
+    # exactly (rows nobody owns stay zero through the mix)
+    supports_incremental = True
 
     def leaf(self, stacked, mask, weights, prev=None):
         return zeropad_leaf(stacked, mask, weights)
@@ -510,15 +659,154 @@ class RBLAStrategy(AggregationStrategy):
     retains_prev = True
     kernel_method = "rbla"
     plan_mode = "mean"
+    supports_incremental = True
 
     def leaf(self, stacked, mask, weights, prev=None):
         return rbla_leaf(stacked, mask, weights, prev)
+
+    # ---------------------------------------------------- streaming fold --
+    def _fold_adapter_weight(self, update: ClientUpdate, w: float,
+                             rank: int) -> float:
+        """Hook: the mass this update's adapter rows enter with (the
+        streaming analogue of :meth:`transform_weights`)."""
+        return w
+
+    def init_fold(self, state: ServerState) -> FoldState:
+        if state.adapters is None:
+            return FoldState()
+
+        def zeros(pair):
+            rank = torch.as_tensor(pair["rank"])
+            return torch.zeros(tuple(rank.shape) + (pair["A"].shape[-2],),
+                               dtype=torch.float32, device=pair["A"].device)
+        return FoldState(row_mass=_map_pairs(zeros, state.adapters))
+
+    def _packed_fold(self, adapters, upd, row_mass, wa: float, kind: str):
+        """Fold through the packed layout: the state's pairs bucket by
+        (width, dtype) as a cohort plan does and the whole update folds in
+        one ``axpy_fold`` launch per bucket (its plain version on ``ref``),
+        instead of two per pair.  Returns ``(new_adapters, new_row_mass)``,
+        or ``None`` when the layout cannot be packed (the per-pair path
+        takes everything)."""
+        from .plan import (PlanUnavailable, _make_rebuilder, _walk_pairs,
+                           build_fold_plan, build_state_spec)
+        try:
+            spec = build_state_spec(adapters, kind=kind)
+            state_pairs = list(_walk_pairs(adapters))
+            upd_pairs = list(_walk_pairs(upd))
+        except PlanUnavailable:
+            return None
+        if len(state_pairs) != len(upd_pairs) or any(
+                sp["A"].shape != up["A"].shape
+                or sp["B"].shape != up["B"].shape
+                for (_, sp), (_, up) in zip(state_pairs, upd_pairs)):
+            return None
+        # keyed on shapes, dtypes, device and backend (the spec)
+        cache = self.__dict__.setdefault("_fold_plan_cache", {})
+        fold_fn = cache.get(spec)
+        if fold_fn is None:
+            fold_fn = cache[spec] = build_fold_plan(self, spec)
+        dev = torch.device(spec.device)
+        new_ab, new_mass = fold_fn(
+            [{"A": p["A"], "B": p["B"]} for _, p in state_pairs],
+            [{"A": p["A"], "B": p["B"]} for _, p in upd_pairs],
+            _flat_pair_values(row_mass), wa,
+            [torch.as_tensor(p["rank"], dtype=torch.int32, device=dev)
+             for _, p in upd_pairs])
+        rebuild = _make_rebuilder(adapters)
+        new_adapters = rebuild(
+            [{"A": o["A"], "B": o["B"], "rank": p["rank"]}
+             for o, (_, p) in zip(new_ab, state_pairs)])
+        return new_adapters, rebuild(new_mass)
+
+    def fold(self, state, update, weight=None, *, fold_state=None,
+             backend="auto", use_plan=True):
+        """Exact streaming RBLA: Eq. 7's per-rank-row weighted mean in
+        running form.  Row ``rho`` of the accumulated owner mass ``d``
+        gives the arriving update the rate ``w / (d_rho + w)`` on the rows
+        it owns and 0 elsewhere, so rows no client has touched keep the
+        anchor (retention for free) and folding a cohort one update at a
+        time reproduces the one-shot aggregate.  ``use_plan=False``
+        declines the packed path: two ``axpy_fold`` launches per pair (A,
+        and B transposed so its rank axis leads) on the kernel backend."""
+        fs = fold_state if fold_state is not None else self.init_fold(state)
+        w = float(update.n_examples if weight is None else weight)
+        if w <= 0:
+            raise ValueError(f"fold needs a positive weight, got {w}")
+        dev = _state_device(state)
+        kind = resolve_backend(backend, dev)
+
+        new_adapters, new_row_mass = state.adapters, fs.row_mass
+        rank_seen = update.rank
+        wa = w
+        packed = None
+        if state.adapters is not None and update.adapters is not None:
+            upd = update.adapters
+            if rank_seen is None:
+                # reads the rank leaves back to the host
+                ranks = [int(torch.as_tensor(p["rank"]).max())
+                         for p in _pairs(upd)]
+                rank_seen = max(ranks) if ranks else None
+            wa = self._fold_adapter_weight(update, w, int(rank_seen or 1))
+            if use_plan:
+                packed = self._packed_fold(state.adapters, upd, fs.row_mass,
+                                           wa, kind)
+        if packed is not None:
+            new_adapters, new_row_mass = packed
+        elif state.adapters is not None and update.adapters is not None:
+            masses: list = []
+
+            def fold_pair(pair, upd_pair, dmass):
+                r_storage = pair["A"].shape[-2]
+                rank = torch.as_tensor(upd_pair["rank"], dtype=torch.int32,
+                                       device=dev)
+                owned = (torch.arange(r_storage, device=dev)
+                         < rank[..., None]).float()
+                alpha = torch.where(owned > 0, wa / (dmass + wa), 0.0)
+                masses.append(dmass + wa * owned)
+                A = _mix_leaf(pair["A"], upd_pair["A"], alpha, kind=kind)
+                Bt = _mix_leaf(pair["B"].transpose(-1, -2),
+                               upd_pair["B"].transpose(-1, -2), alpha,
+                               kind=kind)
+                return {"A": A, "B": Bt.transpose(-1, -2).contiguous(),
+                        "rank": pair["rank"]}
+
+            new_adapters = _map_pairs(fold_pair, state.adapters,
+                                      update.adapters, fs.row_mass,
+                                      strict=True)
+            mass_it = iter(masses)      # same traversal order as above
+            new_row_mass = _map_pairs(lambda p: next(mass_it),
+                                      state.adapters)
+
+        new_base = state.base_trainable
+        if tree_leaves(update.base_trainable):
+            new_base = _mix_trees(state.base_trainable,
+                                  update.base_trainable, w / (fs.mass + w),
+                                  kind=kind)
+
+        new_fs = FoldState(mass=fs.mass + w, row_mass=new_row_mass,
+                           n_folds=fs.n_folds + 1)
+        current_rank = (adapter_live_ranks(new_adapters)
+                        if new_adapters is not None else state.current_rank)
+        return ServerState(
+            adapters=new_adapters, base_trainable=new_base,
+            round=state.round + 1, r_max=state.r_max,
+            client_ranks=(torch.tensor([rank_seen], dtype=torch.int32,
+                                       device=dev)
+                          if rank_seen is not None else state.client_ranks),
+            current_rank=current_rank), new_fs
 
 
 @register_strategy
 class RBLARankedStrategy(RBLAStrategy):
     """RBLA with rank-proportional client weights (HetLoRA-flavoured)."""
     name = "rbla_ranked"
+
+    def _fold_adapter_weight(self, update, w, rank):
+        # streaming analogue of rank_proportional_weights: a masked
+        # weighted mean depends only on weight ratios, so the global scale
+        # and the renormalisation cancel and w * rank is exact (alpha=1)
+        return w * float(max(rank, 1))
 
     def transform_weights(self, weights, client_ranks=None):
         if client_ranks is None:
@@ -765,6 +1053,7 @@ class FloraStrategy(AggregationStrategy):
     plan_mode = "stack"
     stack_r_cap: int | None = None     # None -> 2 * r_max at aggregation
     prev_weight: float = 1.0           # prev global mass / mean client mass
+    supports_incremental = True
 
     def plan_knobs(self) -> tuple:
         return (self.stack_r_cap, float(self.prev_weight))
@@ -888,6 +1177,181 @@ class FloraStrategy(AggregationStrategy):
 
     def finalize_tree(self, out: PyTree, r_max: int | None) -> PyTree:
         return out                       # live ranks already written
+
+    # ---------------------------------------------------- per-update fold --
+    def init_fold(self, state: ServerState) -> FoldState:
+        """Open a per-pair segment ledger anchored at ``state``: the anchor
+        enters the stream as the prev contributor (its B columns carry
+        scale 1).  Reads each pair's live rank back to the host."""
+        if state.adapters is None:
+            return FoldState()
+        pairs = []
+
+        def grab(pair):
+            r_live = int(torch.as_tensor(pair["rank"]).max())
+            pairs.append({
+                "prev_rank": r_live,       # anchor segment rows
+                "seg_ranks": [],           # client segment ranks, in order
+                "seg_w": [],               # client segment masses
+                # applied B-column scales, [prev] + clients, in segment
+                # order; the anchor starts unscaled
+                "applied": [1.0] if r_live else [],
+                "anchor_mass": None,       # set after a cap re-projection
+            })
+            return pair
+        _map_pairs(grab, state.adapters)
+        return FoldState(extra={"w_list": [], "pairs": pairs})
+
+    def fold(self, state, update, weight=None, *, fold_state=None,
+             backend="auto"):
+        """Exact streaming stack (below the cap): every contributor owns a
+        disjoint B-column segment, and the one-shot scales ``m_i_hat *
+        R_out / r_i`` change multiplicatively as the cohort grows -- so the
+        fold keeps a per-pair ledger of segment ranks, masses and applied
+        scales (:attr:`FoldState.extra`), re-scales the existing columns by
+        ``desired / applied`` and writes the arriving client's rows at the
+        next offset.  Folding a cohort one update at a time reproduces the
+        one-shot aggregate.  A stale update is down-weighted, never
+        dropped.  A fold that would cross ``stack_r_cap`` re-projects the
+        ledgered stack to ``r_max`` by the factored SVD, and the result is
+        a fresh anchor whose mass is everything folded so far.  The
+        adapter update is a scale and a copy (the JAX package runs it in
+        plain array ops too); the base trainables mix through
+        ``axpy_fold`` on the kernel backend."""
+        fs = fold_state if fold_state is not None else self.init_fold(state)
+        if fs.extra is None:
+            fs = dataclasses.replace(self.init_fold(state), mass=fs.mass,
+                                     n_folds=fs.n_folds)
+        w = float(update.n_examples if weight is None else weight)
+        if w <= 0:
+            raise ValueError(f"fold needs a positive weight, got {w}")
+        dev = _state_device(state)
+
+        new_adapters = state.adapters
+        extra = fs.extra
+        rank_seen = update.rank
+        if state.adapters is not None and update.adapters is not None:
+            w_list = extra["w_list"] + [w]
+            mean_w = sum(w_list) / len(w_list)
+            idx = [0]
+            new_pairs = []
+
+            def fold_pair(pair, upd_pair):
+                meta = extra["pairs"][idx[0]]
+                idx[0] += 1
+                rk = torch.as_tensor(upd_pair["rank"]).cpu().numpy()
+                if rk.size > 1 and not np.all(rk == rk.flat[0]):
+                    raise NotImplementedError(
+                        "flora supports layer-stacked pairs only when "
+                        "each client's rank is uniform across layers")
+                r_upd = int(rk.max()) if rk.size else 0
+                storage = pair["A"].shape[-2]
+                cap = self.resolve_cap(state.r_max, r_storage=storage)
+                self._validate_cap(cap, np.asarray([r_upd]), state.r_max)
+                prev_rank = meta["prev_rank"]
+                prev_mass = (meta["anchor_mass"]
+                             if meta["anchor_mass"] is not None
+                             else self.prev_weight * mean_w)
+                seg_ranks = (([prev_rank] if prev_rank else [])
+                             + meta["seg_ranks"]
+                             + ([r_upd] if r_upd else []))
+                masses = (([prev_mass] if prev_rank else [])
+                          + meta["seg_w"] + ([w] if r_upd else []))
+                if not seg_ranks:
+                    raise ValueError("flora: empty fold (rank 0 update "
+                                     "into an empty state)")
+                r_out = int(sum(seg_ranks))
+                m = np.asarray(masses, np.float64)
+                mhat = m / (m.sum() + _EPS)
+                A, B = pair["A"], pair["B"]
+                off = r_out - r_upd        # the new segment's row offset
+                applied = meta["applied"] + ([1.0] if r_upd else [])
+                upd_A = upd_pair["A"][..., :r_upd, :]
+                upd_B = upd_pair["B"][..., :, :r_upd].float()
+
+                if r_out <= cap:
+                    desired = mhat * (float(r_out)
+                                      / np.asarray(seg_ranks, np.float64))
+                    # re-scale every existing segment's B columns
+                    colscale = np.ones(storage, np.float32)
+                    o = 0
+                    for j, rj in enumerate(seg_ranks):
+                        colscale[o:o + rj] = desired[j] / applied[j]
+                        o += rj
+                    B = B.float() * torch.as_tensor(colscale, device=dev)
+                    if r_upd:
+                        A = A.clone()
+                        B[..., :, off:off + r_upd] = \
+                            float(np.float32(desired[-1])) * upd_B
+                        A[..., off:off + r_upd, :] = upd_A.to(A.dtype)
+                    new_pairs.append({
+                        "prev_rank": prev_rank,
+                        "seg_ranks": meta["seg_ranks"]
+                        + ([r_upd] if r_upd else []),
+                        "seg_w": meta["seg_w"] + ([w] if r_upd else []),
+                        "applied": list(desired),
+                        "anchor_mass": meta["anchor_mass"],
+                    })
+                    rank_out = r_out
+                else:
+                    # cap crossing: product-space re-projection to r_max
+                    # over the same matrix the one-shot over-cap path
+                    # builds, in factored form
+                    r_t = min(int(state.r_max if state.r_max is not None
+                                  else storage), cap)
+                    desired = mhat * (float(r_t)
+                                      / np.asarray(seg_ranks, np.float64))
+                    colscale = np.zeros(storage, np.float32)
+                    o = 0
+                    for j in range(len(seg_ranks) - (1 if r_upd else 0)):
+                        rj = seg_ranks[j]
+                        colscale[o:o + rj] = desired[j] / applied[j]
+                        o += rj
+                    B_cat = B.float() * torch.as_tensor(colscale, device=dev)
+                    A_cat = A.float()
+                    if r_upd:
+                        B_cat = torch.cat(
+                            [B_cat, float(np.float32(desired[-1])) * upd_B],
+                            dim=-1)
+                        A_cat = torch.cat([A_cat, upd_A.float()], dim=-2)
+                    B_new, A_new = product_factors(B_cat, A_cat, r_t)
+                    B = pad_to_rank(B_new.to(B.dtype), -1, storage)
+                    A = pad_to_rank(A_new.to(A.dtype), -2, storage)
+                    new_pairs.append({
+                        "prev_rank": r_t, "seg_ranks": [], "seg_w": [],
+                        "applied": [1.0], "anchor_mass": float(m.sum()),
+                    })
+                    rank_out = r_t
+                return {"A": A, "B": B.to(pair["B"].dtype),
+                        "rank": torch.full_like(
+                            torch.as_tensor(pair["rank"], dtype=torch.int32),
+                            rank_out)}
+
+            new_adapters = _map_pairs(fold_pair, state.adapters,
+                                      update.adapters, strict=True)
+            extra = {"w_list": w_list, "pairs": new_pairs}
+            if rank_seen is None:
+                rank_seen = max((p["seg_ranks"][-1] for p in new_pairs
+                                 if p["seg_ranks"]), default=None)
+
+        kind = resolve_backend(backend, dev)
+        new_base = state.base_trainable
+        if tree_leaves(update.base_trainable):
+            new_base = _mix_trees(state.base_trainable,
+                                  update.base_trainable, w / (fs.mass + w),
+                                  kind=kind)
+
+        new_fs = FoldState(mass=fs.mass + w, n_folds=fs.n_folds + 1,
+                           extra=extra)
+        current_rank = (adapter_live_ranks(new_adapters)
+                        if new_adapters is not None else state.current_rank)
+        return ServerState(
+            adapters=new_adapters, base_trainable=new_base,
+            round=state.round + 1, r_max=state.r_max,
+            client_ranks=(torch.tensor([rank_seen], dtype=torch.int32,
+                                       device=dev)
+                          if rank_seen is not None else state.client_ranks),
+            current_rank=current_rank), new_fs
 
     # ------------------------------------------------- (b) tree traversal --
     def aggregate_tree(self, stacked_tree, mask_tree, weights,

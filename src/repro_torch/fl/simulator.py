@@ -1,14 +1,25 @@
-"""In-process FLaaS simulator: the paper's synchronous experiment loop.
+"""In-process FLaaS simulator: the paper's experiment loop, end to end.
 
 One simulation = (dataset, model, aggregation method, participation) ->
-per-round global-model test accuracy, seeded and deterministic on a given
-device.  Each round: the selected clients re-slice the global adapters to
-their own rank (Alg. 2), train locally, and the server aggregates once
-(Alg. 1) through the strategy registry; then the new global is evaluated.
-The event-driven ``run_async_simulation`` waits for the async slice.
+global-model test accuracy, seeded and deterministic on a given device.
+Two drivers share one rig:
+
+* :func:`run_simulation` -- synchronous rounds (paper Alg. 1): the
+  selected clients re-slice the global adapters to their own rank (Alg.
+  2), train locally, and the server aggregates once through the strategy
+  registry; then the new global is evaluated.
+* :func:`run_async_simulation` -- the event-driven FLaaS mode: each client
+  reports on its own clock (log-normal latencies with a straggler tail,
+  :class:`~repro_torch.fl.selection.ClientLatencyModel`) and the server
+  folds updates as they arrive through an
+  :class:`~repro_torch.fl.async_agg.AsyncAggregator`, discounting stale
+  ones.
+
+Both run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
+import heapq
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
@@ -19,9 +30,10 @@ import torch
 
 from repro_torch.core.strategy import ClientUpdate, ServerState, get_strategy
 from repro_torch.data import make_dataset, staircase_partition
+from repro_torch.fl.async_agg import AsyncAggregator
 from repro_torch.fl.client import (make_local_fit, merge_base_params,
                                    split_base_params)
-from repro_torch.fl.selection import select_clients
+from repro_torch.fl.selection import ClientLatencyModel, select_clients
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.lora import init_adapters, set_ranks
 from repro_torch.models.paper_nets import PAPER_MODELS
@@ -61,10 +73,44 @@ class FLConfig:
 
 
 @dataclass
+class AsyncFLConfig(FLConfig):
+    """Event-driven FLaaS simulation.
+
+    ``buffer_size=1`` is fully async (every arrival folds immediately);
+    ``buffer_size=K > 1`` and/or ``buffer_deadline_s`` is buffered
+    semi-async (flush a mini-cohort on K or deadline).  Latencies are the
+    two-level log-normal of :class:`ClientLatencyModel`; staleness is
+    measured in server versions or simulated seconds.
+    """
+    staleness: str = "polynomial"      # constant | polynomial | hinge
+    staleness_a: float = 0.5           # decay strength (exponent / slope)
+    staleness_b: float = 4.0           # hinge grace period (versions / s)
+    staleness_clock: str = "version"   # version (folds behind) | wall
+                                       # (simulated seconds since pull)
+    buffer_size: int = 1               # semi-async: flush at K updates
+    buffer_deadline_s: float | None = None   # ... or on deadline (sim s)
+    latency_median_s: float = 1.0      # fleet-median report latency
+    latency_sigma: float = 0.25        # per-upload jitter (log-normal)
+    straggler_sigma: float = 1.0       # device heterogeneity (log-normal)
+    total_updates: int | None = None   # stop after this many uploads
+                                       # (None -> rounds * n_clients)
+    eval_every: int | None = None      # eval cadence in uploads
+                                       # (None -> n_clients)
+    dedup_window: int = 1024           # update_id memory (idempotency)
+    # the durable service (write-ahead log, checkpoints) is ROADMAP queue
+    # 1 item 16; a wal_dir raises until then
+    wal_dir: str | None = None
+
+
+@dataclass
 class FLHistory:
     test_acc: list[float] = field(default_factory=list)
     train_loss: list[float] = field(default_factory=list)
     round_time_s: list[float] = field(default_factory=list)
+    # async-mode extras (empty for sync runs): simulated service clock at
+    # each eval point, and the mean staleness of the interval's uploads
+    sim_time_s: list[float] = field(default_factory=list)
+    mean_staleness: list[float] = field(default_factory=list)
 
     def rounds_to_target(self, target: float) -> int | None:
         for i, a in enumerate(self.test_acc):
@@ -189,4 +235,127 @@ def run_simulation(cfg: FLConfig, verbose: bool = False, *, device="cuda",
         if verbose:
             print(f"[{cfg.method:>11s}] round {rnd + 1:3d} "
                   f"acc={acc:.4f} loss={hist.train_loss[-1]:.4f}")
+    return hist
+
+
+def run_async_simulation(cfg: AsyncFLConfig, verbose: bool = False,
+                         fault_plan=None, *, device="cuda", params=None,
+                         adapters=None,
+                         batch_indices: Callable[[int, int], torch.Tensor]
+                         | None = None) -> FLHistory:
+    """Event-driven FLaaS loop on ``device``: clients report on their own
+    clocks.
+
+    Each client perpetually pulls the global, fits locally and uploads;
+    the upload lands ``latency`` simulated seconds after dispatch and is
+    folded (or buffered) by an :class:`AsyncAggregator` with its staleness
+    discount.  Stops after ``total_updates`` uploads; evaluates every
+    ``eval_every`` uploads, logging the simulated clock and the interval's
+    mean staleness beside accuracy.
+
+    ``params``/``adapters``: initial model in the port's format;
+    ``batch_indices(k, client)``: the (steps, batch) index tensor of the
+    ``k``-th arrival (0-based, in arrival order), in place of the one the
+    client would draw.  Client seeds come from
+    ``np.random.default_rng(cfg.seed)``, one per arrival, in the JAX
+    package's order either way.  ``cfg.wal_dir`` and ``fault_plan`` (the
+    durable service and its chaos harness) raise ``NotImplementedError``:
+    ROADMAP queue 1 item 16."""
+    if cfg.wal_dir is not None or fault_plan is not None:
+        raise NotImplementedError(
+            "the durable service (wal_dir) and fault plans are not ported "
+            "yet; they arrive with ROADMAP queue 1 item 16 "
+            "(fl/durability, fl/chaos)")
+    device = resolve_device(device)
+    rig = _build_sim(cfg, device, params, adapters)
+    clients = rig.clients
+    agg = AsyncAggregator(
+        rig.strategy, rig.state, staleness=cfg.staleness,
+        staleness_a=cfg.staleness_a, staleness_b=cfg.staleness_b,
+        staleness_clock=cfg.staleness_clock, buffer_size=cfg.buffer_size,
+        deadline=cfg.buffer_deadline_s, backend=cfg.agg_backend,
+        dedup_window=cfg.dedup_window)
+    latency = ClientLatencyModel(
+        cfg.n_clients, median_s=cfg.latency_median_s,
+        sigma=cfg.latency_sigma, straggler_sigma=cfg.straggler_sigma,
+        seed=cfg.seed)
+
+    total = cfg.total_updates or cfg.rounds * cfg.n_clients
+    eval_every = cfg.eval_every or cfg.n_clients
+    rng = np.random.default_rng(cfg.seed)
+    # (done_time, tiebreak, client, version, pull_time, pulled snapshot,
+    #  update id); the snapshot is what the client trains on
+    heap: list = []
+    seq = 0
+
+    def dispatch(ci: int, now: float) -> None:
+        nonlocal seq
+        # the client trains on the global it pulls NOW; by the time its
+        # update lands the server may have moved on -- that gap is the
+        # staleness the aggregator discounts.  set_ranks copies, and no
+        # fold writes into the state's tensors, so the snapshot holds.
+        local_ad = None
+        if rig.mode == "lora":
+            local_ad = set_ranks(agg.state.adapters, clients[ci].rank,
+                                 r_storage=cfg.r_max)
+        heapq.heappush(heap, (now + latency.sample(ci), seq, ci, agg.version,
+                              now, (local_ad, agg.state.base_trainable), seq))
+        seq += 1
+
+    for ci in range(cfg.n_clients):
+        dispatch(ci, 0.0)
+
+    hist = FLHistory()
+    losses: list[float] = []
+    stale_mark = 0.0
+    eval_mark = 0                  # uploads already covered by an eval
+    received = 0
+    t_wall = time.time()
+    while received < total:
+        now, _, ci, version, pulled_at, (local_ad, base_snap), uid = \
+            heapq.heappop(heap)
+        # a buffered deadline may fall before this arrival: honour it at
+        # its own simulated time
+        due_t = agg.next_deadline()
+        if due_t is not None and due_t < now:
+            agg.maybe_flush(now=due_t)
+        c = clients[ci]
+        # CPU generator: the batch indices are the same on every device
+        gen = torch.Generator().manual_seed(int(rng.integers(0, 2 ** 31)))
+        idx = (batch_indices(received, ci) if batch_indices is not None
+               else None)
+        res = rig.local_fit(rig.frozen_base, base_snap, local_ad,
+                            rig.client_x[ci], rig.client_y[ci], c.n,
+                            gen=gen, batch_idx=idx)
+        losses.append(float(res.loss))
+        upd = ClientUpdate(
+            adapters=res.adapters if rig.mode == "lora" else None,
+            base_trainable=res.base_trainable,
+            n_examples=float(max(c.n, 1)), rank=c.rank)
+        try:
+            agg.submit(upd, model_version=version, now=now,
+                       pulled_at=pulled_at, update_id=f"u{uid}")
+        except ValueError:
+            pass                    # rejected: counted by the aggregator
+        received += 1
+        dispatch(ci, now)
+
+        if received % eval_every == 0 or received == total:
+            if received == total:
+                agg.flush(now=now)      # drain any semi-async remainder
+            acc = rig.evaluate(agg.state.base_trainable, agg.state.adapters)
+            interval = received - eval_mark   # the final one may be short
+            hist.test_acc.append(acc)
+            hist.train_loss.append(float(np.mean(losses[eval_mark:])))
+            hist.round_time_s.append(time.time() - t_wall)
+            hist.sim_time_s.append(now)
+            hist.mean_staleness.append(
+                (agg.staleness_sum - stale_mark) / max(interval, 1))
+            stale_mark = agg.staleness_sum
+            eval_mark = received
+            t_wall = time.time()
+            if verbose:
+                print(f"[{cfg.method:>11s}/async] upload {received:4d} "
+                      f"t={now:8.1f}s acc={acc:.4f} "
+                      f"stale={hist.mean_staleness[-1]:.2f}")
     return hist

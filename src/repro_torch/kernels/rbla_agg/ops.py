@@ -1,5 +1,5 @@
 """Wrappers of the aggregation kernels in ``csrc/rbla_agg.cu``,
-``csrc/packed_robust.cu`` and ``csrc/flora_stack.cu``.
+``csrc/packed_robust.cu``, ``csrc/flora_stack.cu`` and ``csrc/axpy_fold.cu``.
 
 Same arguments as the JAX package's ``repro.kernels.rbla_agg.ops``
 (``backend`` takes the place of ``interpret``).  Trailing dims flatten into
@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from .. import build, runtime
-from .ref import (ROBUST_MODES, flora_stack_ref, packed_agg_ref,
-                  packed_robust_ref, packed_stack_ref, rbla_agg_ref)
+from .ref import (ROBUST_MODES, axpy_fold_ref, flora_stack_ref,
+                  packed_agg_ref, packed_robust_ref, packed_stack_ref,
+                  rbla_agg_ref)
 
 #: legacy method names -> the kernels' two normalisation modes
 _NORM_BY = {"rbla": "mask", "zeropad": "weight"}
@@ -486,8 +487,81 @@ def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,
     return out.reshape((layers * out_rows,) + lead)
 
 
+# ---------------------------------------------------------------- axpy_fold --
+@functools.cache
+def _axpy_lib() -> ctypes.CDLL:
+    lib = build.load("axpy_fold")
+    lib.axpy_fold_rows.argtypes = [_P, _I, _P, _I, _P, _L, ctypes.c_float,
+                                   _P, _I, _L, _L, _P]
+    lib.axpy_fold_rows.restype = _I
+    return lib
+
+
+def _axpy_fold_cuda(y, x, alpha, out_dtype):
+    r, d = y.shape
+    dev = y.device
+    for name, t in (("y", y), ("x", x)):
+        if t.dtype not in _OUT_CODES:
+            raise TypeError(f"axpy_fold: {name} dtype {t.dtype} not in "
+                            f"{list(_OUT_CODES)}")
+    if x.device != dev:
+        raise ValueError(f"axpy_fold: x is on {x.device}, y on {dev}")
+    # a transposed or sliced view is copied once into row-major order
+    y, x = y.contiguous(), x.contiguous()
+    ptr, n_alpha, value = None, 1, 0.0
+    if isinstance(alpha, torch.Tensor):
+        alpha = _on(alpha, dev, torch.float32, "alpha").reshape(-1)
+        ptr, n_alpha = alpha.data_ptr(), alpha.numel()
+    else:
+        value = float(alpha)
+    out = torch.empty((r, d), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _axpy_lib().axpy_fold_rows(
+            y.data_ptr(), _OUT_CODES[y.dtype], x.data_ptr(),
+            _OUT_CODES[x.dtype], ptr, n_alpha, value, out.data_ptr(),
+            _OUT_CODES[out_dtype], r, d, _stream(dev))
+    _check_launch(err, "axpy_fold", _axpy_lib())
+    runtime.LAUNCHES["axpy_fold"] += 1
+    return out
+
+
+def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
+              backend: str = "auto"):
+    """Fold one update into the live state: ``y + alpha * (x - y)``.
+
+    y, x: (R, *dims) with the rank-row axis leading (a 1-D leaf folds as
+    (R, 1), a 0-d one as (1, 1)); ``alpha`` is a scalar (the uniform server
+    mix) or an (R,) vector (RBLA's per-row mix: rows the client does not
+    own take 0 and pass ``y`` through).  Trailing dims flatten into D and
+    are restored.  The result is a new tensor in y's dtype; ``y`` is never
+    written.  ``generator``: with a bf16 ``y``, the fold is computed in fp32
+    and rounded back to bf16 stochastically with noise drawn from this
+    ``torch.Generator`` (on y's device), so a long stream of low-precision
+    folds stays unbiased (``repro_torch.core.codec.stochastic_round``)."""
+    if tuple(x.shape) != tuple(y.shape):
+        raise ValueError(f"axpy_fold: x {tuple(x.shape)} vs y "
+                         f"{tuple(y.shape)}")
+    r = int(y.shape[0]) if y.ndim else 1
+    if isinstance(alpha, torch.Tensor) and alpha.ndim and \
+            tuple(alpha.shape) != (r,):
+        raise ValueError(f"axpy_fold: alpha {tuple(alpha.shape)} != ({r},)")
+    y2, x2 = y.reshape(r, -1), x.reshape(r, -1)
+    rounds = generator is not None and y.dtype == torch.bfloat16
+    out_dtype = torch.float32 if rounds else y.dtype
+    if runtime.use_kernel(backend, y, "axpy_fold"):
+        out = _axpy_fold_cuda(y2, x2, alpha, out_dtype)
+    else:
+        out = axpy_fold_ref(y2, x2, alpha, out_dtype=out_dtype)
+    if rounds:
+        from repro_torch.core.codec import stochastic_round
+        out = stochastic_round(out, generator)
+    return out.reshape(y.shape)
+
+
 __all__ = ["packed_agg", "packed_agg_inline", "rbla_agg", "packed_robust",
            "packed_stack", "flora_stack", "StackTable", "stack_table",
-           "flora_table", "packed_agg_ref", "rbla_agg_ref",
+           "flora_table", "axpy_fold", "packed_agg_ref", "rbla_agg_ref",
            "packed_robust_ref", "packed_stack_ref", "flora_stack_ref",
-           "MAX_ROBUST_CLIENTS"]
+           "axpy_fold_ref", "MAX_ROBUST_CLIENTS"]

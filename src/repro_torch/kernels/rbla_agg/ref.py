@@ -68,6 +68,19 @@ def rbla_agg_ref(x, ranks, weights, *, norm_by: str = "mask"):
                    None).to(x.dtype)
 
 
+def axpy_fold_ref(y, x, alpha, *, out_dtype=None):
+    """y, x (R, *dims); alpha a scalar or (R,) -> ``y + alpha * (x - y)``
+    in fp32 with alpha broadcast over the trailing dims, in ``out_dtype``
+    (default y's).  Three separately rounded fp32 operations: a row with
+    alpha 0 returns y, and a NaN in x reaches the output."""
+    runtime.PLAIN_CALLS["axpy_fold"] += 1
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=y.device)
+    if a.ndim == 1:
+        a = a.reshape((y.shape[0],) + (1,) * (y.ndim - 1))
+    yf = y.float()
+    return (yf + a * (x.float() - yf)).to(out_dtype or y.dtype)
+
+
 def flora_stack_ref(x, scales, segs, out_rows: int):
     """x (N, R, D); scales (N,); segs (N,) host ints -> (out_rows, D) in
     x's dtype: contributor i's first ``segs[i]`` rows, scaled, at the

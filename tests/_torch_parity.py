@@ -50,20 +50,20 @@ def port_tree(jax_tree, device="cpu"):
     return from_jax_params(jax_tree_to_numpy(jax_tree), device)
 
 
-def sim_reference_inputs(cfg, r_storage=None):
-    """The JAX run's initial model (adapters at ``r_storage`` storage,
-    default ``cfg.r_max``) and every client's batch indices, rebuilt as
-    ``repro.fl.simulator`` and ``repro.fl.client`` make them: ``key, pkey,
-    akey = jax.random.split(PRNGKey(seed), 3)`` for ``model.init`` /
-    ``init_adapters``; per client per round ``fit_key = PRNGKey(int(
-    rng.integers(0, 2**31)))`` from ``np.random.default_rng(seed)``, then
-    ``idx_key, _ = jax.random.split(fit_key)`` and
-    ``sample_batch_indices``."""
+def _reference_rig(cfg, r_storage=None):
+    """The JAX run's initial model and client partition, made as
+    ``repro.fl.simulator._build_sim`` makes them: ``key, pkey, akey =
+    jax.random.split(PRNGKey(seed), 3)`` for ``model.init`` /
+    ``init_adapters`` (adapters at ``r_storage``, default ``cfg.r_max``).
+    Returns ``(params, adapters, draw)``; ``draw(ci)``
+    takes the next ``fit_key = PRNGKey(int(rng.integers(0, 2**31)))``
+    from ``np.random.default_rng(seed)`` and returns client ``ci``'s batch
+    indices, ``idx_key, _ = jax.random.split(fit_key)`` then
+    ``sample_batch_indices``, as ``repro.fl.client`` draws them."""
     import jax
     import jax.numpy as jnp
     from repro.data import make_dataset, staircase_partition
     from repro.data.pipeline import sample_batch_indices
-    from repro.fl.selection import select_clients
     from repro.lora import init_adapters
     from repro.models.paper_nets import PAPER_MODELS
     model = PAPER_MODELS[cfg.model]()
@@ -77,15 +77,54 @@ def sim_reference_inputs(cfg, r_storage=None):
     max_n = max(len(c.x) for c in clients)
     steps = max(1, (max_n * cfg.local_epochs) // cfg.batch_size)
     rng = np.random.default_rng(cfg.seed)
+
+    def draw(ci):
+        fit_key = jax.random.PRNGKey(int(rng.integers(0, 2 ** 31)))
+        idx_key, _ = jax.random.split(fit_key)
+        return np.array(sample_batch_indices(
+            idx_key, jnp.asarray(clients[ci].n, jnp.int32), cfg.batch_size,
+            steps))
+    return params, adapters, draw
+
+
+def sim_reference_inputs(cfg, r_storage=None):
+    """The JAX synchronous run's initial model and every client's batch
+    indices, keyed ``(round, client)`` (see :func:`_reference_rig`)."""
+    from repro.fl.selection import select_clients
+    params, adapters, draw = _reference_rig(cfg, r_storage)
     idx = {}
     for rnd in range(cfg.rounds):
         for ci in select_clients(cfg.n_clients, rnd, cfg.participation,
                                  cfg.seed):
-            fit_key = jax.random.PRNGKey(int(rng.integers(0, 2 ** 31)))
-            idx_key, _ = jax.random.split(fit_key)
-            idx[rnd, ci] = np.array(sample_batch_indices(
-                idx_key, jnp.asarray(clients[ci].n, jnp.int32),
-                cfg.batch_size, steps))
+            idx[rnd, ci] = draw(ci)
+    return params, adapters, idx
+
+
+def async_reference_inputs(cfg, r_storage=None):
+    """The JAX event-driven run's initial model and the batch indices of
+    every arrival, keyed ``(k, client)`` for the ``k``-th arrival.  The
+    arrival order depends only on the latencies, so the heap of
+    ``repro.fl.run_async_simulation`` is replayed here: every client
+    dispatched at time 0 in client order, then each popped client
+    re-dispatched at its arrival time, ties broken by dispatch order; one
+    ``fit_key`` is drawn per arrival, in pop order."""
+    import heapq
+
+    from repro.fl.selection import ClientLatencyModel
+    params, adapters, draw = _reference_rig(cfg, r_storage)
+    latency = ClientLatencyModel(
+        cfg.n_clients, median_s=cfg.latency_median_s,
+        sigma=cfg.latency_sigma, straggler_sigma=cfg.straggler_sigma,
+        seed=cfg.seed)
+    heap = [(latency.sample(ci), ci, ci) for ci in range(cfg.n_clients)]
+    heapq.heapify(heap)
+    seq = cfg.n_clients
+    idx = {}
+    for k in range(cfg.total_updates or cfg.rounds * cfg.n_clients):
+        now, _, ci = heapq.heappop(heap)
+        idx[k, ci] = draw(ci)
+        heapq.heappush(heap, (now + latency.sample(ci), seq, ci))
+        seq += 1
     return params, adapters, idx
 
 
@@ -124,5 +163,5 @@ def need_cuda():
 
 __all__ = ["F32_TOL", "BF16_TOL", "np32", "assert_close",
            "assert_trees_close", "jax_tree_to_numpy", "port_tree",
-           "sim_reference_inputs", "spy_states", "need_cuda",
-           "from_jax_adapters", "from_jax_params", "to_numpy"]
+           "sim_reference_inputs", "async_reference_inputs", "spy_states",
+           "need_cuda", "from_jax_adapters", "from_jax_params", "to_numpy"]

@@ -15,7 +15,8 @@ from _torch_parity import BF16_TOL, F32_TOL, assert_close, need_cuda
 from repro_torch.core import strategy as ts
 from repro_torch.fl import FLConfig, run_simulation
 from repro_torch.kernels import runtime
-from repro_torch.kernels.rbla_agg import (flora_stack, flora_stack_ref,
+from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_ref,
+                                          flora_stack, flora_stack_ref,
                                           packed_agg, packed_agg_ref,
                                           packed_robust, packed_robust_ref,
                                           packed_stack, packed_stack_ref,
@@ -365,3 +366,256 @@ def test_flora_per_pair_kernel_stacks_layer_stacked_pairs(cap):
         else:
             assert_close(got[k]["B"].double() @ got[k]["A"].double(),
                          want[k]["B"].double() @ want[k]["A"].double())
+
+
+# -------------------------------------------------------------- axpy_fold --
+def _fold_inputs(r, d, seed, y_dtype=torch.float32, x_dtype=None):
+    rng = np.random.default_rng(seed)
+    y = torch.as_tensor(rng.normal(size=(r, d)).astype(np.float32))
+    x = torch.as_tensor(rng.normal(size=(r, d)).astype(np.float32))
+    alpha = rng.uniform(0.05, 1.0, r).astype(np.float32)
+    alpha[rng.random(r) < 0.3] = 0.0                   # rows the client lacks
+    return (y.to(y_dtype).cuda(), x.to(x_dtype or y_dtype).cuda(),
+            torch.as_tensor(alpha).cuda())
+
+
+def _check_fold(y, x, alpha, **kw):
+    y_before = y.clone()
+    before = runtime.LAUNCHES["axpy_fold"]
+    got = axpy_fold(y, x, alpha, **kw)
+    assert runtime.LAUNCHES["axpy_fold"] == before + 1
+    want = axpy_fold_ref(y, x, alpha)
+    torch.cuda.synchronize()
+    assert got.dtype == y.dtype and got.shape == y.shape and got.is_cuda
+    assert torch.equal(y, y_before)                   # y is never written
+    # the kernel rounds each of its three fp32 operations as the plain
+    # version does, so both agree bit for bit
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("dtypes", [("f32", "f32"), ("bf16", "bf16"),
+                                    ("bf16", "f32"), ("f32", "bf16")])
+@pytest.mark.parametrize("r,d", [(64, 784), (256, 200), (64, 10), (7, 1),
+                                 (512, 1024), (33, 4099)])
+def test_axpy_fold_kernel_matches_plain(r, d, dtypes):
+    need_cuda()
+    y, x, alpha = _fold_inputs(r, d, r + d, DTYPES[dtypes[0]],
+                               DTYPES[dtypes[1]])
+    got = _check_fold(y, x, alpha)
+    zero = alpha == 0
+    assert torch.equal(got[zero], y[zero])            # unowned rows pass
+
+
+def test_axpy_fold_kernel_scalar_alpha_leaves_and_views():
+    need_cuda()
+    y, x, _ = _fold_inputs(200, 1, 3)
+    _check_fold(y[:, 0], x[:, 0], 0.25)               # a 1-D bias leaf
+    _check_fold(y[0, 0], x[0, 0], 0.25)               # a 0-d leaf
+    _check_fold(y, x, torch.tensor(0.5, device="cuda"))
+    y, x, alpha = _fold_inputs(784, 64, 4)
+    _check_fold(y.T, x.T, alpha[:64])                 # transposed views
+    flat = torch.empty(y.numel() + 1, device="cuda")
+    shifted = flat[1:].view(y.shape).copy_(y)          # scalar path
+    assert shifted.data_ptr() % 16 != 0
+    _check_fold(shifted, x, alpha)
+
+
+def test_axpy_fold_kernel_nan_and_refusals():
+    need_cuda()
+    y, x, alpha = _fold_inputs(8, 40, 5)
+    x[2, 3] = float("nan")
+    alpha[2] = 0.0
+    got = axpy_fold(y, x, alpha)
+    want = axpy_fold_ref(y, x, alpha)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[2, 3]))
+    with pytest.raises(ValueError, match="always takes the kernel"):
+        axpy_fold(y, x, alpha, backend="ref")
+    with pytest.raises(ValueError, match="alpha"):
+        axpy_fold(y, x, alpha[:3])
+    with pytest.raises(ValueError, match="is on cpu"):
+        axpy_fold(y, x, alpha.cpu())
+
+
+def test_axpy_fold_kernel_stochastic_rounding_to_bf16():
+    """With a generator a bf16 fold is computed in fp32 and rounded
+    stochastically: determinism under one seed, bf16 values as fixed
+    points, and an unbiased mean over many draws."""
+    need_cuda()
+    y, x, alpha = _fold_inputs(64, 784, 6, torch.bfloat16)
+    exact = axpy_fold_ref(y, x, alpha, out_dtype=torch.float32)
+
+    def draw(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return axpy_fold(y, x, alpha, generator=gen)
+    a, b = draw(1), draw(1)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert not torch.equal(a, draw(2))
+    one_ulp = 2.0 ** -7 * exact.abs() + 1e-30
+    assert bool(((a.float() - exact).abs() <= one_ulp).all())
+    zero = alpha == 0
+    assert torch.equal(a[zero], y[zero])              # fixed points
+    mean = torch.stack([draw(s).float() for s in range(64)]).mean(0)
+    # unbiased: the mean of 64 draws is off by at most ulp / 16 standard
+    # deviations (about 0.27 ulp at the largest of 50176 elements)
+    assert bool(((mean - exact).abs() <= 0.5 * one_ulp).all())
+
+
+# ------------------------------------------- the async slice on the card --
+def _fold_cohort(seed, n=4, layers=None, storage=8):
+    """A state (adapters at ``storage`` rank rows) and ``n`` uploads."""
+    from repro_torch.core.masks import pad_to_rank
+    clients, ranks, weights, prev = _cohort(seed, n=n)
+    prev = {k: dict(p, A=pad_to_rank(p["A"], -2, storage),
+                    B=pad_to_rank(p["B"], -1, storage))
+            for k, p in prev.items()}
+    if layers:
+        clients = [_layered(c, layers) for c in clients]
+        prev = _layered(prev, layers)
+    state = ts.ServerState(adapters=prev,
+                           base_trainable={"b": torch.zeros(4)}, r_max=8)
+    ups = [ts.ClientUpdate(adapters=c, base_trainable={"b": torch.randn(4)},
+                           n_examples=float(w), rank=int(r))
+           for c, w, r in zip(clients, weights, ranks)]
+    return state, ups
+
+
+def _to_cuda_state(state):
+    cuda = lambda t: t.cuda()                                 # noqa: E731
+    return ts.ServerState(adapters=tree_map(cuda, state.adapters),
+                          base_trainable=tree_map(cuda, state.base_trainable),
+                          r_max=state.r_max)
+
+
+def _to_cuda_update(u):
+    cuda = lambda t: t.cuda()                                 # noqa: E731
+    return ts.ClientUpdate(adapters=tree_map(cuda, u.adapters),
+                           base_trainable=tree_map(cuda, u.base_trainable),
+                           n_examples=u.n_examples, rank=u.rank)
+
+
+@pytest.mark.parametrize("layers", [None, 3])
+@pytest.mark.parametrize("name", ["rbla", "rbla_ranked", "fedavg", "zeropad",
+                                  "flora"])
+def test_fold_kernel_paths_match_ref(name, layers):
+    """Every incremental strategy's fold on the card against its ref fold:
+    the packed fold (one axpy_fold per bucket), the per-pair fold (two per
+    pair, the same bits), the default fold (packed_agg + axpy_fold) and
+    flora's stack within its cap (axpy_fold for the base leaf)."""
+    need_cuda()
+    from repro_torch.tree import tree_leaves
+    strat = ts.get_strategy(name)
+    storage = 8
+    if name == "flora":
+        strat, storage = strat.with_options(stack_r_cap=64), 64
+    state, ups = _fold_cohort(2, layers=layers, storage=storage)
+    want, fs = state, strat.init_fold(state)
+    for u in ups:
+        want, fs = strat.fold(want, u, fold_state=fs, backend="ref")
+    cstate = _to_cuda_state(state)
+    # the rbla family can decline its packed path (two launches a pair)
+    declines = ({}, {"use_plan": False}) if isinstance(
+        strat, ts.RBLAStrategy) else ({},)
+    for decline in declines:
+        use_plan = not decline
+        runtime.reset_counts()
+        got, fs = cstate, strat.init_fold(cstate)
+        for u in ups:
+            got, fs = strat.fold(got, _to_cuda_update(u), fold_state=fs,
+                                 **decline)
+        torch.cuda.synchronize()
+        assert not any(runtime.PLAIN_CALLS.values()), runtime.PLAIN_CALLS
+        assert runtime.LAUNCHES["axpy_fold"] > 0
+        for a, b in zip(tree_leaves((got.adapters, got.base_trainable)),
+                        tree_leaves((want.adapters, want.base_trainable))):
+            assert a.is_cuda
+            if a.is_floating_point():
+                assert_close(a, b)
+            else:
+                assert torch.equal(a.cpu(), b)
+        if name == "rbla" and not layers:
+            n_pairs = len(state.adapters)
+            assert runtime.LAUNCHES["axpy_fold"] == len(ups) * (
+                (3 if use_plan else 2 * n_pairs) + 1)
+
+
+def test_fold_never_writes_the_state_on_the_card():
+    need_cuda()
+    state, ups = _fold_cohort(3)
+    cstate = _to_cuda_state(state)
+    before = tree_map(torch.clone, cstate.adapters)
+    strat = ts.get_strategy("rbla")
+    for use_plan in (True, False):
+        a, _ = strat.fold(cstate, _to_cuda_update(ups[0]), use_plan=use_plan)
+        strat.fold(cstate, _to_cuda_update(ups[1]), use_plan=use_plan)
+    torch.cuda.synchronize()
+    from repro_torch.tree import tree_leaves
+    for x, y in zip(tree_leaves(before), tree_leaves(cstate.adapters)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mix", ["int8", "bf16", "mixed"])
+@pytest.mark.parametrize("name", ["rbla", "zeropad", "rbla_norm",
+                                  "rbla_trimmed"])
+def test_encoded_plan_kernel_matches_ref(name, mix):
+    """An encoded cohort on the card: one kernel launch per bucket with
+    the int8 scales dequantised in the kernel, against the ref plan."""
+    need_cuda()
+    from repro_torch.core import codec as tcodec
+    clients, ranks, weights, prev = _cohort(4)
+    codecs = {"int8": ["int8"] * 5, "bf16": ["bf16"] * 5,
+              "mixed": ["int8", "bf16", "none", "int8", "bf16"]}[mix]
+    enc = [tcodec.encode_adapters(c, k) for c, k in zip(clients, codecs)]
+    strat = ts.get_strategy(name)
+    want = strat.aggregate_adapters(enc, weights, r_max=8, prev_global=prev,
+                                    backend="ref")
+    cuda = lambda t: t.cuda()                                 # noqa: E731
+    runtime.reset_counts()
+    got = strat.aggregate_adapters([tree_map(cuda, e) for e in enc],
+                                   weights.cuda(), r_max=8,
+                                   prev_global=tree_map(cuda, prev))
+    torch.cuda.synchronize()
+    kernel = "packed_robust" if name == "rbla_trimmed" else "packed_agg"
+    assert runtime.LAUNCHES[kernel] == 3
+    assert not any(runtime.PLAIN_CALLS.values())
+    for k in want:
+        for side in ("A", "B"):
+            assert_close(got[k][side], want[k][side])
+
+
+@pytest.mark.parametrize("buffer_size", [1, 3])
+def test_async_service_on_the_card_matches_ref(buffer_size):
+    need_cuda()
+    from repro_torch.fl import AsyncAggregator
+    state, ups = _fold_cohort(5, n=5)
+    kw = dict(buffer_size=buffer_size, staleness="polynomial",
+              server_momentum=0.5)
+    want = AsyncAggregator("rbla", state, backend="ref", **kw)
+    got = AsyncAggregator("rbla", _to_cuda_state(state), **kw)
+    for i, u in enumerate(ups):
+        want.submit(u, model_version=max(0, want.version - 1))
+        got.submit(_to_cuda_update(u), model_version=max(0, got.version - 1))
+    got.flush()
+    want.flush()
+    torch.cuda.synchronize()
+    assert got.version == want.version
+    for k in want.state.adapters:
+        for side in ("A", "B"):
+            assert_close(got.state.adapters[k][side],
+                         want.state.adapters[k][side])
+
+
+def test_async_simulation_kernel_folds_match_plain_folds():
+    need_cuda()
+    from repro_torch.fl import AsyncFLConfig, run_async_simulation
+    kw = dict(n_clients=4, n_per_class=20, n_test_per_class=10,
+              batch_size=16, lr=0.01, r_max=8, total_updates=8,
+              eval_every=4)
+    runtime.reset_counts()
+    got = run_async_simulation(AsyncFLConfig(**kw))
+    assert runtime.LAUNCHES["axpy_fold"] == 8 * 6
+    assert not any(runtime.PLAIN_CALLS.values())
+    want = run_async_simulation(AsyncFLConfig(agg_backend="ref", **kw))
+    assert got.test_acc == want.test_acc
+    np.testing.assert_allclose(got.train_loss, want.train_loss, rtol=1e-5)

@@ -161,12 +161,19 @@ def test_unported_paths_raise():
     rbla = ts.get_strategy("rbla")
     with pytest.raises(NotImplementedError, match="item 18"):
         rbla.aggregate_adapters(tads, tw, backend="distributed")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bf16 = [{k: dict(p, A=p["A"].bfloat16(), B=p["B"].bfloat16())
-                 for k, p in a.items()} for a in tads]
-        rbla.aggregate_adapters(bf16, tw)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        rbla.fold(None, None)
+    # the codec slice (item 13) and the fold (item 14) are ported: a bf16
+    # cohort plans (and equals its decoded aggregate), and the fold on the
+    # kernel backend refuses CPU tensors like every other kernel path
+    bf16 = [{k: dict(p, A=p["A"].bfloat16(), B=p["B"].bfloat16())
+             for k, p in a.items()} for a in tads]
+    dec = [{k: dict(p, A=p["A"].float(), B=p["B"].float())
+            for k, p in a.items()} for a in bf16]
+    assert_trees_close(rbla.aggregate_adapters(bf16, tw),
+                       rbla.aggregate_adapters(dec, tw))
+    state = ts.ServerState(adapters=dec[0], base_trainable={}, r_max=R_MAX)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rbla.fold(state, ts.ClientUpdate(adapters=dec[1], base_trainable={}),
+                  backend="kernel")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         rbla.aggregate_adapters(tads, tw, backend="kernel")
     with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -45,7 +45,32 @@ Phases, each printing JSON lines:
   default fold: packed_agg and axpy_fold), flora (the streaming stack)
   and rbla_norm (replay);
 * per_pair_fold -- one rbla fold with the packed path declined (two
-  axpy_fold launches a pair), equal to the packed fold bit for bit.
+  axpy_fold launches a pair), equal to the packed fold bit for bit;
+* lora_kernels -- batched_lora_matmul and lora_matmul against their plain
+  versions at the MLP's three serving paths (500 test rows, 11 slots x
+  r_max 64), at bench_serve's full case (512 x 512 x 512, 128 tenants x
+  r_max 8) and at M = K = N = 4096 with 2048 packed rows, fp32 and bf16,
+  NaN/Inf outside the live segments and rank-0 slots in every case; time,
+  the plain version's time, the bound and the base product's
+  ``torch.matmul`` time beside it;
+* serve_main -- bench_serve's full case through the port's AdapterStore and
+  ServingEngine (128 tenants, width 512, batches of 512, 8 mixed batches):
+  parity with merged_reference, requests/s, then 4 aggregate -> publish ->
+  serve rounds through an AsyncAggregator whose on_publish is the
+  engine's publisher, and parity again; one batched_lora_matmul launch per
+  apply, no plain version;
+* serve_mlp -- the final global of main_path published into a store of the
+  10 staircase clients at their ranks plus the null slot; the test set
+  served with mixed client ids layer by layer, held against
+  merged_reference and against the MLP's forward with each client's
+  re-sliced adapters; a publish under a live pin leaves the pinned batch
+  unchanged;
+* serve_streams -- the store's three cross-stream hazards on two streams,
+  each held open by ``torch.cuda._sleep``: write after read, read after
+  write, free while read (capacity growth);
+* serve_dense -- lora_dense_apply on each MLP layer of the final global
+  against the plain dense layer;
+* obs -- one ServiceHealth snapshot of serve_main's service and store.
 
 Then the ``{"kernels": [...]}`` summary, the card's line from nvidia-smi,
 and the device summary as the last line.  Any failure ends the run with a
@@ -66,6 +91,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 dense tensor cores (data sheet)
 REPLACES = {
     "packed_agg": "src/repro/kernels/rbla_agg/kernel.py:115",
     "rbla_agg": "src/repro/kernels/rbla_agg/kernel.py:473",
@@ -73,13 +99,17 @@ REPLACES = {
     "packed_stack": "src/repro/kernels/rbla_agg/kernel.py:335",
     "flora_stack": "src/repro/kernels/rbla_agg/kernel.py:390",
     "axpy_fold": "src/repro/kernels/rbla_agg/kernel.py:442",
+    "batched_lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:148",
+    "lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:78",
 }
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"packed_agg": _CSRC + "rbla_agg.cu", "rbla_agg": _CSRC + "rbla_agg.cu",
           "packed_robust": _CSRC + "packed_robust.cu",
           "packed_stack": _CSRC + "flora_stack.cu",
           "flora_stack": _CSRC + "flora_stack.cu",
-          "axpy_fold": _CSRC + "axpy_fold.cu"}
+          "axpy_fold": _CSRC + "axpy_fold.cu",
+          "batched_lora_matmul": _CSRC + "lora_matmul.cu",
+          "lora_matmul": _CSRC + "lora_matmul.cu"}
 MLP_BUCKETS = ((64, 784), (256, 200), (64, 10))   # (rows, width), r_max=64
 MLP_PAIR_SIDES = ((64, 784, 1), (64, 200, 4), (64, 10, 1))  # + count/round
 N_CLIENTS = 10
@@ -146,9 +176,10 @@ def time_ms_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1212,6 +1243,561 @@ def phase_per_pair_fold(rec):
                              "reproduce the packed fold")
 
 
+# ------------------------------------------------------------ serving slice --
+#: the MLP's serving paths (name, fan_in, fan_out) at full width
+MLP_LAYERS = (("fc1", 784, 200), ("fc2", 200, 200), ("out", 200, 10))
+#: MAIN_CFG's test set: 50 per class, 10 classes
+MLP_TEST_ROWS = 10 * MAIN_CFG["n_test_per_class"]
+#: benchmarks/bench_serve.py's full case (its build_rig / make_batches /
+#: publish_loop defaults outside --smoke)
+SERVE_CFG = dict(n_tenants=128, width=512, r_max=8, batch=512, n_batches=8,
+                 iters=3, rounds=4)
+SERVE_PATH = "proj"
+#: how long a stream is held back in serve_streams (about 0.15 s)
+SLEEP_CYCLES = 300_000_000
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _lora_inputs(m, k, n, slots, r_max, dtype, gen):
+    """``slots`` pages of ``r_max`` packed rows on the card: slot 0 (the
+    null adapter) and slot 3 (an evicted one) at rank 0, the last slot
+    named by no request, and NaN/Inf in every row outside the live
+    segments.  Returns the operands, the tables and the live row count."""
+    import torch
+    dev = "cuda"
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+    r_tot = slots * r_max
+    a_rows = torch.randn(r_tot, k, generator=gen, device=dev)
+    b_rows = torch.randn(r_tot, n, generator=gen, device=dev)
+    off = torch.arange(slots, device=dev, dtype=torch.int32) * r_max
+    rank = torch.randint(1, r_max + 1, (slots,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rank[0] = rank[3] = 0
+    scale = 16.0 / rank.clamp(min=1).float()
+    ids = torch.randint(0, slots - 1, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    p = torch.arange(r_tot, device=dev)
+    live = torch.zeros(r_tot, dtype=torch.bool, device=dev)
+    for t in ids.long().unique().tolist():
+        live[int(off[t]):int(off[t] + rank[t])] = True
+    a_rows[~live] = float("nan")
+    b_rows[~live] = float("inf")
+    b_rows[~live & (p % 2 == 0)] = float("nan")
+    return (x.to(dtype), w.to(dtype), a_rows.to(dtype), b_rows.to(dtype),
+            ids, off, rank, scale, int(live.sum()))
+
+
+def _lora_case(kernel, label, shape, dtype, got, want, bytes_moved, flops,
+               times, extra=None):
+    import torch
+    finite = bool(torch.isfinite(got.float()).all())
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = (2e-2 if dtype == torch.bfloat16 else 2e-5) * scale
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    bms, by = bound(bytes_moved, flops, peak)
+    case = {"kernel": kernel, "case": label, "shape": shape,
+            "dtype": _dtype_name(dtype), **(extra or {}),
+            "max_abs_err": err, "tol": tol, "finite": finite, **times,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bytes": bytes_moved, "flops": flops, "peak_flops_per_s": peak}
+    emit(case)
+    if not (finite and err <= tol):
+        raise AssertionError(f"{kernel} disagrees with its plain version: "
+                             f"{case}")
+    return case
+
+
+def _lora_times(kernel, plain, x, w) -> dict:
+    """The wrapper's time, its plain version's, the base product's
+    ``torch.matmul(x, W)`` (context only: no single PyTorch call computes
+    the function, so library_ms is null) and the wrapper issued back to
+    back."""
+    import torch
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "matmul_ms": time_ms(lambda: torch.matmul(x, w)),
+            "back_to_back_ms": time_ms_back_to_back(kernel)}
+
+
+def check_batched_case(label, m, k, n, slots, r_max, dtype, seed):
+    """batched_lora_matmul on the card against the segment lowering on the
+    same inputs (``ms``: the wrapper, id gather and launch; ``plain_ms``:
+    the segment lowering on the gathered segments)."""
+    import torch
+    from repro_torch.kernels.lora_matmul import (
+        batched_lora_matmul, batched_lora_matmul_segments)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, w, a, b, ids, off, rank, sc, live = _lora_inputs(m, k, n, slots,
+                                                        r_max, dtype, gen)
+    idx = ids.long()
+    seg = (off[idx], rank[idx], sc[idx])
+
+    def kernel():
+        return batched_lora_matmul(x, w, a, b, ids, off, rank, sc)
+
+    def plain():
+        return batched_lora_matmul_segments(x, w, a, b, *seg)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    times = _lora_times(kernel, plain, x, w)
+    s = x.element_size()
+    cnt_sum = int(rank[idx].sum())
+    # each input read once: x, W, the live rows of a_rows and b_rows, the
+    # per-request offset/count/scale; y written once
+    bytes_moved = (m * k + k * n + live * (k + n) + m * n) * s + 12 * m
+    flops = 2 * m * n * k + 2 * cnt_sum * (k + n)
+    return _lora_case("batched_lora_matmul", label,
+                      [m, k, n, slots * r_max], dtype, got, want, bytes_moved,
+                      flops, times,
+                      {"live_rows": live, "rank_rows_used": cnt_sum})
+
+
+def check_single_case(label, m, k, n, r, dtype, seed):
+    """lora_matmul on the card against lora_matmul_ref."""
+    import torch
+    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(dtype)
+    a = torch.randn(r, k, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(n, r, generator=gen, device="cuda").to(dtype)
+    scale = torch.tensor(16.0 / r, device="cuda")
+
+    def kernel():
+        return lora_matmul(x, w, a, b, scale)
+
+    def plain():
+        return lora_matmul_ref(x, w, a, b, scale)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    times = _lora_times(kernel, plain, x, w)
+    s = x.element_size()
+    bytes_moved = (m * k + k * n + r * k + n * r + m * n) * s + 4
+    flops = 2 * m * n * k + 2 * m * r * (k + n)
+    return _lora_case("lora_matmul", label, [m, k, n, r], dtype, got, want,
+                      bytes_moved, flops, times)
+
+
+def phase_lora_kernels() -> dict:
+    """Both lora kernels at the MLP's serving paths, bench_serve's full case
+    and one large case; returns their summary rows: batched_lora_matmul
+    at one serve_main apply (fp32), lora_matmul summed over one
+    serve_dense pass (the MLP's three layers, fp32)."""
+    import torch
+    batched, single = [], []
+    seed = 100
+    w = SERVE_CFG["width"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, k, n in MLP_LAYERS:
+            seed += 1
+            batched.append(check_batched_case(
+                f"mlp {name}", MLP_TEST_ROWS, k, n, 11, 64, dtype, seed))
+            single.append(check_single_case(
+                f"mlp {name}", MLP_TEST_ROWS, k, n, 64, dtype, seed))
+        batched.append(check_batched_case(
+            "serve", SERVE_CFG["batch"], w, w, SERVE_CFG["n_tenants"],
+            SERVE_CFG["r_max"], dtype, seed + 10))
+        single.append(check_single_case("serve", SERVE_CFG["batch"], w, w,
+                                        SERVE_CFG["r_max"], dtype, seed + 10))
+        batched.append(check_batched_case("large", 4096, 4096, 4096, 32, 64,
+                                          dtype, seed + 20))
+        single.append(check_single_case("large", 4096, 4096, 4096, 64, dtype,
+                                        seed + 20))
+
+    def row(name, cases, picked):
+        return {"name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": None,
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": sum(c["ms"] for c in picked),
+                "plain_ms": sum(c["plain_ms"] for c in picked),
+                "bound_ms": sum(c["bound_ms"] for c in picked),
+                "bound_by": max(picked, key=lambda c: c["bound_ms"])[
+                    "bound_by"],
+                "library_ms": None,
+                "matmul_ms": sum(c["matmul_ms"] for c in picked)}
+    serve = [c for c in batched if c["case"] == "serve"
+             and c["dtype"] == "float32"]
+    mlp = [c for c in single if c["case"].startswith("mlp")
+           and c["dtype"] == "float32"]
+    return {"batched_lora_matmul": row("batched_lora_matmul", batched, serve),
+            "lora_matmul": row("lora_matmul", single, mlp)}
+
+
+def _pow2(v: int) -> int:
+    return 1 << max(math.ceil(math.log2(max(v, 1))), 0)
+
+
+def _noisy(tree, rng, sigma):
+    """``tree`` with numpy normal noise of ``sigma`` added to each pair's A
+    then B (sorted paths), as bench_serve perturbs its globals; factors on
+    the card, rank leaves on the host."""
+    import torch
+    out = {}
+    for path in sorted(tree):
+        pair = tree[path]
+        out[path] = {side: (pair[side] + torch.as_tensor(
+            rng.normal(size=tuple(pair[side].shape)) * sigma,
+            dtype=torch.float32)).cuda() for side in ("A", "B")}
+        out[path]["rank"] = pair["rank"].cpu()
+    return out
+
+
+def _serve_rig(seed: int = 0):
+    """bench_serve.build_rig on the card: 128 tenants at numpy-drawn ranks
+    1..8 over one 512-wide projection, all serving re-slices of one
+    global (its A from the port's seeded init, plus bench_serve's numpy
+    noise).  The store is full: the next registration grows it."""
+    import numpy as np
+    import torch
+    from repro_torch.lora import init_adapters
+    from repro_torch.serving import AdapterStore, ServingEngine
+    c = SERVE_CFG
+    rng = np.random.default_rng(seed)
+    specs = {SERVE_PATH: (c["width"], c["width"])}
+    w = torch.as_tensor(rng.normal(size=(c["width"], c["width"])) * 0.05,
+                        dtype=torch.float32).cuda()
+    store = AdapterStore(specs, r_max=c["r_max"],
+                         init_pages=_pow2(c["n_tenants"]),
+                         init_tenant_capacity=_pow2(c["n_tenants"] + 1))
+    engine = ServingEngine({SERVE_PATH: w}, store)
+    ranks = rng.integers(1, c["r_max"] + 1, c["n_tenants"])
+    for t in range(c["n_tenants"]):
+        store.register(f"tenant-{t}", rank=int(ranks[t]))
+    glob = _noisy(init_adapters(torch.Generator().manual_seed(seed), specs,
+                                c["r_max"], c["r_max"]), rng, 0.1)
+    engine.publish(glob)
+    return store, engine, glob, specs
+
+
+def _serve_batches(seed: int = 1):
+    """bench_serve.make_batches: every batch a different tenant mix (ids
+    are slots 1..n_tenants; slot 0 is the null adapter)."""
+    import numpy as np
+    import torch
+    c = SERVE_CFG
+    rng = np.random.default_rng(seed)
+    xs = [torch.as_tensor(rng.normal(size=(c["batch"], c["width"])),
+                          dtype=torch.float32).cuda()
+          for _ in range(c["n_batches"])]
+    ids = [torch.as_tensor(rng.integers(1, c["n_tenants"] + 1, c["batch"]),
+                           dtype=torch.int32).cuda()
+           for _ in range(c["n_batches"])]
+    return xs, ids
+
+
+def _rel(got, want) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    return err / max(1.0, float(want.float().abs().max()))
+
+
+def phase_serve_main():
+    import numpy as np
+    import torch
+    from repro_torch.core.strategy import ClientUpdate, ServerState
+    from repro_torch.fl import AsyncAggregator
+    from repro_torch.kernels import runtime
+    from repro_torch.lora import init_adapters, set_ranks
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import merged_reference
+    c = SERVE_CFG
+    store, engine, glob, specs = _serve_rig()
+    xs, ids = _serve_batches()
+    runtime.reset_counts()
+    applies = 0
+    t_start = time.perf_counter()
+    # parity with the per-tenant reference before anything is timed
+    got = engine.apply(SERVE_PATH, xs[0], ids[0])
+    applies += 1
+    parity = _rel(got, merged_reference(engine, SERVE_PATH, xs[0], ids[0]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = 0
+    for _ in range(c["iters"]):
+        for x, i in zip(xs, ids):
+            engine.apply(SERVE_PATH, x, i)
+            applies += 1
+            done += x.shape[0]
+    torch.cuda.synchronize()
+    rps = done / (time.perf_counter() - t0)
+
+    # aggregate -> publish -> serve: fold client updates through the async
+    # service, whose on_publish hook hot-swaps the live store
+    state = ServerState(adapters={p: {"A": q["A"], "B": q["B"],
+                                      "rank": q["rank"].cuda()}
+                                  for p, q in glob.items()},
+                        base_trainable={}, r_max=c["r_max"])
+    # its own registry: the obs phase then reports this service alone
+    agg = AsyncAggregator("rbla", state, on_publish=engine.publisher(),
+                          registry=MetricsRegistry())
+    rng = np.random.default_rng(5)
+    v0 = store.version
+    t_pub = 0.0
+    for rnd in range(c["rounds"]):
+        r = int(rng.integers(1, c["r_max"] + 1))
+        upd = _noisy(init_adapters(torch.Generator().manual_seed(100 + rnd),
+                                   specs, c["r_max"], r), rng, 0.05)
+        upd = set_ranks({p: {**q, "rank": q["rank"].cuda()}
+                         for p, q in upd.items()}, r)
+        t0 = time.perf_counter()
+        agg.submit(ClientUpdate(adapters=upd, base_trainable={},
+                                n_examples=1.0, rank=r))
+        torch.cuda.synchronize()
+        t_pub += time.perf_counter() - t0
+        engine.apply(SERVE_PATH, xs[rnd % len(xs)], ids[rnd % len(ids)])
+        applies += 1
+        torch.cuda.synchronize()
+    versions = store.version - v0
+    got = engine.apply(SERVE_PATH, xs[0], ids[0])
+    applies += 1
+    torch.cuda.synchronize()
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    post = _rel(got, merged_reference(engine, SERVE_PATH, xs[0], ids[0]))
+    emit({"phase": "serve_main", "config": SERVE_CFG,
+          "requests_per_s": rps, "publish_ms": t_pub / c["rounds"] * 1e3,
+          "versions_advanced": versions, "applies": applies,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v},
+          "parity_rel_err": parity, "post_publish_rel_err": post,
+          "tol": 2e-5, "seconds": time.perf_counter() - t_start,
+          "finite": bool(torch.isfinite(got).all())})
+    if not (parity <= 2e-5 and post <= 2e-5):
+        raise AssertionError("serve_main disagrees with merged_reference")
+    if launches["batched_lora_matmul"] != applies or any(plain.values()):
+        raise AssertionError(f"serve_main: {applies} applies, launches "
+                             f"{launches}, plain {plain}")
+    if versions != c["rounds"] or agg.n_published != c["rounds"]:
+        raise AssertionError(f"serve_main: {versions} versions over "
+                             f"{c['rounds']} publishes")
+    return launches, engine, agg
+
+
+def _mlp_rig(last):
+    """The main path's frozen base (re-drawn from its seed, as the simulator
+    draws it), its final biases and global adapters, the test set and the
+    last cohort's ranks."""
+    import torch
+    from repro_torch.data import make_dataset
+    from repro_torch.fl.client import merge_base_params, split_base_params
+    from repro_torch.models.paper_nets import PAPER_MODELS
+    from repro_torch.tree import tree_map
+    model = PAPER_MODELS["mlp"]()
+    params0 = model.init(torch.Generator().manual_seed(MAIN_CFG["seed"]))
+    frozen, _ = split_base_params(params0, model.lora_specs)
+    state = last[2]
+    params = merge_base_params(tree_map(lambda t: t.cuda(), frozen),
+                               state.base_trainable)
+    test = make_dataset(MAIN_CFG["dataset"], MAIN_CFG["n_test_per_class"],
+                        MAIN_CFG["seed"], "test")
+    x = torch.as_tensor(test.x).cuda().reshape(len(test.x), -1)
+    y = torch.as_tensor(test.y).cuda().long()
+    ranks = [u.rank for u in last[1]]
+    return model, params, state.adapters, x, y, ranks
+
+
+def phase_serve_mlp(last, main_acc):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import runtime
+    from repro_torch.lora import set_ranks
+    from repro_torch.serving import (AdapterStore, ServingEngine,
+                                     merged_reference)
+    model, params, glob, x, y_true, ranks = _mlp_rig(last)
+    store = AdapterStore(model.lora_specs, r_max=MAIN_CFG["r_max"],
+                         init_pages=16, init_tenant_capacity=16)
+    engine = ServingEngine({p: params[p]["w"].T for p in model.lora_specs},
+                           store)
+    slots = [store.register(f"client-{i}", rank=r)
+             for i, r in enumerate(ranks)]
+    engine.publish(glob)
+    choice = np.random.default_rng(3).integers(0, len(ranks) + 1, len(x))
+    ids = torch.as_tensor([0 if c == 0 else slots[c - 1] for c in choice],
+                          dtype=torch.int32).cuda()
+    snap = engine.snapshot()
+    runtime.reset_counts()
+    h, layer_err = x, {}
+    for name, _, _ in MLP_LAYERS:
+        out = engine.apply(name, h, ids, snapshot=snap)
+        layer_err[name] = _rel(out, merged_reference(engine, name, h, ids,
+                                                     snapshot=snap))
+        h = out + params[name]["b"]
+        if name != "out":
+            h = F.relu(h)
+    torch.cuda.synchronize()
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    want = torch.empty_like(h)
+    for c in range(len(ranks) + 1):
+        rows = torch.as_tensor(choice == c).cuda()
+        lora = None if c == 0 else set_ranks(glob, ranks[c - 1])
+        want[rows] = model.apply(params, lora, x[rows])
+    forward_err = _rel(h, want)
+    acc = float((h.argmax(-1) == y_true).float().mean())
+    # a publish while the batch's snapshot is pinned: its bytes stay
+    pinned = engine.apply("fc1", x, ids, snapshot=snap)
+    engine.publish({p: {"A": 2.0 * q["A"], "B": q["B"], "rank": q["rank"]}
+                    for p, q in glob.items()})
+    again = engine.apply("fc1", x, ids, snapshot=snap)
+    fresh = engine.apply("fc1", x, ids)
+    torch.cuda.synchronize()
+    same, moved = torch.equal(again, pinned), not torch.equal(fresh, pinned)
+    emit({"phase": "serve_mlp", "tenants": len(ranks), "ranks": ranks,
+          "rows": len(x), "layer_rel_err_vs_merged_reference": layer_err,
+          "forward_rel_err_vs_model": forward_err, "tol": 2e-5,
+          "forward_tol": 1e-4, "served_accuracy": acc,
+          "main_path_final_accuracy": main_acc,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v},
+          "pinned_batch_unchanged": same, "fresh_batch_moved": moved,
+          "occupancy": store.occupancy()})
+    # the forward chains three fp32 layers, each summed in another order
+    # than the model's cuBLAS products: 1e-4 of max|logit|
+    if not (max(layer_err.values()) <= 2e-5 and forward_err <= 1e-4):
+        raise AssertionError("serve_mlp disagrees with its references")
+    if launches["batched_lora_matmul"] != 3 or any(plain.values()):
+        raise AssertionError(f"serve_mlp: launches {launches}, plain {plain}")
+    if not (same and moved):
+        raise AssertionError("serve_mlp: the pinned batch moved under a "
+                             "publish, or the fresh one did not")
+
+
+def _hazard(name, ok, **detail):
+    emit({"phase": "serve_streams", "hazard": name, "ok": ok, **detail})
+    if not ok:
+        raise AssertionError(f"serve_streams {name} failed: {detail}")
+
+
+def _buffer_ptr(store) -> int:
+    return store.snapshot().pair_buffers(SERVE_PATH)[0].data_ptr()
+
+
+def _held_batch(engine, x, i):
+    """``engine.apply`` on a fresh side stream held back by a sleep; the
+    batch's snapshot is dropped when apply returns."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return engine.apply(SERVE_PATH, x, i)
+
+
+def phase_serve_streams():
+    """Each hazard on a fresh serve_main rig, the earlier operation held
+    back by ``torch.cuda._sleep`` on its stream so that, without the
+    store's stream rule, the later one would overtake it.  The published
+    globals carry host rank leaves, so publishing reads nothing back."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import merged_reference
+    xs, ids = _serve_batches()
+    x, i = xs[0], ids[0]
+
+    def new_global(seed):
+        rng = np.random.default_rng(seed)
+        r, w = SERVE_CFG["r_max"], SERVE_CFG["width"]
+        return {SERVE_PATH: {
+            "A": torch.as_tensor(rng.normal(size=(r, w)) * 0.1,
+                                 dtype=torch.float32).cuda(),
+            "B": torch.as_tensor(rng.normal(size=(w, r)) * 0.1,
+                                 dtype=torch.float32).cuda(),
+            "rank": torch.tensor(r, dtype=torch.int32)}}
+
+    # 1. write after read: a held side-stream batch, then an in-place
+    #    publish on the default stream
+    store, engine, _, _ = _serve_rig()
+    ref = engine.apply(SERVE_PATH, x, i)
+    torch.cuda.synchronize()
+    y = _held_batch(engine, x, i)
+    ptr, pins = _buffer_ptr(store), store.pinned_snapshots
+    engine.publish(new_global(7))
+    in_place = _buffer_ptr(store) == ptr
+    torch.cuda.synchronize()
+    same = torch.equal(y, ref)
+    _hazard("write_after_read", pins == 0 and in_place and same,
+            pinned_snapshots=pins, in_place=in_place, bit_identical=same)
+
+    # 2. read after write: a publish held back on the default stream, then
+    #    a side-stream batch with a fresh snapshot
+    store, engine, _, _ = _serve_rig()
+    old = engine.apply(SERVE_PATH, x, i)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    engine.publish(new_global(8))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y = engine.apply(SERVE_PATH, x, i)
+    torch.cuda.synchronize()
+    err = _rel(y, merged_reference(engine, SERVE_PATH, x, i))
+    changed = not torch.allclose(y, old)
+    _hazard("read_after_write", err <= 2e-5 and changed, rel_err=err,
+            tol=2e-5, sees_new_version=changed)
+
+    # 3. free while read: a held side-stream batch, then capacity growth
+    #    replaces its buffers and new allocations of their size on the
+    #    default stream are filled with NaN
+    store, engine, _, _ = _serve_rig()
+    ref = engine.apply(SERVE_PATH, x, i)
+    torch.cuda.synchronize()
+    y = _held_batch(engine, x, i)
+    shape = tuple(store.snapshot().pair_buffers(SERVE_PATH)[0].shape)
+    ptr = _buffer_ptr(store)
+    store.register("grows", rank=4)
+    grew = _buffer_ptr(store) != ptr
+    junk = [torch.full(shape, float("nan"), device="cuda") for _ in range(8)]
+    engine.publish(new_global(9))
+    torch.cuda.synchronize()
+    same = torch.equal(y, ref)
+    _hazard("free_while_read", grew and same, grew=grew,
+            rows_before=shape[0], bit_identical=same)
+    del junk
+
+
+def phase_serve_dense(last):
+    """lora_dense_apply, the single-adapter kernel's caller, on each MLP
+    layer of the final global at its full rank, against the plain dense
+    layer; the activations flow layer to layer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.lora_matmul import lora_dense_apply
+    from repro_torch.models.paper_nets import dense_apply
+    _, params, glob, x, _, _ = _mlp_rig(last)
+    layers = {name: {"w": params[name]["w"].T.contiguous(),
+                     "b": params[name]["b"]} for name, _, _ in MLP_LAYERS}
+    runtime.reset_counts()
+    h, outs = x, []
+    for name, _, _ in MLP_LAYERS:
+        outs.append((name, h, lora_dense_apply(layers[name], h, glob[name])))
+        h = F.relu(outs[-1][2])
+    torch.cuda.synchronize()
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    err = {name: _rel(got, dense_apply(params[name], inp, glob[name]))
+           for name, inp, got in outs}
+    emit({"phase": "serve_dense", "rel_err": err, "tol": 2e-5,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v}})
+    if max(err.values()) > 2e-5:
+        raise AssertionError("serve_dense disagrees with dense_apply")
+    if launches["lora_matmul"] != 3 or any(plain.values()):
+        raise AssertionError(f"serve_dense: launches {launches}, plain "
+                             f"{plain}")
+    return launches
+
+
+def phase_obs(agg, engine):
+    from repro_torch.obs import ServiceHealth
+    health = ServiceHealth(aggregator=agg, engine=engine).snapshot()
+    emit({"phase": "obs", "health": health})
+    if health["store"]["version"] < SERVE_CFG["rounds"]:
+        raise AssertionError(f"obs: store view {health['store']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1277,6 +1863,17 @@ def main() -> int:
     phase_async_methods()
     phase_per_pair_fold(async_rec)
     summary["axpy_fold"]["launches"] = async_launches["axpy_fold"]
+
+    summary.update(phase_lora_kernels())
+    emit({"phase": "lora_kernels", "ok": True})
+    serve_launches, engine, agg = phase_serve_main()
+    phase_serve_mlp(last, hist.test_acc[-1])
+    phase_serve_streams()
+    dense_launches = phase_serve_dense(last)
+    phase_obs(agg, engine)
+    summary["batched_lora_matmul"]["launches"] = \
+        serve_launches["batched_lora_matmul"]
+    summary["lora_matmul"]["launches"] = dense_launches["lora_matmul"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": list(summary.values())})

@@ -1,6 +1,6 @@
-// Helpers shared by the port's kernel sources (rbla_agg.cu, packed_robust.cu,
-// flora_stack.cu).  Each source compiles into its own library, so every
-// definition here exists once per library.
+// Helpers shared by the port's kernel sources (every csrc/*.cu).  Each source
+// compiles into its own library, so every definition here exists once per
+// library.
 
 #pragma once
 

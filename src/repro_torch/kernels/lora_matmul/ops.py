@@ -1,0 +1,231 @@
+"""Wrappers of the fused LoRA matmul kernels in ``csrc/lora_matmul.cu``.
+
+Same arguments as the JAX package's ``repro.kernels.lora_matmul.ops``, with
+``backend`` (``lora_matmul``) or ``impl`` (``batched_lora_matmul``) in the
+place of ``interpret`` and without the tile sizes: the kernels mask their
+ragged edges, nothing is padded.  A CUDA tensor launches the kernel (or the
+wrapper raises); a CPU tensor runs the plain version in ``ref.py``.
+
+``batched_lora_matmul`` is the multi-tenant serving entry: per-request
+adapter ids resolve against per-tenant (offset, rank, scale) tables by a
+gather on the tables' device, so ids, offsets, ranks and scales stay
+device data and nothing synchronises with the host.  PyTorch runs
+eagerly: there is no trace to count and no ``*_inline`` form.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build, runtime
+from .ref import (batched_lora_matmul_ref, batched_lora_matmul_segments,
+                  lora_matmul_ref)
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: ``impl`` of the batched entry -> the backend rule's names; ``"pallas"``
+#: is the JAX package's name of the kernel, ``"xla"`` its segment lowering
+_IMPLS = {"auto": "auto", "kernel": "kernel", "pallas": "kernel",
+          "xla": "ref"}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("lora_matmul")
+    lib.lora_matmul_batched.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _L, _L, _L, _L, _P]
+    lib.lora_matmul_batched.restype = _I
+    lib.lora_matmul_single.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _L,
+                                       _L, _L, _L, _P]
+    lib.lora_matmul_single.restype = _I
+    return lib
+
+
+def _check_operands(name: str, x, **operands) -> None:
+    """Every operand in x's dtype (fp32 or bf16), on x's device and
+    contiguous: the kernel takes nothing else, and nothing is converted or
+    copied behind the caller's back."""
+    if x.dtype not in _CODES:
+        raise TypeError(f"{name}: x dtype {x.dtype} not in {list(_CODES)}")
+    for key, t in {"x": x, **operands}.items():
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype} but x is {x.dtype}; "
+                            "the kernel takes one dtype for every operand")
+        if t.device != x.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, x on "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous (shape "
+                             f"{tuple(t.shape)}, strides {t.stride()})")
+
+
+def _check_shapes(name, k, w, a, b, b_rows_lead: bool) -> None:
+    r = a.shape[0]
+    n = w.shape[-1]
+    want_b = (r, n) if b_rows_lead else (n, r)
+    if w.ndim != 2 or w.shape[0] != k or a.ndim != 2 or a.shape[1] != k \
+            or tuple(b.shape) != want_b:
+        raise ValueError(
+            f"{name}: x (..., {k}) needs w ({k}, N), a (r, {k}) and b "
+            f"{'(r, N)' if b_rows_lead else '(N, r)'}; got w "
+            f"{tuple(w.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
+
+
+# -------------------------------------------------------------- single --
+def _scale_on(scale, dev) -> torch.Tensor:
+    """``scale`` as one fp32 value on ``dev``; a device tensor stays there
+    (no host read)."""
+    if isinstance(scale, torch.Tensor):
+        if scale.numel() != 1:
+            raise ValueError(f"lora_matmul: scale must be one value, got "
+                             f"shape {tuple(scale.shape)}")
+        if scale.device == dev:
+            return scale.reshape(1).to(torch.float32)
+        scale = float(scale)
+    return torch.full((1,), float(scale), dtype=torch.float32, device=dev)
+
+
+def _lora_cuda(x, x2, w, a, b, scale):
+    m, k = x2.shape
+    n, r = w.shape[1], a.shape[0]
+    dev = x.device
+    _check_operands("lora_matmul", x, w=w, a=a, b=b)
+    s = _scale_on(scale, dev)
+    u = torch.empty((m, max(r, 1)), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().lora_matmul_single(
+            x2.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            s.data_ptr(), u.data_ptr(), y.data_ptr(), _CODES[x.dtype], m, k,
+            n, r, runtime.stream_handle(dev))
+    runtime.check_launch(err, "lora_matmul", _lib())
+    runtime.LAUNCHES["lora_matmul"] += 1
+    return y
+
+
+def lora_matmul(x, w, a, b, scale, *, backend: str = "auto"):
+    """x (..., K) @ w (K, N) + scale * (x @ a^T) @ b^T.
+
+    a: (r, K), b: (N, r), scale a scalar (a Python number or a one-element
+    tensor; on the card a tensor on x's device is read there, never on
+    the host).  The result has x's dtype."""
+    k = x.shape[-1]
+    _check_shapes("lora_matmul", k, w, a, b, b_rows_lead=False)
+    lead, n = tuple(x.shape[:-1]), w.shape[-1]
+    x2 = x.reshape(-1, k)
+    if runtime.use_kernel(backend, x, "lora_matmul"):
+        y = _lora_cuda(x, x2, w, a, b, scale)
+    else:
+        y = lora_matmul_ref(x2, w, a, b, scale)
+    return y.reshape(lead + (n,))
+
+
+# ------------------------------------------------------- batched multi-adapter
+def resolve_impl(impl: str | None, device="cpu") -> str:
+    """The batched entry's ``impl`` for tensors on ``device``: ``"kernel"``
+    or ``"xla"`` (the plain segment lowering).  ``"auto"`` (or None) picks
+    the kernel on a CUDA device and the segment lowering on the CPU;
+    ``"pallas"`` is an alias of ``"kernel"``."""
+    kind = runtime.resolve_backend(_impl_backend(impl), device)
+    return "kernel" if kind == "kernel" else "xla"
+
+
+def _impl_backend(impl: str | None) -> str:
+    impl = "auto" if impl is None else impl
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown batched lora_matmul impl {impl!r}; "
+                         f"options: {' | '.join(_IMPLS)}")
+    return _IMPLS[impl]
+
+
+def _table(t, dev, dtype, name):
+    if not isinstance(t, torch.Tensor):
+        return torch.as_tensor(t, dtype=dtype, device=dev)
+    if t.device != dev:
+        raise ValueError(f"batched_lora_matmul: {name} is on {t.device}, x "
+                         f"on {dev} (no hidden transfer)")
+    return t
+
+
+def _batched_cuda(x, x2, w, a_rows, b_rows, off, cnt, scale):
+    m, k = x2.shape
+    n, r_tot = w.shape[1], a_rows.shape[0]
+    dev = x.device
+    _check_operands("batched_lora_matmul", x, w=w, a_rows=a_rows,
+                    b_rows=b_rows)
+    u = torch.empty((m, max(r_tot, 1)), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().lora_matmul_batched(
+            x2.data_ptr(), w.data_ptr(), a_rows.data_ptr(), b_rows.data_ptr(),
+            off.data_ptr(), cnt.data_ptr(), scale.data_ptr(), u.data_ptr(),
+            y.data_ptr(), _CODES[x.dtype], m, k, n, r_tot,
+            runtime.stream_handle(dev))
+    runtime.check_launch(err, "batched_lora_matmul", _lib())
+    runtime.LAUNCHES["batched_lora_matmul"] += 1
+    return y
+
+
+def batched_lora_matmul(x, w, a_rows, b_rows, adapter_ids, seg_off,
+                        seg_rank, seg_scale, *, impl: str = "auto"):
+    """One launch, many adapters: for every request row i of x,
+
+        y_i = x_i @ w + seg_scale[t] * (x_i @ A_t^T) @ B_t^T,
+        t = adapter_ids[i]
+
+    where tenant t's factors live as rank-row segment
+    ``[seg_off[t], seg_off[t] + seg_rank[t])`` of the packed buffers
+    ``a_rows`` (R, K) and ``b_rows`` (R, N) (B transposed, so row p of
+    both is one rank-one component -- the
+    :class:`~repro_torch.serving.AdapterStore` layout).  ``adapter_ids``
+    matches x's leading dims; the three per-tenant tables are tensors on
+    x's device (or host arrays, copied there), gathered by id on that
+    device.  Ids outside the tables clamp to their ends, as the JAX
+    package's gather does.  A tenant with ``seg_rank[t] == 0`` gets the
+    pure base product, and rows outside every requested segment are
+    never read.  The result has x's dtype.
+    """
+    k = x.shape[-1]
+    _check_shapes("batched_lora_matmul", k, w, a_rows, b_rows,
+                  b_rows_lead=True)
+    use_kernel = runtime.use_kernel(_impl_backend(impl), x,
+                                    "batched_lora_matmul")
+    lead, n = tuple(x.shape[:-1]), w.shape[-1]
+    dev = x.device
+    seg_off = _table(seg_off, dev, torch.int32, "seg_off")
+    seg_rank = _table(seg_rank, dev, torch.int32, "seg_rank")
+    seg_scale = _table(seg_scale, dev, torch.float32, "seg_scale")
+    ids = _table(adapter_ids, dev, torch.int32, "adapter_ids").reshape(-1)
+    if ids.numel() != x.numel() // max(k, 1):
+        raise ValueError(f"batched_lora_matmul: {ids.numel()} adapter ids "
+                         f"for x of shape {tuple(x.shape)}")
+    ids = ids.clamp(0, seg_off.shape[0] - 1)
+    off = seg_off.index_select(0, ids).to(torch.int32)
+    cnt = seg_rank.index_select(0, ids).to(torch.int32)
+    sc = seg_scale.index_select(0, ids).to(torch.float32)
+    x2 = x.reshape(-1, k)
+    if use_kernel:
+        y = _batched_cuda(x, x2, w, a_rows, b_rows, off, cnt, sc)
+    else:
+        y = batched_lora_matmul_segments(x2, w, a_rows, b_rows, off, cnt, sc)
+    return y.reshape(lead + (n,))
+
+
+def lora_dense_apply(p, x, pair, alpha: float = 16.0,
+                     backend: str = "auto"):
+    """A dense layer with a LoRA pair through the fused kernel: ``p["w"]``
+    is (fan_in, fan_out) as in the JAX package's ``models.common.dense``,
+    ``p["b"]`` an optional bias; the scale ``alpha / max(rank, 1)`` stays
+    on the pair's device."""
+    scale = alpha / pair["rank"].float().clamp(min=1.0)
+    y = lora_matmul(x, p["w"], pair["A"], pair["B"], scale, backend=backend)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+__all__ = ["lora_matmul", "lora_dense_apply", "lora_matmul_ref",
+           "batched_lora_matmul", "batched_lora_matmul_ref",
+           "batched_lora_matmul_segments", "resolve_impl"]

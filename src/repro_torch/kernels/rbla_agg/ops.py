@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from .. import build, runtime
+from ..runtime import check_launch as _check_launch
+from ..runtime import stream_handle as _stream
 from .ref import (ROBUST_MODES, axpy_fold_ref, flora_stack_ref,
                   packed_agg_ref, packed_robust_ref, packed_stack_ref,
                   rbla_agg_ref)
@@ -66,19 +68,6 @@ def _norm_code(norm_by: str) -> int:
         raise ValueError(f"unknown norm_by {norm_by!r}; options: "
                          "['mask', 'weight']")
     return int(norm_by == "weight")
-
-
-def _check_launch(err: int, name: str, lib: ctypes.CDLL) -> None:
-    """Raise with the CUDA error text if a launch through ``lib`` returned
-    an error."""
-    if err != 0:
-        msg = lib.kernel_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error "
-                           f"{err})")
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _packed_agg_cuda(x, masks, weights, prev, scales, out_dtype, norm_by,

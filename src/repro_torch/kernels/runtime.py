@@ -7,6 +7,8 @@
 * :data:`LAUNCHES` -- one plain count per kernel, raised by its wrapper
   right after a launch succeeded and nowhere else; :data:`PLAIN_CALLS`
   counts calls of each kernel's plain PyTorch version.
+* :func:`check_launch`, :func:`stream_handle` -- what every wrapper does
+  around a ctypes launch;
 * :func:`bench_env` -- the header every measurement prints.
 """
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 BACKENDS = ("auto", "ref", "kernel", "distributed")
 _ALIASES = {"pallas": "kernel"}
 KERNELS = ("packed_agg", "rbla_agg", "packed_robust", "packed_stack",
-           "flora_stack", "axpy_fold")
+           "flora_stack", "axpy_fold", "batched_lora_matmul", "lora_matmul")
 
 #: kernel launches per kernel since the last :func:`reset_counts`
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -62,6 +64,21 @@ def use_kernel(backend: str, x: torch.Tensor, name: str) -> bool:
         raise ValueError(f"{name}: backend={backend!r} needs CUDA tensors; "
                          f"got a tensor on {x.device}")
     return False
+
+
+def check_launch(err: int, name: str, lib) -> None:
+    """Raise with the CUDA error text if a launch through ``lib`` returned
+    an error."""
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error "
+                           f"{err})")
+
+
+def stream_handle(dev) -> int:
+    """The raw handle of PyTorch's current stream on ``dev``: kernels
+    launch there."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def resolve_device(device) -> torch.device:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions, and the strategies' kernel paths against their ref paths.
+versions, the strategies' kernel paths against their ref paths, and the
+serving store's stream rule on two streams.
 
 Every test here is marked ``cuda`` and skips where there is no card.  The
 file imports no JAX, so it also runs on a machine with only PyTorch:
@@ -619,3 +620,243 @@ def test_async_simulation_kernel_folds_match_plain_folds():
     want = run_async_simulation(AsyncFLConfig(agg_backend="ref", **kw))
     assert got.test_acc == want.test_acc
     np.testing.assert_allclose(got.train_loss, want.train_loss, rtol=1e-5)
+
+
+# ------------------------------------------------------------ lora_matmul --
+LORA_WIDTHS = (10, 200, 784, 512)
+SLEEP_CYCLES = 300_000_000          # ~0.15 s at the H100's boost clock
+
+
+def _serve_case(m, k, n, dtype, seed, slots=11, r_max=64):
+    """Packed buffers with a null slot and an evicted slot (rank 0), ids
+    naming every slot but one, and NaN/Inf in every row outside the live
+    segments; all on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    a_rows = rng.normal(size=(slots * r_max, k)).astype(np.float32)
+    b_rows = rng.normal(size=(slots * r_max, n)).astype(np.float32)
+    off = (np.arange(slots) * r_max).astype(np.int32)
+    rank = rng.integers(1, r_max + 1, slots).astype(np.int32)
+    rank[0] = rank[3] = 0
+    scale = (16.0 / np.maximum(rank, 1)).astype(np.float32)
+    ids = rng.integers(0, slots - 1, m).astype(np.int32)   # slot 10 unused
+    live = np.zeros(slots * r_max, bool)
+    for t in np.unique(ids):
+        live[off[t]:off[t] + rank[t]] = True
+    a_rows[~live] = np.nan
+    b_rows[~live] = np.inf
+    b_rows[np.flatnonzero(~live)[::2]] = np.nan
+    td = DTYPES[dtype]
+    return tuple(torch.as_tensor(v).to(td).cuda()
+                 for v in (x, w, a_rows, b_rows)) + tuple(
+        torch.as_tensor(v).cuda() for v in (ids, off, rank, scale))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", LORA_WIDTHS)
+@pytest.mark.parametrize("k", LORA_WIDTHS)
+def test_batched_lora_matmul_kernel_matches_plain(k, n, dtype):
+    from repro_torch.kernels.lora_matmul import (batched_lora_matmul,
+                                                 batched_lora_matmul_ref,
+                                                 batched_lora_matmul_segments)
+    need_cuda()
+    x, w, a_rows, b_rows, ids, off, rank, scale = _serve_case(
+        37, k, n, dtype, k + n)
+    runtime.reset_counts()
+    got = batched_lora_matmul(x, w, a_rows, b_rows, ids, off, rank, scale)
+    assert runtime.LAUNCHES["batched_lora_matmul"] == 1
+    assert not any(runtime.PLAIN_CALLS.values())
+    idx = ids.long()
+    seg = (off[idx], rank[idx], scale[idx])
+    want = batched_lora_matmul_segments(x, w, a_rows, b_rows, *seg)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
+    tol = BF16_TOL if dtype == "bf16" else F32_TOL
+    assert_close(got, want, tol)
+    assert_close(got, batched_lora_matmul_ref(x, w, a_rows, b_rows, *seg),
+                 tol)
+    base = (x.float() @ w.float()).to(x.dtype)
+    zero = rank[idx] == 0
+    assert_close(got[zero], base[zero], tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 8, 64])
+@pytest.mark.parametrize("k,n", [(784, 200), (200, 200), (200, 10),
+                                 (512, 512), (10, 784)])
+def test_lora_matmul_kernel_matches_plain(k, n, r, dtype):
+    from repro_torch.kernels.lora_matmul import (lora_dense_apply,
+                                                 lora_matmul, lora_matmul_ref)
+    need_cuda()
+    rng = np.random.default_rng(k * n + r)
+    td = DTYPES[dtype]
+    x, w, a, b = (torch.as_tensor(v.astype(np.float32)).to(td).cuda()
+                  for v in (rng.normal(size=(3, 41, k)),
+                            rng.normal(size=(k, n)) / np.sqrt(k),
+                            rng.normal(size=(r, k)), rng.normal(size=(n, r))))
+    scale = torch.tensor(16.0 / r, device="cuda")
+    runtime.reset_counts()
+    got = lora_matmul(x, w, a, b, scale)
+    assert runtime.LAUNCHES["lora_matmul"] == 1
+    want = lora_matmul_ref(x.reshape(-1, k), w, a, b, scale).reshape(
+        3, 41, n)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == "bf16" else F32_TOL
+    assert got.shape == (3, 41, n) and got.dtype == x.dtype
+    assert_close(got, want, tol)
+    pair = {"A": a, "B": b, "rank": torch.tensor(r, device="cuda")}
+    p = {"w": w, "b": torch.ones(n, device="cuda").to(td)}
+    assert_close(lora_dense_apply(p, x, pair), want.float() + 1.0, tol)
+
+
+def test_batched_lora_matmul_makes_no_host_sync():
+    """Ids, offsets, counts and scales stay on the card: neither the
+    wrapper nor the engine's apply synchronises with the host."""
+    from repro_torch.kernels.lora_matmul import batched_lora_matmul
+    need_cuda()
+    case = _serve_case(64, 512, 512, "f32", 1)
+    store, engine, x, ids, _ = _serving_rig()
+    batched_lora_matmul(*case[:4], *case[4:])       # build and load first
+    engine.apply("proj", x, ids)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched_lora_matmul(*case[:4], *case[4:])
+        engine.apply("proj", x, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_lora_kernels_raise_rather_than_fall_back():
+    from repro_torch.kernels.lora_matmul import (batched_lora_matmul,
+                                                 lora_matmul)
+    need_cuda()
+    x, w, a_rows, b_rows, ids, off, rank, scale = _serve_case(
+        8, 200, 200, "f32", 2)
+    tables = (ids, off, rank, scale)
+    with pytest.raises(TypeError, match="dtype"):
+        batched_lora_matmul(x.half(), w.half(), a_rows.half(),
+                            b_rows.half(), *tables)
+    with pytest.raises(TypeError, match="one dtype"):
+        batched_lora_matmul(x, w.bfloat16(), a_rows, b_rows, *tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        batched_lora_matmul(x, w.T, a_rows, b_rows, *tables)
+    with pytest.raises(ValueError, match="contiguous"):
+        batched_lora_matmul(x.T.contiguous().T, w, a_rows, b_rows, *tables)
+    with pytest.raises(ValueError, match="always takes the kernel"):
+        batched_lora_matmul(x, w, a_rows, b_rows, *tables, impl="xla")
+    with pytest.raises(ValueError, match="no hidden transfer"):
+        batched_lora_matmul(x, w, a_rows, b_rows, ids.cpu(), off, rank,
+                            scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        lora_matmul(x, w, a_rows[:4], b_rows[:4].T, 1.0)
+    with pytest.raises(TypeError, match="dtype"):
+        lora_matmul(x.double(), w.double(), a_rows[:4].double(),
+                    b_rows[:4].T.contiguous().double(), 1.0)
+
+
+# ------------------------------------------------- serving and the stream rule --
+def _serving_rig(n_tenants=16, width=512, r_max=8, batch=256, seed=0):
+    """A store whose pages are all taken (the next registration grows
+    it), an engine, a mixed batch on the card, and a second global with
+    host rank leaves (so publishing it reads no rank back from the card)."""
+    from repro_torch.serving import AdapterStore, ServingEngine
+    rng = np.random.default_rng(seed)
+    specs = {"proj": (width, width)}
+    store = AdapterStore(specs, r_max=r_max, init_pages=n_tenants,
+                         init_tenant_capacity=2 * n_tenants)
+    w = torch.as_tensor(rng.normal(size=(width, width)) * 0.05,
+                        dtype=torch.float32).cuda()
+    engine = ServingEngine({"proj": w}, store)
+    for t in range(n_tenants):
+        store.register(f"t{t}", rank=int(rng.integers(1, r_max + 1)))
+
+    def glob(s):
+        g = np.random.default_rng(s)
+        return {"proj": {
+            "A": torch.as_tensor(g.normal(size=(r_max, width)),
+                                 dtype=torch.float32).cuda(),
+            "B": torch.as_tensor(g.normal(size=(width, r_max)),
+                                 dtype=torch.float32).cuda(),
+            "rank": torch.tensor(r_max, dtype=torch.int32)}}
+    engine.publish(glob(seed + 1))
+    x = torch.as_tensor(rng.normal(size=(batch, width)),
+                        dtype=torch.float32).cuda()
+    ids = torch.as_tensor(rng.integers(1, n_tenants + 1, batch),
+                          dtype=torch.int32).cuda()
+    return store, engine, x, ids, glob
+
+
+def _buffer_ptr(store):
+    snap = store.snapshot()
+    return snap.pair_buffers("proj")[0].data_ptr()
+
+
+def test_stream_rule_write_after_read():
+    """A batch queued on a side stream (held back by a sleep), its
+    snapshot dropped, then an in-place publish on the default stream: the
+    publish waits for the batch, which reads the old version bit for bit."""
+    need_cuda()
+    store, engine, x, ids, glob = _serving_rig()
+    ref = engine.apply("proj", x, ids)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        y = engine.apply("proj", x, ids)
+    ptr = _buffer_ptr(store)
+    assert store.pinned_snapshots == 0
+    engine.publish(glob(7))
+    assert _buffer_ptr(store) == ptr            # written in place
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref)
+    assert not torch.equal(engine.apply("proj", x, ids), ref)
+
+
+def test_stream_rule_read_after_write():
+    """A publish held back on the default stream, then a batch on a side
+    stream with a fresh snapshot: the batch waits and sees the new
+    version."""
+    from repro_torch.serving import merged_reference
+    need_cuda()
+    store, engine, x, ids, glob = _serving_rig()
+    old = engine.apply("proj", x, ids)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    engine.publish(glob(7))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y = engine.apply("proj", x, ids)
+    torch.cuda.synchronize()
+    want = merged_reference(engine, "proj", x, ids)
+    assert_close(y, want)
+    assert not torch.allclose(y, old)
+
+
+def test_stream_rule_free_while_read():
+    """A batch on a side stream (held back), its snapshot dropped, then
+    capacity growth replaces the buffers it reads and fresh allocations
+    on the default stream are filled with NaN: the old buffers are not
+    handed out while the batch reads them, and it reads the old version
+    bit for bit."""
+    need_cuda()
+    store, engine, x, ids, glob = _serving_rig()
+    ref = engine.apply("proj", x, ids)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        y = engine.apply("proj", x, ids)
+    shape = store.snapshot().pair_buffers("proj")[0].shape
+    ptr = _buffer_ptr(store)
+    store.register("grows", rank=4)             # the free list was empty
+    assert _buffer_ptr(store) != ptr
+    junk = [torch.full(shape, float("nan"), device="cuda") for _ in range(8)]
+    engine.publish(glob(9))
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref)
+    del junk

@@ -54,3 +54,15 @@ def test_the_scan_catches_what_it_should():
     for line in ("import repro_torch", "from repro_torch.core import x",
                  "import jaxtyping_like_name_is_fine_if_not_jax"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_the_import_check_covers_every_slice():
+    """The walk above reaches each slice's modules, serving and the
+    operator-facing obs modules included."""
+    walked = set(_modules())
+    for name in ("repro_torch.fl.async_agg", "repro_torch.serving.store",
+                 "repro_torch.serving.engine", "repro_torch.obs.export",
+                 "repro_torch.obs.health", "repro_torch.obs.timing",
+                 "repro_torch.kernels.lora_matmul.ops",
+                 "repro_torch.kernels.lora_matmul.ref"):
+        assert name in walked, name

@@ -1,0 +1,252 @@
+"""The port's fused LoRA matmuls on the CPU against the JAX package's: the
+plain versions (``lora_matmul_ref``, the per-request loop
+``batched_lora_matmul_ref`` and the segment lowering
+``batched_lora_matmul_segments``, the port's CPU serving path) held against
+``repro.kernels.lora_matmul`` run in interpret mode (``impl="pallas"``),
+through its XLA segment lowering (``impl="xla"``) and its loop oracle, in
+fp32 and bf16 on the same numpy inputs; then the port's own guarantees:
+garbage outside the live segments never reaches the output, ids resolve
+per request row, and the backend rule.
+
+Tolerances as ``_torch_parity.py``: 2e-5 in fp32, 2e-2 in bf16 (of
+max(1, max|want|)).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import BF16_TOL, F32_TOL, assert_close
+
+from repro.kernels import batched_lora_matmul_inline as j_batched
+from repro.kernels import batched_lora_matmul_ref as j_batched_ref
+from repro.kernels import lora_dense_apply as j_dense
+from repro.kernels import lora_matmul as j_lora
+from repro.kernels import lora_matmul_ref as j_lora_ref
+from repro_torch.kernels import runtime
+from repro_torch.kernels.lora_matmul import (batched_lora_matmul,
+                                             batched_lora_matmul_ref,
+                                             batched_lora_matmul_segments,
+                                             lora_dense_apply, lora_matmul,
+                                             lora_matmul_ref, resolve_impl)
+
+DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
+          "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+ALPHA = 16.0
+
+
+def _both(a, dtype):
+    """One numpy array as a JAX array and a torch tensor of one dtype."""
+    jd, td, _ = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.as_tensor(np.asarray(a)).to(td)
+
+
+def packed_case(m=12, k=16, n=10, n_slots=6, r_max=4, seed=0):
+    """Packed buffers, tables and a mixed id batch as numpy.  Slot 0 has
+    rank 0 (the null adapter); rows outside live segments hold finite
+    garbage (the JAX lowerings multiply them by zero)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * 0.2).astype(np.float32)
+    a_rows = rng.normal(size=(n_slots * r_max, k)).astype(np.float32)
+    b_rows = rng.normal(size=(n_slots * r_max, n)).astype(np.float32)
+    off = np.arange(n_slots, dtype=np.int32) * r_max
+    rank = rng.integers(1, r_max + 1, n_slots).astype(np.int32)
+    rank[0] = 0
+    scale = (ALPHA / np.maximum(rank, 1)).astype(np.float32)
+    ids = rng.integers(0, n_slots, m).astype(np.int32)
+    return x, w, a_rows, b_rows, off, rank, scale, ids
+
+
+def _port_batched(case, dtype, **kw):
+    x, w, a_rows, b_rows, off, rank, scale, ids = case
+    return batched_lora_matmul(
+        _both(x, dtype)[1], _both(w, dtype)[1], _both(a_rows, dtype)[1],
+        _both(b_rows, dtype)[1], torch.as_tensor(ids), torch.as_tensor(off),
+        torch.as_tensor(rank), torch.as_tensor(scale), **kw)
+
+
+# ----------------------------------------------------------------- single --
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lead,k,n,r", [((8,), 16, 10, 4), ((2, 3), 24, 7, 1),
+                                        ((5,), 200, 10, 64)])
+def test_lora_matmul_matches_jax(dtype, lead, k, n, r):
+    rng = np.random.default_rng(k + n + r)
+    x = rng.normal(size=lead + (k,)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * 0.2).astype(np.float32)
+    a = rng.normal(size=(r, k)).astype(np.float32)
+    b = rng.normal(size=(n, r)).astype(np.float32)
+    scale = ALPHA / r
+    jx, tx = _both(x, dtype)
+    jw, tw = _both(w, dtype)
+    ja, ta = _both(a, dtype)
+    jb, tb = _both(b, dtype)
+    tol = DTYPES[dtype][2]
+    got = lora_matmul(tx, tw, ta, tb, scale)
+    assert got.dtype == tx.dtype and got.shape == lead + (n,)
+    assert_close(got, j_lora(jx, jw, ja, jb, scale, interpret=True), tol,
+                 "lora_matmul vs JAX kernel (interpret)")
+    assert_close(lora_matmul_ref(tx.reshape(-1, k), tw, ta, tb,
+                                 torch.tensor(scale)),
+                 j_lora_ref(jx.reshape(-1, k), jw, ja, jb, scale), tol,
+                 "lora_matmul_ref vs JAX ref")
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_lora_dense_apply_matches_jax(with_bias):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(6, 20)).astype(np.float32)
+    p = {"w": (rng.normal(size=(20, 9)) * 0.3).astype(np.float32)}
+    if with_bias:
+        p["b"] = rng.normal(size=(9,)).astype(np.float32)
+    pair = {"A": rng.normal(size=(8, 20)).astype(np.float32),
+            "B": rng.normal(size=(9, 8)).astype(np.float32),
+            "rank": np.int32(5)}
+    want = j_dense({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+                   {k: jnp.asarray(v) for k, v in pair.items()},
+                   interpret=True)
+    got = lora_dense_apply({k: torch.as_tensor(v) for k, v in p.items()},
+                           torch.as_tensor(x),
+                           {k: torch.as_tensor(v) for k, v in pair.items()})
+    assert_close(got, want, F32_TOL, "lora_dense_apply")
+
+
+# ---------------------------------------------------------------- batched --
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("jax_impl", ["pallas", "xla"])
+def test_batched_matches_jax(dtype, jax_impl):
+    case = packed_case(seed=1)
+    x, w, a_rows, b_rows, off, rank, scale, ids = case
+    tol = DTYPES[dtype][2]
+    js = [_both(v, dtype)[0] for v in (x, w, a_rows, b_rows)]
+    want = j_batched(*js, jnp.asarray(ids), jnp.asarray(off),
+                     jnp.asarray(rank), jnp.asarray(scale), impl=jax_impl,
+                     interpret=True)
+    got = _port_batched(case, dtype)
+    assert got.dtype == DTYPES[dtype][1]
+    assert_close(got, want, tol, f"batched (segments) vs JAX {jax_impl}")
+    loop = batched_lora_matmul_ref(
+        *[_both(v, dtype)[1] for v in (x, w, a_rows, b_rows)],
+        off[ids], rank[ids], scale[ids])
+    assert_close(loop, j_batched_ref(*js, off[ids], rank[ids], scale[ids]),
+                 tol, "loop oracle vs JAX loop oracle")
+    assert_close(loop, want, tol, f"loop oracle vs JAX {jax_impl}")
+
+
+def test_garbage_outside_segments_never_reaches_the_output():
+    """NaN and Inf in every row outside the live segments (the null slot's
+    page, the tails of short segments, a page no request names): the
+    port's plain versions give what the JAX package gives with those rows
+    zeroed."""
+    x, w, a_rows, b_rows, off, rank, scale, ids = packed_case(seed=2)
+    ids[:3] = 0                                # cnt = 0 rows
+    ids[ids == 5] = 4                          # slot 5's page unused
+    live = np.zeros(a_rows.shape[0], bool)
+    for t in np.unique(ids):
+        live[off[t]:off[t] + rank[t]] = True
+    a_bad, b_bad = a_rows.copy(), b_rows.copy()
+    a_bad[~live] = np.nan
+    b_bad[~live] = np.inf
+    b_bad[np.flatnonzero(~live)[::2]] = np.nan
+    a_zero = np.where(live[:, None], a_rows, 0.0).astype(np.float32)
+    b_zero = np.where(live[:, None], b_rows, 0.0).astype(np.float32)
+    want = j_batched(jnp.asarray(x), jnp.asarray(w), jnp.asarray(a_zero),
+                     jnp.asarray(b_zero), jnp.asarray(ids), jnp.asarray(off),
+                     jnp.asarray(rank), jnp.asarray(scale), impl="xla")
+    got = _port_batched((x, w, a_bad, b_bad, off, rank, scale, ids), "f32")
+    assert torch.isfinite(got).all()
+    assert_close(got, want, F32_TOL, "segments with garbage")
+    loop = batched_lora_matmul_ref(
+        *map(torch.as_tensor, (x, w, a_bad, b_bad)), off[ids], rank[ids],
+        scale[ids])
+    assert_close(loop, want, F32_TOL, "loop oracle with garbage")
+    np.testing.assert_allclose(got[:3].numpy(), x[:3] @ w, rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_adapter_id_permutation_equivariance():
+    """Permuting (rows, ids) together permutes the output -- adapter
+    resolution is strictly per request row."""
+    case = packed_case(seed=3)
+    perm = np.random.default_rng(7).permutation(case[0].shape[0])
+    y = _port_batched(case, "f32")
+    permuted = (case[0][perm],) + case[1:7] + (case[7][perm],)
+    assert_close(_port_batched(permuted, "f32"), y[perm], 1e-6,
+                 "permuted batch")
+
+
+def test_ids_outside_the_tables_clamp_as_jax_gathers():
+    case = packed_case(seed=4)
+    x, w, a_rows, b_rows, off, rank, scale, ids = case
+    ids = ids.copy()
+    ids[::3] = len(off) + 2
+    want = j_batched(*map(jnp.asarray, (x, w, a_rows, b_rows, ids, off, rank,
+                                        scale)), impl="xla")
+    got = _port_batched(case[:7] + (ids,), "f32")
+    assert_close(got, want, F32_TOL, "clamped ids")
+
+
+def test_batched_keeps_leading_dims_and_counts_plain_calls():
+    x, w, a_rows, b_rows, off, rank, scale, ids = packed_case(m=12, seed=5)
+    before = dict(runtime.PLAIN_CALLS)
+    y = batched_lora_matmul(
+        torch.as_tensor(x).reshape(3, 4, -1), torch.as_tensor(w),
+        torch.as_tensor(a_rows), torch.as_tensor(b_rows),
+        torch.as_tensor(ids).reshape(3, 4), off, rank, scale)
+    assert y.shape == (3, 4, w.shape[1])
+    assert runtime.PLAIN_CALLS["batched_lora_matmul"] == \
+        before["batched_lora_matmul"] + 1
+    assert runtime.LAUNCHES["batched_lora_matmul"] == 0
+    assert_close(y.reshape(12, -1), _port_batched(
+        (x, w, a_rows, b_rows, off, rank, scale, ids), "f32"), 0.0)
+
+
+def test_resolve_impl():
+    assert resolve_impl("auto") == "xla"
+    assert resolve_impl(None, "cpu") == "xla"
+    assert resolve_impl("auto", "cuda") == "kernel"
+    assert resolve_impl("xla") == "xla"
+    assert resolve_impl("pallas") == "kernel"
+    assert resolve_impl("kernel", "cuda") == "kernel"
+    with pytest.raises(ValueError, match="unknown batched"):
+        resolve_impl("tpu")
+
+
+def test_a_cpu_tensor_never_asks_for_the_kernel():
+    x, w, a_rows, b_rows, off, rank, scale, ids = map(
+        torch.as_tensor, packed_case(seed=6))
+    for impl in ("pallas", "kernel"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            batched_lora_matmul(x, w, a_rows, b_rows, ids, off, rank, scale,
+                                impl=impl)
+    with pytest.raises(ValueError, match="unknown batched"):
+        batched_lora_matmul(x, w, a_rows, b_rows, ids, off, rank, scale,
+                            impl="tpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        lora_matmul(x, w, a_rows[:4], b_rows[:4].T, 1.0, backend="kernel")
+
+
+def test_shape_checks():
+    x, w, a_rows, b_rows, off, rank, scale, ids = map(
+        torch.as_tensor, packed_case(seed=7))
+    with pytest.raises(ValueError, match="needs w"):
+        batched_lora_matmul(x, w, a_rows, b_rows.T, ids, off, rank, scale)
+    with pytest.raises(ValueError, match="needs w"):
+        lora_matmul(x, w[:-1], a_rows, b_rows.T, 1.0)
+    with pytest.raises(ValueError, match="adapter ids"):
+        batched_lora_matmul(x, w, a_rows, b_rows, ids[:-1], off, rank, scale)
+
+
+def test_segments_lowering_equals_the_loop_oracle_on_clipped_segments():
+    """Segments reaching past the packed rows, or starting before them,
+    count only rows that exist (the TPU kernel's iota mask)."""
+    x, w, a_rows, b_rows, _, _, scale, _ = map(torch.as_tensor,
+                                               packed_case(m=5, seed=8))
+    r = a_rows.shape[0]
+    off = torch.tensor([r - 2, -3, 0, r, 4], dtype=torch.int32)
+    cnt = torch.tensor([4, 5, 0, 3, 2], dtype=torch.int32)
+    sc = scale[:5]
+    assert_close(batched_lora_matmul_segments(x, w, a_rows, b_rows, off, cnt,
+                                              sc),
+                 batched_lora_matmul_ref(x, w, a_rows, b_rows, off, cnt, sc),
+                 F32_TOL, "clipped segments")

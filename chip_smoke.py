@@ -70,7 +70,25 @@ Phases, each printing JSON lines:
   write, free while read (capacity growth);
 * serve_dense -- lora_dense_apply on each MLP layer of the final global
   against the plain dense layer;
-* obs -- one ServiceHealth snapshot of serve_main's service and store.
+* obs -- one ServiceHealth snapshot of serve_main's service and store;
+* ssd_kernels -- ssd_scan against its plain version in fp32 and bf16 at
+  tests/test_kernels.py's four SSD shapes, one mamba2-1.3b layer at batch 1
+  and 4 (L 2048, 64 heads x 64, state 128, chunk 256), L = 2000 (Q 250), a
+  prime L (Q 1) and a decay past -100 within a chunk; time, back-to-back
+  time, the plain version's time, the bound and the launch count;
+* mamba_main -- ``repro_torch.launch.serve``'s path at full width:
+  mamba2-1.3b in bf16, batch 4, a 2048-token prompt, 16 new tokens,
+  adapters at rank 8 of r_max 64 with a live B; 48 ssd_scan launches for
+  the prefill, no plain call, finite logits; prefill ms, decode tokens/s
+  and peak device memory;
+* mamba_plain -- the same prefill with the plain scan on the card (0
+  launches, 48 plain calls); each bf16 layer's mixer output from the
+  kernel path's input within 2e-2 of max|want| of the same layer with the
+  plain scan on fp32-upcast operands, and the whole prefill in fp32 within
+  2e-3 of its plain twin's logits;
+* mamba_consistency -- the serve invariant at full width and depth (batch
+  1, 512 tokens prefilled, 8 decoded) against forward(mode="full"), in
+  fp32 within 2e-3 of max|want|; the bf16 run's distance is recorded.
 
 Then the ``{"kernels": [...]}`` summary, the card's line from nvidia-smi,
 and the device summary as the last line.  Any failure ends the run with a
@@ -101,6 +119,7 @@ REPLACES = {
     "axpy_fold": "src/repro/kernels/rbla_agg/kernel.py:442",
     "batched_lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:148",
     "lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:78",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:83",
 }
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"packed_agg": _CSRC + "rbla_agg.cu", "rbla_agg": _CSRC + "rbla_agg.cu",
@@ -109,7 +128,8 @@ SOURCE = {"packed_agg": _CSRC + "rbla_agg.cu", "rbla_agg": _CSRC + "rbla_agg.cu"
           "flora_stack": _CSRC + "flora_stack.cu",
           "axpy_fold": _CSRC + "axpy_fold.cu",
           "batched_lora_matmul": _CSRC + "lora_matmul.cu",
-          "lora_matmul": _CSRC + "lora_matmul.cu"}
+          "lora_matmul": _CSRC + "lora_matmul.cu",
+          "ssd_scan": _CSRC + "ssd_scan.cu"}
 MLP_BUCKETS = ((64, 784), (256, 200), (64, 10))   # (rows, width), r_max=64
 MLP_PAIR_SIDES = ((64, 784, 1), (64, 200, 4), (64, 10, 1))  # + count/round
 N_CLIENTS = 10
@@ -1798,6 +1818,348 @@ def phase_obs(agg, engine):
         raise AssertionError(f"obs: store view {health['store']}")
 
 
+# ------------------------------------------------------------------ mamba2 --
+#: mamba2-1.3b's serving path as chip_smoke drives it: the full config (48
+#: layers, d_model 2048, 64 heads x 64, state 128, chunk 256, bf16), batch
+#: 4, a 2048-token prompt, 16 new tokens, adapters at rank 8 of r_max 64
+MAMBA_CFG = dict(arch="mamba2-1.3b", batch=4, prompt_len=2048, new=16,
+                 rank=8, r_max=64)
+#: the serve invariant at full width, at a smaller batch and prompt
+MAMBA_CONSISTENCY = dict(batch=1, prompt_len=512, decode=8)
+#: One bf16 layer's mixer output on the kernel path against the same layer
+#: with the plain scan on fp32-upcast operands (its outputs rounded back to
+#: bf16, as the kernel rounds them), from the same input: the kernel's bf16
+#: tolerance.  Two bf16 paths are not compared end to end: at random init
+#: the 48-layer stack amplifies one rounding's difference, and the bf16
+#: model's last logits land 20-30% of max|logit| away from the same weights
+#: run in fp32 whichever scan is used (PERF.md §6)
+MAMBA_BF16_TOL = 2e-2
+#: The same stack in fp32 at full width and full depth: last logits of
+#: two paths within the ssd_scan reference's 2e-3 of max|want|
+MAMBA_FP32_TOL = 2e-3
+#: (label, b, l, h, p, n, chunk, |dta| scale): tests/test_kernels.py's
+#: SSD_SHAPES, one mamba2-1.3b layer at batch 1 and 4 (|dta| near what its
+#: prefill gives: softplus of a unit normal at A = -1), L = 2000 (Q 250), a
+#: prime L (Q 1)
+#: and a decay that takes a_cs past -100 within a chunk
+SSD_CASES = (
+    ("ssd_shape_1", 1, 32, 2, 8, 16, 8, 0.5),
+    ("ssd_shape_2", 2, 64, 4, 16, 32, 16, 0.5),
+    ("ssd_shape_3", 1, 128, 2, 64, 128, 32, 0.5),
+    ("ssd_shape_4", 2, 48, 3, 8, 8, 16, 0.5),
+    ("mamba_layer_b1", 1, 2048, 64, 64, 128, 256, 0.7),
+    ("mamba_layer_b4", 4, 2048, 64, 64, 128, 256, 0.7),
+    ("l2000_q250", 1, 2000, 64, 64, 128, 256, 0.7),
+    ("prime_l127_q1", 2, 127, 4, 16, 32, 32, 0.5),
+    ("large_decay", 1, 512, 8, 64, 128, 256, 8.0),
+)
+
+
+def _ssd_work(b, l, h, p, n, q, s) -> tuple[int, int]:
+    """(bytes, flops) of one scan: each operand read once and each output
+    written once (operands of s bytes, dta fp32); C B^T once per (b,
+    chunk) as ssd_chunked counts it, and per (b, h, chunk) y_diag, and y_off
+    and the state 2 Q N P each.  The causal mask leaves C B^T and y_diag
+    their lower triangle with the diagonal, Q (Q + 1) / 2 of the Q^2 pairs:
+    Q (Q + 1) N and Q (Q + 1) P."""
+    nc = l // q
+    bytes_moved = (2 * b * l * h * p + 2 * b * l * n + b * h * p * n) * s \
+        + 4 * b * l * h
+    flops = b * nc * q * (q + 1) * n \
+        + b * h * nc * (q * (q + 1) * p + 4 * q * n * p)
+    return bytes_moved, flops
+
+
+def check_ssd_case(label, b, l, h, p, n, chunk, scale, dtype, seed) -> dict:
+    """ssd_scan on the card against ssd_scan_ref on the same inputs: fp32
+    within the reference's 2e-3 of max|want|; bf16 operands against the
+    plain version on their fp32 upcast within 2e-2.  Every output finite."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssd_scan import (chunk_len, ssd_scan,
+                                              ssd_scan_ref)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xdt = torch.randn(b, l, h, p, generator=gen, device="cuda") * 0.5
+    dta = -torch.randn(b, l, h, generator=gen, device="cuda").abs() * scale
+    bm = torch.randn(b, l, n, generator=gen, device="cuda") * 0.5
+    cm = torch.randn(b, l, n, generator=gen, device="cuda") * 0.5
+    xdt, bm, cm = xdt.to(dtype), bm.to(dtype), cm.to(dtype)
+    q = chunk_len(l, chunk)
+    a_cs_min = float(dta.reshape(b, l // q, q, h).cumsum(2).min())
+    before = runtime.LAUNCHES["ssd_scan"]
+    y, hl = ssd_scan(xdt, dta, bm, cm, chunk)
+    launches = runtime.LAUNCHES["ssd_scan"] - before
+    want_y, want_h = ssd_scan_ref(xdt.float(), dta, bm.float(), cm.float(),
+                                  chunk)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(y.float()).all()
+                  and torch.isfinite(hl.float()).all())
+    err = max(float((y.float() - want_y).abs().max()),
+              float((hl.float() - want_h).abs().max()))
+    big = max(1.0, float(want_y.abs().max()), float(want_h.abs().max()))
+    tol = (2e-2 if dtype == torch.bfloat16 else 2e-3) * big
+
+    def kernel():
+        return ssd_scan(xdt, dta, bm, cm, chunk)
+
+    def plain():
+        return ssd_scan_ref(xdt, dta, bm, cm, chunk)
+    reps = 25 if b * l * h < 2 ** 20 else 10
+    times = {"ms": time_ms(kernel, reps), "plain_ms": time_ms(plain, reps),
+             "back_to_back_ms": time_ms_back_to_back(kernel, 10, 3)}
+    bytes_moved, flops = _ssd_work(b, l, h, p, n, q, xdt.element_size())
+    bms, by = bound(bytes_moved, flops)
+    case = {"kernel": "ssd_scan", "case": label, "shape": [b, l, h, p, n],
+            "chunk": q, "dtype": _dtype_name(dtype), "a_cs_min": a_cs_min,
+            "max_abs_err": err, "tol": tol, "finite": finite,
+            "launches": launches, **times, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "bytes": bytes_moved, "flops": flops}
+    emit(case)
+    if not (finite and err <= tol and launches == 1):
+        raise AssertionError(f"ssd_scan disagrees with its plain version: "
+                             f"{case}")
+    return case
+
+
+def phase_ssd_kernels() -> dict:
+    """Every ssd_scan case in fp32 and in bf16; returns the summary row:
+    one launch at mamba_main's shape and dtype (batch 4, L 2048, bf16)."""
+    import torch
+    cases = []
+    for i, (label, *shape) in enumerate(SSD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(check_ssd_case(label, *shape, dtype, 200 + i))
+    main = next(c for c in cases if c["case"] == "mamba_layer_b4"
+                and c["dtype"] == "bfloat16")
+    return {"name": "ssd_scan", "route": "cuda", "source": SOURCE["ssd_scan"],
+            "replaces": REPLACES["ssd_scan"], "launches": None,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "per": "one launch (batch 4, L 2048, bf16)"}
+
+
+def _mamba_rig():
+    """mamba2-1.3b at full width on the card: Model.init and init_adapters
+    (seeds 0 and 1) as repro_torch.launch.serve makes them, each pair's B
+    then drawn nonzero on its live columns (seed 2) so the LoRA term of
+    every dense is live, and the prompt tokens (seed 3)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lora import mask_pair
+    from repro_torch.models.model import make_model
+    cfg = get_config(MAMBA_CFG["arch"])
+    model = make_model(cfg, remat=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    adapters = model.init_adapters(
+        torch.Generator(device="cuda").manual_seed(1),
+        r_max=MAMBA_CFG["r_max"], rank=MAMBA_CFG["rank"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    adapters = {"stages": tuple(
+        {b: {path: mask_pair(dict(pair, B=torch.randn(
+            pair["B"].shape, generator=gen, device="cuda") * 0.02))
+            for path, pair in unit.items()} for b, unit in stage.items()}
+        for stage in adapters["stages"])}
+    tokens = torch.randint(
+        0, cfg.vocab_size, (MAMBA_CFG["batch"], MAMBA_CFG["prompt_len"]),
+        generator=torch.Generator(device="cuda").manual_seed(3),
+        device="cuda")
+    return cfg, model, params, adapters, tokens
+
+
+def _logit_err(got, want, tol) -> tuple[float, float]:
+    """(max |got - want|, the tolerance tol * max(1, max|want|))."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, tol * max(1.0, float(want.float().abs().max()))
+
+
+def _fp32_rig(rig):
+    """The same model, weights and adapters in fp32 (the bf16 weights
+    upcast exactly), on the card."""
+    import dataclasses
+    from repro_torch.models.model import make_model
+    from repro_torch.tree import tree_map
+    cfg, _, params, adapters, tokens = rig
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                   params)
+    return cfg32, make_model(cfg32, remat=False), p32, adapters, tokens
+
+
+def phase_mamba_main(rig) -> tuple[dict, "object"]:
+    """repro_torch.launch.serve's path at full width: one prefill (48
+    ssd_scan launches, no plain call) and 15 greedy decode steps."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import generate
+    cfg, model, params, adapters, tokens = rig
+    generate(model, params, adapters, tokens[:, :256], 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    res = generate(model, params, adapters, tokens, MAMBA_CFG["new"])
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(res["prefill_logits"].float()).all()
+                  and torch.isfinite(res["logits"].float()).all())
+    steps = MAMBA_CFG["new"] - 1
+    emit({"phase": "mamba_main", "config": MAMBA_CFG,
+          "layers": cfg.n_layers, "prefill_ms": res["prefill_s"] * 1e3,
+          "decode_steps": steps,
+          "decode_tok_per_s": steps * MAMBA_CFG["batch"] / res["decode_s"],
+          "decode_ms_per_step": res["decode_s"] * 1e3 / steps,
+          "peak_device_bytes": peak,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v},
+          "finite": finite, "tokens": res["tokens"][0].tolist()})
+    if launches["ssd_scan"] != cfg.n_layers or any(plain.values()):
+        raise AssertionError(f"mamba_main: ssd_scan launched "
+                             f"{launches['ssd_scan']} times (want "
+                             f"{cfg.n_layers}), plain calls {plain}")
+    if not finite or res["tokens"].shape != (MAMBA_CFG["batch"],
+                                             MAMBA_CFG["new"]):
+        raise AssertionError("mamba_main: logits not finite or tokens "
+                             "misshapen")
+    return launches, res["prefill_logits"]
+
+
+def _plain_scan_in_fp32(xdt, dta, bm, cm, chunk):
+    """The plain scan on fp32-upcast operands, its outputs rounded back to
+    xdt's dtype, as the kernel computes and rounds."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+    y, h = ssd_scan_ref(xdt.float(), dta, bm.float(), cm.float(), chunk)
+    return y.to(xdt.dtype), h.to(xdt.dtype)
+
+
+def _layer_walk(rig) -> tuple[list, list]:
+    """The kernel path's bf16 prefill layer by layer: each of the 48 mixers
+    runs from the kernel path's residual stream with the kernel, with the
+    plain scan on fp32-upcast operands (checked, MAMBA_BF16_TOL) and with
+    the plain scan in bf16 (recorded); returns each layer's (error,
+    tolerance) of the two plain runs' mixer outputs.  The outputs are
+    compared before the residual add, whose bf16 rounding at the stream's
+    magnitude would swamp them."""
+    from repro_torch.models.common import embed
+    from repro_torch.models.mamba import mamba_forward
+    from repro_torch.tree import tree_map
+    cfg, _, params, adapters, tokens = rig
+    mix = params["stages"][0]["b0"]["mix"]
+    pairs = adapters["stages"][0]["b0"]          # {"mix/in_proj": pair, ..}
+    x = embed(params["embed"], tokens)
+    upcast, bf16 = [], []
+    for i in range(cfg.stages[0].repeat):
+        p = tree_map(lambda t: t[i], mix)
+        lora = {k.split("/", 1)[1]: tree_map(lambda t: t[i], v)
+                for k, v in pairs.items()}
+
+        def mixer(backend, **plain):
+            return mamba_forward(p, lora, x, cfg, mode="full",
+                                 scan_backend=backend, **plain)[0]
+        got = mixer("auto")
+        upcast.append(_logit_err(
+            got, mixer("ref", plain_scan=_plain_scan_in_fp32),
+            MAMBA_BF16_TOL))
+        bf16.append(_logit_err(got, mixer("ref"), 1.0))
+        x = x + got
+    return upcast, bf16
+
+
+def phase_mamba_plain(rig, rig32, kernel_logits):
+    """The same prefill with the plain scan (Model(scan_backend="ref")) on
+    the card: 0 launches and 48 plain calls; its bf16 logits' distance from
+    mamba_main's is recorded.  The checks: every layer's bf16 mixer output,
+    from the kernel path's input, within MAMBA_BF16_TOL of the same layer
+    with the plain scan on fp32-upcast operands, and the whole 48-layer
+    prefill in fp32 within MAMBA_FP32_TOL of its plain twin's logits."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import make_model
+    cfg, _, params, adapters, tokens = rig
+    ref = make_model(cfg, remat=False, scan_backend="ref")
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = ref.prefill(params, adapters, {"tokens": tokens})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    bf16_err, bf16_scale = _logit_err(kernel_logits, logits, 1.0)
+    with torch.inference_mode():
+        layers, layers_bf16 = _layer_walk(rig)
+        cfg32, m32, p32, _, _ = rig32
+        ref32 = make_model(cfg32, remat=False, scan_backend="ref")
+        k32, _ = m32.prefill(p32, adapters, {"tokens": tokens})
+        r32, _ = ref32.prefill(p32, adapters, {"tokens": tokens})
+    err32, tol32 = _logit_err(k32, r32, MAMBA_FP32_TOL)
+    worst = max(layers, key=lambda e: e[0] / e[1])
+    emit({"phase": "mamba_plain", "prefill_ms": secs * 1e3,
+          "launches": {k: v for k, v in launches.items() if v},
+          "plain_calls": {k: v for k, v in plain.items() if v},
+          "bf16_logits_max_abs_err": bf16_err,
+          "bf16_logits_max_abs": bf16_scale,
+          "bf16_argmax_agree": float((kernel_logits.argmax(-1)
+                                      == logits.argmax(-1)).float().mean()),
+          "layer_worst_err": worst[0], "layer_tol": worst[1],
+          "layer_rel_err": [e / t * MAMBA_BF16_TOL for e, t in layers],
+          "layer_rel_err_bf16_plain": [e / t for e, t in layers_bf16],
+          "fp32_logits_max_abs_err": err32, "fp32_tol": tol32})
+    if any(launches.values()) or plain["ssd_scan"] != cfg.n_layers:
+        raise AssertionError(f"mamba_plain: launches {launches}, plain "
+                             f"{plain}")
+    if not all(e <= t for e, t in layers):
+        raise AssertionError(f"mamba_plain: a bf16 layer's kernel and plain "
+                             f"outputs disagree: {worst}")
+    if not err32 <= tol32:
+        raise AssertionError(f"mamba_plain: fp32 kernel and plain prefill "
+                             f"disagree ({err32} > {tol32})")
+
+
+def _consistency(model, params, adapters, seq, pre, tol):
+    """Prefill ``pre`` tokens of ``seq``, decode the rest, and hold each
+    position's logits against forward(mode="full") over ``seq``."""
+    errs = []
+    full, _ = model.forward(params, adapters, {"tokens": seq})
+    last, caches = model.prefill(params, adapters, {"tokens": seq[:, :pre]})
+    errs.append(_logit_err(last, full[:, pre - 1], tol))
+    for t in range(pre, seq.shape[1]):
+        logits, caches = model.decode_step(params, adapters, caches,
+                                           seq[:, t], t)
+        errs.append(_logit_err(logits, full[:, t], tol))
+    return errs
+
+
+def phase_mamba_consistency(rig, rig32):
+    """The serve invariant at full width and depth: prefill P tokens,
+    decode k, and each position's logits match forward(mode="full") over
+    P + k (whose chunks are another length: Q 130 for 520 tokens, 256 for
+    512).  Checked in fp32 within MAMBA_FP32_TOL; the bf16 run's distance
+    is recorded (see MAMBA_BF16_TOL)."""
+    import torch
+    from repro_torch.kernels import runtime
+    cfg, model, params, adapters, tokens = rig
+    b, pre, k = (MAMBA_CONSISTENCY[key] for key in
+                 ("batch", "prompt_len", "decode"))
+    seq = tokens[:b, :pre + k]
+    _, m32, p32, _, _ = rig32
+    runtime.reset_counts()
+    with torch.inference_mode():
+        errs = _consistency(m32, p32, adapters, seq, pre, MAMBA_FP32_TOL)
+        bf16 = _consistency(model, params, adapters, seq, pre, 1.0)
+    torch.cuda.synchronize()
+    launches = runtime.LAUNCHES["ssd_scan"]
+    emit({"phase": "mamba_consistency", **MAMBA_CONSISTENCY,
+          "fp32_max_abs_err": [e for e, _ in errs],
+          "fp32_tol": [t for _, t in errs],
+          "bf16_max_abs_err": [e for e, _ in bf16],
+          "bf16_max_abs": [t for _, t in bf16], "launches": launches,
+          "plain_calls": runtime.PLAIN_CALLS["ssd_scan"]})
+    if launches != 4 * cfg.n_layers or runtime.PLAIN_CALLS["ssd_scan"]:
+        raise AssertionError(f"mamba_consistency: {launches} launches")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"mamba_consistency: decode diverges from the "
+                             f"full forward: {errs}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1874,6 +2236,15 @@ def main() -> int:
     summary["batched_lora_matmul"]["launches"] = \
         serve_launches["batched_lora_matmul"]
     summary["lora_matmul"]["launches"] = dense_launches["lora_matmul"]
+
+    summary["ssd_scan"] = phase_ssd_kernels()
+    emit({"phase": "ssd_kernels", "ok": True})
+    rig = _mamba_rig()
+    mamba_launches, kernel_logits = phase_mamba_main(rig)
+    rig32 = _fp32_rig(rig)
+    phase_mamba_plain(rig, rig32, kernel_logits)
+    phase_mamba_consistency(rig, rig32)
+    summary["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": list(summary.values())})

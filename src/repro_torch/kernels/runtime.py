@@ -20,7 +20,8 @@ import torch
 BACKENDS = ("auto", "ref", "kernel", "distributed")
 _ALIASES = {"pallas": "kernel"}
 KERNELS = ("packed_agg", "rbla_agg", "packed_robust", "packed_stack",
-           "flora_stack", "axpy_fold", "batched_lora_matmul", "lora_matmul")
+           "flora_stack", "axpy_fold", "batched_lora_matmul", "lora_matmul",
+           "ssd_scan")
 
 #: kernel launches per kernel since the last :func:`reset_counts`
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

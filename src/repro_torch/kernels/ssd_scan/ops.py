@@ -1,0 +1,100 @@
+"""Wrapper of the chunked SSD scan kernel in ``csrc/ssd_scan.cu``.
+
+Same arguments as the JAX package's ``repro.kernels.ssd_scan.ops.ssd_scan``
+(``backend`` takes the place of ``interpret``).  The chunk length is the
+reference's rule (:func:`~.ref.chunk_len`); the kernel
+takes any length that divides L and masks its ragged tiles, so nothing is
+padded.  A CUDA tensor launches the kernel (or the wrapper raises); a CPU
+tensor runs the plain version in ``ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build, runtime
+from .ref import chunk_len, ssd_scan_ref
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan")
+    lib.ssd_scan_chunked.argtypes = [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
+                                     _L, _L, _L, _P]
+    lib.ssd_scan_chunked.restype = _I
+    return lib
+
+
+def _check_shapes(xdt, dta, bm, cm) -> None:
+    if xdt.ndim != 4:
+        raise ValueError(f"ssd_scan: xdt must be (B, L, H, P), got "
+                         f"{tuple(xdt.shape)}")
+    b, l, h, _ = xdt.shape
+    n = bm.shape[-1] if bm.ndim == 3 else -1
+    if tuple(dta.shape) != (b, l, h) or bm.ndim != 3 \
+            or tuple(bm.shape) != (b, l, n) or tuple(cm.shape) != (b, l, n):
+        raise ValueError(
+            f"ssd_scan: xdt {tuple(xdt.shape)} needs dta ({b}, {l}, {h}) and "
+            f"bm/cm ({b}, {l}, N); got dta {tuple(dta.shape)}, bm "
+            f"{tuple(bm.shape)}, cm {tuple(cm.shape)}")
+    if min(xdt.shape[1:]) < 1 or n < 1:
+        raise ValueError(f"ssd_scan: empty dimension in xdt "
+                         f"{tuple(xdt.shape)} or bm {tuple(bm.shape)}")
+
+
+def _check_operands(xdt, dta, bm, cm) -> None:
+    """xdt, bm and cm in one dtype (fp32 or bf16), dta in fp32, all on
+    xdt's device and contiguous: nothing is converted or copied behind the
+    caller's back."""
+    if xdt.dtype not in _CODES:
+        raise TypeError(f"ssd_scan: xdt dtype {xdt.dtype} not in "
+                        f"{list(_CODES)}")
+    for name, t, want in (("bm", bm, xdt.dtype), ("cm", cm, xdt.dtype),
+                          ("dta", dta, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"ssd_scan: {name} is {t.dtype}, the kernel "
+                            f"takes {want} (xdt is {xdt.dtype})")
+    for name, t in (("xdt", xdt), ("dta", dta), ("bm", bm), ("cm", cm)):
+        if t.device != xdt.device:
+            raise ValueError(f"ssd_scan: {name} is on {t.device}, xdt on "
+                             f"{xdt.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {name} must be contiguous (shape "
+                             f"{tuple(t.shape)}, strides {t.stride()})")
+
+
+def _ssd_cuda(xdt, dta, bm, cm, q):
+    _check_operands(xdt, dta, bm, cm)
+    b, l, h, p = xdt.shape
+    n = bm.shape[-1]
+    dev = xdt.device
+    y = torch.empty_like(xdt)
+    h_final = torch.empty((b, h, p, n), dtype=xdt.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().ssd_scan_chunked(
+            xdt.data_ptr(), dta.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            y.data_ptr(), h_final.data_ptr(), _CODES[xdt.dtype], b, l, h, p,
+            n, q, runtime.stream_handle(dev))
+    runtime.check_launch(err, "ssd_scan", _lib())
+    runtime.LAUNCHES["ssd_scan"] += 1
+    return y, h_final
+
+
+def ssd_scan(xdt, dta, bm, cm, chunk: int = 256, *, backend: str = "auto"):
+    """Chunked SSD: xdt (B,L,H,P) pre-scaled by dt; dta (B,L,H); bm/cm
+    (B,L,N).  Returns (y (B,L,H,P), h_final (B,H,P,N)) in xdt's dtype.
+
+    On the card xdt, bm and cm are fp32 or bf16 (one dtype) and dta fp32,
+    all contiguous; the kernel computes in fp32.  A shape beyond its limits
+    (batch or heads above 65535, or a chunk and state whose tiles need
+    more shared memory than a block has) fails the launch with CUDA's
+    "invalid argument"."""
+    _check_shapes(xdt, dta, bm, cm)
+    if runtime.use_kernel(backend, xdt, "ssd_scan"):
+        return _ssd_cuda(xdt, dta, bm, cm, chunk_len(xdt.shape[1], chunk))
+    return ssd_scan_ref(xdt, dta, bm, cm, chunk)

@@ -1,0 +1,101 @@
+"""Serving launcher: batched prefill, then greedy decode, on one device.
+
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --preset full \\
+        --batch 4 --prompt-len 2048 --new 16 --rank 8
+
+The JAX package's ``repro.launch.serve`` path without its mesh (one
+device; sharding waits for ROADMAP item 18): weights from ``Model.init``
+and adapters from ``Model.init_adapters`` (seeds 0 and 1), random prompt
+tokens from ``numpy.random.default_rng(0)``, one prefill, then ``new - 1``
+decode steps each feeding back the argmax token.  Prints the reference's
+``prefill:`` and ``decode:`` lines.  ``--device`` defaults to ``cuda`` and
+raises without a card; ``--device cpu`` runs the plain path.  ``--arch``
+defaults to ``mamba2-1.3b``, the one arch the port has (the reference's
+default, ``h2o-danube-3-4b``, needs attention: ROADMAP item 19b).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import runtime
+from repro_torch.models.model import Model, make_model
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model: Model, params, adapters, tokens: torch.Tensor,
+             new: int) -> dict:
+    """Prefill ``tokens`` (B, S), then ``new - 1`` greedy decode steps.
+
+    Returns the generated tokens (B, new) -- the prefill's argmax first --
+    the prefill's last-position logits, the last step's logits, the caches
+    after the last step and the host seconds of the prefill and the decode
+    loop (each ending in a synchronise)."""
+    device = tokens.device
+    prompt_len = tokens.shape[1]
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        prefill_logits, caches = model.prefill(params, adapters,
+                                               {"tokens": tokens})
+        tok = prefill_logits.argmax(-1)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        out, logits = [tok], prefill_logits
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            logits, caches = model.decode_step(params, adapters, caches, tok,
+                                               prompt_len + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    return {"tokens": torch.stack(out, 1), "prefill_logits": prefill_logits,
+            "logits": logits, "caches": caches, "prefill_s": prefill_s,
+            "decode_s": decode_s}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--preset", default="reduced",
+                    choices=["reduced", "full"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new", type=int, default=16)
+    ap.add_argument("--rank", type=int, default=8)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = runtime.resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.preset == "reduced":
+        cfg = cfg.reduced()
+    runtime.full_fp32()
+    model = make_model(cfg, remat=False)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    adapters = model.init_adapters(
+        torch.Generator(device=device).manual_seed(1), rank=args.rank)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
+        dtype=torch.long, device=device)
+
+    res = generate(model, params, adapters, tokens, args.new)
+    print(f"prefill: {res['prefill_s']:.2f}s")
+    steps = args.new - 1
+    print(f"decode: {steps} steps, "
+          f"{steps * args.batch / max(res['decode_s'], 1e-9):.1f} tok/s")
+    return res
+
+
+if __name__ == "__main__":
+    main()

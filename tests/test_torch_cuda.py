@@ -860,3 +860,124 @@ def test_stream_rule_free_while_read():
     torch.cuda.synchronize()
     assert torch.equal(y, ref)
     del junk
+
+
+# ---------------------------------------------------------------- ssd_scan --
+# (b, l, h, p, n, chunk, dta scale): tests/test_kernels.py's SSD_SHAPES, one
+# mamba2-1.3b layer at batch 1, L = 2000 (Q 250), a prime L (Q 1), and a
+# decay that takes a_cs past -100 within a chunk
+SSD_CASES = [
+    (1, 32, 2, 8, 16, 8, 0.5),
+    (2, 64, 4, 16, 32, 16, 0.5),
+    (1, 128, 2, 64, 128, 32, 0.5),
+    (2, 48, 3, 8, 8, 16, 0.5),
+    (1, 2048, 64, 64, 128, 256, 0.05),
+    (1, 2000, 8, 64, 128, 256, 0.05),
+    (2, 127, 3, 16, 32, 32, 0.5),
+    (1, 512, 4, 64, 128, 256, 8.0),
+]
+
+
+def _ssd_inputs(b, l, h, p, n, scale, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xdt = torch.randn(b, l, h, p, generator=gen, device="cuda") * 0.5
+    dta = -torch.randn(b, l, h, generator=gen, device="cuda").abs() * scale
+    bm = torch.randn(b, l, n, generator=gen, device="cuda") * 0.5
+    cm = torch.randn(b, l, n, generator=gen, device="cuda") * 0.5
+    return xdt, dta, bm, cm
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,l,h,p,n,chunk,scale", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(b, l, h, p, n, chunk, scale, dtype):
+    """fp32 within the reference's 2e-3 of max|want|; bf16 operands
+    against the plain version on their fp32 upcast within 2e-2."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    need_cuda()
+    xdt, dta, bm, cm = _ssd_inputs(b, l, h, p, n, scale, l + h)
+    if dtype == "bf16":
+        xdt, bm, cm = xdt.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    runtime.reset_counts()
+    y, hl = ssd_scan(xdt, dta, bm, cm, chunk)
+    assert runtime.LAUNCHES["ssd_scan"] == 1
+    want_y, want_h = ssd_scan_ref(xdt.float(), dta, bm.float(), cm.float(),
+                                  chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == xdt.dtype and hl.dtype == xdt.dtype
+    assert hl.shape == (b, h, p, n)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(hl.float()).all()
+    tol = BF16_TOL if dtype == "bf16" else 2e-3
+    assert_close(y, want_y, tol, "y")
+    assert_close(hl, want_h, tol, "h_final")
+
+
+def test_ssd_scan_raises_rather_than_falls_back():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    need_cuda()
+    xdt, dta, bm, cm = _ssd_inputs(1, 64, 2, 16, 32, 0.5, 0)
+    with pytest.raises(ValueError, match="always takes the kernel"):
+        ssd_scan(xdt, dta, bm, cm, 16, backend="ref")
+    with pytest.raises(TypeError, match="dta"):
+        ssd_scan(xdt, dta.bfloat16(), bm, cm, 16)
+    with pytest.raises(TypeError, match="bm"):
+        ssd_scan(xdt, dta, bm.bfloat16(), cm, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_scan(xdt.half(), dta, bm.half(), cm.half(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(xdt, dta, bm.transpose(1, 2).contiguous().transpose(1, 2),
+                 cm, 16)
+    with pytest.raises(ValueError, match="is on"):
+        ssd_scan(xdt, dta, bm.cpu(), cm, 16)
+
+
+def _reduced_mamba(layers=2):
+    from repro_torch.configs import BlockSpec, Stage, get_config
+    from repro_torch.models.model import make_model
+    cfg = get_config("mamba2-1.3b").reduced(stages=(Stage(
+        unit=(BlockSpec(kind="mamba", ffn="none"),), repeat=layers),))
+    model = make_model(cfg, remat=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    adapters = model.init_adapters(
+        torch.Generator(device="cuda").manual_seed(1), rank=4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(2))
+    return cfg, model, params, adapters, tokens
+
+
+def test_reduced_prefill_on_the_card_launches_once_a_layer():
+    from repro_torch.models.model import make_model
+    need_cuda()
+    cfg, model, params, adapters, tokens = _reduced_mamba()
+    runtime.reset_counts()
+    last, caches = model.prefill(params, adapters, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["ssd_scan"] == 2
+    assert runtime.PLAIN_CALLS["ssd_scan"] == 0
+    assert last.shape == (2, cfg.vocab_size) and torch.isfinite(last).all()
+    ref = make_model(cfg, remat=False, scan_backend="ref")
+    want, want_caches = ref.prefill(params, adapters, {"tokens": tokens})
+    assert runtime.LAUNCHES["ssd_scan"] == 2
+    assert runtime.PLAIN_CALLS["ssd_scan"] == 2
+    assert_close(last, want, 2e-3, "prefill logits")
+    assert_close(caches[0]["b0"]["ssm"], want_caches[0]["b0"]["ssm"], 2e-3,
+                 "ssm cache")
+
+
+def test_prefill_makes_no_host_sync():
+    """Neither the scan's wrapper nor a whole reduced prefill on the card
+    synchronises with the host."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    need_cuda()
+    xdt, dta, bm, cm = _ssd_inputs(1, 256, 8, 64, 128, 0.5, 3)
+    _, model, params, adapters, tokens = _reduced_mamba()
+    ssd_scan(xdt, dta, bm, cm, 256)                 # build and load first
+    model.prefill(params, adapters, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ssd_scan(xdt, dta, bm, cm, 256)
+        model.prefill(params, adapters, {"tokens": tokens})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

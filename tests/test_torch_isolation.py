@@ -64,5 +64,10 @@ def test_the_import_check_covers_every_slice():
                  "repro_torch.serving.engine", "repro_torch.obs.export",
                  "repro_torch.obs.health", "repro_torch.obs.timing",
                  "repro_torch.kernels.lora_matmul.ops",
-                 "repro_torch.kernels.lora_matmul.ref"):
+                 "repro_torch.kernels.lora_matmul.ref",
+                 "repro_torch.kernels.ssd_scan.ops",
+                 "repro_torch.kernels.ssd_scan.ref",
+                 "repro_torch.configs.base", "repro_torch.models.common",
+                 "repro_torch.models.mamba", "repro_torch.models.transformer",
+                 "repro_torch.models.model", "repro_torch.launch.serve"):
         assert name in walked, name

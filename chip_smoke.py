@@ -9,7 +9,11 @@ Phases, each printing JSON lines:
 * build -- nvcc of every kernel source into ``build/kernels/``;
 * kernels -- every kernel held against its plain PyTorch version on the
   card, at the paper MLP's bucket shapes and one large shape, with its time,
-  the plain version's time and the HBM bound;
+  the plain version's time and the HBM bound; axpy_fold also as grouped
+  calls (a whole rbla fold of the MLP in fp32 and bf16, a column-mode B, a
+  ragged width, a mixed-dtype fold that launches twice, a large fold)
+  beside ``torch._foreach_lerp`` and the sum of one ``torch.lerp`` a
+  segment;
 * main_path -- ``run_simulation`` of ``examples/quickstart.py`` (the MNIST
   MLP at full width, 10 clients, r_max 64, 6 rbla rounds) with the launch
   counts of that run: one packed_agg launch per bucket per round, no plain
@@ -31,9 +35,9 @@ Phases, each printing JSON lines:
   and the last robust cohort through per-pair packed_robust, each held
   against its plan's result;
 * async_main -- ``run_async_simulation`` of the same model and clients,
-  fully async rbla with polynomial staleness, 60 uploads: one axpy_fold
-  launch per fold bucket and per base leaf, no plain version; then the
-  same run with the plain versions on the card, which it must reproduce;
+  fully async rbla with polynomial staleness, 60 uploads: one grouped
+  axpy_fold launch a fold, no plain version; then the same run with the
+  plain versions on the card, which it must reproduce;
 * async_semi -- the same with a buffer of 5: one packed_agg launch per
   bucket per flush;
 * async_codecs -- the last cohort int8- and bf16-encoded into one buffered
@@ -44,8 +48,8 @@ Phases, each printing JSON lines:
 * async_methods -- one fully async pass each of zeropad, fedavg (the
   default fold: packed_agg and axpy_fold), flora (the streaming stack)
   and rbla_norm (replay);
-* per_pair_fold -- one rbla fold with the packed path declined (two
-  axpy_fold launches a pair), equal to the packed fold bit for bit;
+* per_pair_fold -- one rbla fold with the fold plan declined (rates built
+  pair by pair, still one launch), equal to the planned fold bit for bit;
 * lora_kernels -- batched_lora_matmul and lora_matmul against their plain
   versions at the MLP's three serving paths (500 test rows, 11 slots x
   r_max 64), at bench_serve's full case (512 x 512 x 512, 128 tenants x
@@ -75,7 +79,10 @@ Phases, each printing JSON lines:
   tests/test_kernels.py's four SSD shapes, one mamba2-1.3b layer at batch 1
   and 4 (L 2048, 64 heads x 64, state 128, chunk 256), L = 2000 (Q 250), a
   prime L (Q 1) and a decay past -100 within a chunk; time, back-to-back
-  time, the plain version's time, the bound and the launch count;
+  time, the plain version's time, the bound (fp32 operations over 67
+  TFLOP/s) and the same work over the TF32 tensor-core rate, and the
+  launch count (one a call, whatever the kernel's phases); at the two
+  mamba2-1.3b layers also each phase's device time (``torch.profiler``);
 * mamba_main -- ``repro_torch.launch.serve``'s path at full width:
   mamba2-1.3b in bf16, batch 4, a 2048-token prompt, 16 new tokens,
   adapters at rank 8 of r_max 64 with a live B; 48 ssd_scan launches for
@@ -140,11 +147,15 @@ FLORA_PAIR_SIDES = ((784, 1), (200, 4), (10, 1))
 #: the segments of a flora round within the cap: the global at live rank 64
 #: first, then the staircase cohort's ranks
 FLORA_SEGS = (64, 6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
-#: one rbla fold of the MLP: its three packed buckets (rows, width) with
-#: per-row rates, then the three base trainables (the biases) mixed at one
-#: rate each
+#: per-call axpy_fold cases at the MLP's (rows, width) bucket shapes
 FOLD_BUCKETS = ((64, 784), (256, 200), (64, 10))
+#: one rbla fold of the MLP as one grouped call: each pair's A by rank row,
+#: its B (fan_out, r) in column mode, then the three base trainables (the
+#: biases) at one rate each
+FOLD_A_SIDES = ((64, 784), (64, 200), (64, 200))
+FOLD_B_SIDES = ((200, 64), (200, 64), (10, 64))
 FOLD_BASE_LEAVES = ((200,), (200,), (10,))
+TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 dense tensor cores
 #: relative Frobenius tolerance of an encoded flush against the fp32 one
 #: (benchmarks/bench_async_agg.py CODEC_TOL): bf16 keeps 8 mantissa bits,
 #: int8 one of 254 levels per row
@@ -190,6 +201,35 @@ def time_ms_back_to_back(fn, calls: int = 20, reps: int = 5) -> float:
         start.record()
         for _ in range(calls):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def time_ms_graph(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of one replay of a CUDA
+    graph that holds ``calls`` calls of ``fn``, per call: the device's time
+    alone, without the host work of issuing each call."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
@@ -490,6 +530,104 @@ def _fold_inputs(shape, gen, dtype=None, x_dtype=None, zero_rows=True):
     return y, x, alpha
 
 
+def _group_segments(gen, dtype=None, base_dtype=None, a_sides=FOLD_A_SIDES,
+                    b_sides=FOLD_B_SIDES, base=FOLD_BASE_LEAVES):
+    """(y, x, alpha, col) of one grouped fold: A sides with per-row rates,
+    B sides in column mode with the same kind of rates, base leaves at one
+    rate each; a third of the rank rows unowned (rate 0)."""
+    segs = []
+    for shape in a_sides:
+        y, x, alpha = _fold_inputs(shape, gen, dtype)
+        segs.append((y, x, alpha, False))
+    for fo, r in b_sides:
+        y, x, alpha = _fold_inputs((r, fo), gen, dtype)
+        segs.append((y.T.contiguous(), x.T.contiguous(), alpha, True))
+    for shape in base:
+        y, x, _ = _fold_inputs(shape, gen, base_dtype or dtype)
+        segs.append((y, x, 0.3, False))
+    return segs
+
+
+def check_axpy_group_case(label, segs):
+    """One grouped axpy_fold call (a whole fold's segments) on the card
+    against its plain version: to the bit in fp32, within one bf16 ulp of
+    the exact fp32 fold in bf16, one launch per (y, x, out) dtype triple.
+    Timed beside ``torch._foreach_lerp`` on the same tensors (one PyTorch
+    call computing the same function, rates as (R, 1) or (1, r) weights)
+    and the sum of one ``torch.lerp`` per segment; ``graph_ms`` is the
+    device's time alone (a CUDA graph of 20 calls), so ``ms`` minus it is
+    host work."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.rbla_agg import (axpy_fold_group,
+                                              axpy_fold_group_ref)
+    ys, xs, alphas, cols = (list(v) for v in zip(*segs))
+    before = runtime.LAUNCHES["axpy_fold"]
+    got = axpy_fold_group(ys, xs, alphas, cols=cols)
+    launches = runtime.LAUNCHES["axpy_fold"] - before
+    want = axpy_fold_group_ref(ys, xs, alphas, cols=cols)
+    exact = axpy_fold_group_ref([y.float() for y in ys], xs, alphas,
+                                cols=cols)
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for g, w, e, y in zip(got, want, exact, ys):
+        diff = (g.float() - w.float()).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if y.dtype == torch.bfloat16:
+            ok &= bool((diff <= 2.0 ** -7 * e.abs() + 1e-30).all())
+        else:
+            ok &= torch.equal(g, w)
+    triples = {(y.dtype, x.dtype) for y, x in zip(ys, xs)}
+    ok &= launches == len(triples)
+
+    def weight(y, a, col):
+        if not isinstance(a, torch.Tensor):
+            return torch.tensor(a, dtype=y.dtype, device=y.device)
+        a = a.to(y.dtype)
+        return a[None, :] if col else a.reshape(
+            a.shape + (1,) * (y.ndim - a.ndim))
+    lerp_x = [x.to(y.dtype) for y, x in zip(ys, xs)]
+    lerp_w = [weight(y, a, c) for y, a, c in zip(ys, alphas, cols)]
+
+    def kernel():
+        return axpy_fold_group(ys, xs, alphas, cols=cols)
+
+    def foreach():
+        return torch._foreach_lerp(ys, lerp_x, lerp_w)
+
+    def lerp_sum():
+        return [torch.lerp(y, x, w) for y, x, w in zip(ys, lerp_x, lerp_w)]
+    times = {
+        "ms": time_ms(kernel),
+        "back_to_back_ms": time_ms_back_to_back(kernel),
+        "plain_ms": time_ms(lambda: axpy_fold_group_ref(ys, xs, alphas,
+                                                        cols=cols)),
+        "graph_ms": time_ms_graph(kernel),
+        "library_ms": time_ms(foreach),
+        "library_back_to_back_ms": time_ms_back_to_back(foreach),
+        "library_graph_ms": time_ms_graph(foreach),
+        "lerp_sum_ms": time_ms(lerp_sum),
+        "lerp_sum_back_to_back_ms": time_ms_back_to_back(lerp_sum)}
+    n = sum(y.numel() for y in ys)
+    rates = sum(a.numel() for a in alphas if isinstance(a, torch.Tensor))
+    bytes_moved = sum(y.numel() * (2 * y.element_size() + x.element_size())
+                      for y, x in zip(ys, xs)) + 4 * rates
+    bms, by = bound(bytes_moved, 3 * n)
+    case = {"kernel": "axpy_fold", "case": label, "grouped": True,
+            "segments": len(ys), "shapes": [list(y.shape) for y in ys],
+            "column_mode": sum(cols),
+            "dtypes": sorted(f"{_dtype_name(a)}/{_dtype_name(b)}"
+                             for a, b in triples),
+            "launches": launches, "max_abs_err": err,
+            "tol": "0 in fp32; one bf16 ulp (2^-7 |exact|) in bf16", **times,
+            "bound_ms": bms, "bound_by": by}
+    emit(case)
+    if not ok:
+        raise AssertionError(f"grouped axpy_fold disagrees with its plain "
+                             f"version or launched {launches} times: {case}")
+    return case
+
+
 def _flora_plan_layouts(r_max=64, cap=512):
     """The packed_stack buckets of a main-path flora round (the staircase
     cohort at r_max storage, a global of live rank r_max at cap storage):
@@ -621,6 +759,20 @@ def phase_kernels() -> dict:
     for dtype in (f32, bf16):
         y, x, alpha = _fold_inputs((2048, 4096), gen, dtype)
         axpy.append(check_axpy_case(f"large {str(dtype)[6:]}", y, x, alpha))
+    # grouped: one call per fold
+    group = [check_axpy_group_case("rbla fold", _group_segments(gen)),
+             check_axpy_group_case("rbla fold bf16",
+                                   _group_segments(gen, bf16)),
+             check_axpy_group_case("column-mode B 4096x64", _group_segments(
+                 gen, a_sides=(), b_sides=((4096, 64),), base=())),
+             check_axpy_group_case("ragged width 33x4099", _group_segments(
+                 gen, a_sides=((33, 4099),), b_sides=((4099, 7),),
+                 base=((4099,),))),
+             check_axpy_group_case("mixed bf16 adapters, fp32 base",
+                                   _group_segments(gen, bf16, f32)),
+             check_axpy_group_case("large fp32 2048x4096", _group_segments(
+                 gen, a_sides=((2048, 4096),), b_sides=((4096, 2048),),
+                 base=((4096,),)))]
 
     def main_path_sum(cases, match, counts):
         rows = {}
@@ -661,18 +813,15 @@ def phase_kernels() -> dict:
         flora, lambda c, key: (c["case"] == f"per-pair {key[0]}"
                                and c["x_dtype"] == "float32"),
         {side: side[1] for side in FLORA_PAIR_SIDES})
-    # one main-path rbla fold: its three buckets, then the three biases
-    # (the two 200-wide ones share one case)
-    ax = main_path_sum(
-        axpy, lambda c, key: c["case"] == key,
-        {**{f"bucket {r}x{d}": 1 for r, d in FOLD_BUCKETS},
-         "base leaf 200": 2, "base leaf 10": 1})
+    # one main-path rbla fold: one grouped call
+    ax = main_path_sum(group, lambda c, key: c["case"] == key,
+                       {"rbla fold": 1})
     summary = {}
     for name, cases, row in (("packed_agg", packed, pk), ("rbla_agg", rbla, rk),
                              ("packed_robust", robust, rb),
                              ("packed_stack", stack, st),
                              ("flora_stack", flora, fl),
-                             ("axpy_fold", axpy, ax)):
+                             ("axpy_fold", axpy + group, ax)):
         summary[name] = {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": None,
@@ -680,6 +829,11 @@ def phase_kernels() -> dict:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row.get("library_ms")}
+    fold = group[0]
+    summary["axpy_fold"].update(
+        per="one grouped call: an rbla fold of the MLP (9 segments)",
+        back_to_back_ms=fold["back_to_back_ms"],
+        library="torch._foreach_lerp", lerp_sum_ms=fold["lerp_sum_ms"])
     return summary
 
 
@@ -1065,11 +1219,11 @@ def phase_async_main():
     per_fold = launches["axpy_fold"] / max(folds, 1)
     _async_line("async_main", ASYNC_CFG, hist, launches, plain, rec, secs,
                 axpy_fold_per_fold=per_fold)
-    want = len(FOLD_BUCKETS) + len(FOLD_BASE_LEAVES)
-    if folds != ASYNC_CFG["total_updates"] or per_fold != want:
+    # every leaf of an fp32 fold shares one dtype triple: one launch a fold
+    if folds != ASYNC_CFG["total_updates"] or per_fold != 1:
         raise AssertionError(f"async_main: {launches['axpy_fold']} axpy_fold "
-                             f"launches over {folds} folds, expected {want} "
-                             "a fold")
+                             f"launches over {folds} folds, expected one a "
+                             "fold")
     if any(plain.values()) or any(v for k, v in launches.items()
                                   if k != "axpy_fold"):
         raise AssertionError(f"async_main: launches {launches}, plain "
@@ -1211,13 +1365,14 @@ def phase_async_bf16_accum(rec):
 def phase_async_methods():
     """One fully async pass (one upload per client) of each other method:
     zeropad and fedavg take the default fold (a one-client packed_agg
-    round, then axpy_fold per float leaf), flora its streaming stack (base
-    leaves through axpy_fold) and rbla_norm the replay path (packed_agg
-    with norm_restore over the updates since the anchor)."""
+    round, then one grouped axpy_fold over every float leaf), flora its
+    streaming stack (the base leaves in one grouped axpy_fold) and
+    rbla_norm the replay path (packed_agg with norm_restore over the
+    updates since the anchor)."""
     n = ASYNC_CFG["n_clients"]
-    per_fold = {"zeropad": {"packed_agg": 3, "axpy_fold": 9},
-                "fedavg": {"packed_agg": 3, "axpy_fold": 9},
-                "flora": {"axpy_fold": 3},
+    per_fold = {"zeropad": {"packed_agg": 3, "axpy_fold": 1},
+                "fedavg": {"packed_agg": 3, "axpy_fold": 1},
+                "flora": {"axpy_fold": 1},
                 "rbla_norm": {"packed_agg": 3}}
     for method, want in per_fold.items():
         cfg = dict(ASYNC_CFG, method=method, total_updates=n, eval_every=n)
@@ -1233,7 +1388,8 @@ def phase_async_methods():
 
 def phase_per_pair_fold(rec):
     """One rbla fold of the last cohort's first upload into the final
-    async_main state, packed and with the packed path declined."""
+    async_main state, through the fold plan and with the plan declined
+    (rates built pair by pair)."""
     import torch
     from repro_torch.core.strategy import get_strategy
     from repro_torch.kernels import runtime
@@ -1250,17 +1406,16 @@ def phase_per_pair_fold(rec):
     same = all(torch.equal(x, y) for x, y in zip(
         tree_leaves((outs[0].adapters, outs[0].base_trainable)),
         tree_leaves((outs[1].adapters, outs[1].base_trainable))))
-    n_pairs = len(state.adapters)
     emit({"phase": "per_pair_fold",
           "packed_launches": counts[0][0]["axpy_fold"],
           "per_pair_launches": counts[1][0]["axpy_fold"],
           "plain_calls": sum(sum(c[1].values()) for c in counts),
           "bit_identical": same})
-    if (counts[0][0]["axpy_fold"] != 3 + len(FOLD_BASE_LEAVES)
-            or counts[1][0]["axpy_fold"] != 2 * n_pairs + len(FOLD_BASE_LEAVES)
+    # either way one grouped launch folds every leaf
+    if (counts[0][0]["axpy_fold"] != 1 or counts[1][0]["axpy_fold"] != 1
             or any(sum(c[1].values()) for c in counts) or not same):
         raise AssertionError("per_pair_fold: the per-pair fold does not "
-                             "reproduce the packed fold")
+                             "reproduce the planned fold")
 
 
 # ------------------------------------------------------------ serving slice --
@@ -1870,6 +2025,29 @@ def _ssd_work(b, l, h, p, n, q, s) -> tuple[int, int]:
     return bytes_moved, flops
 
 
+def _phase_ms(fn, calls: int = 5) -> dict:
+    """Device time per call of each of the scan's kernels (its phases), by
+    name, from ``torch.profiler`` over ``calls`` calls; empty where the
+    profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if "ssd_" in ev.key:
+            name = ev.key.split("ssd_", 1)[1].split("<", 1)[0]
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            out[name] = us / calls / 1e3
+    return out
+
+
 def check_ssd_case(label, b, l, h, p, n, chunk, scale, dtype, seed) -> dict:
     """ssd_scan on the card against ssd_scan_ref on the same inputs: fp32
     within the reference's 2e-3 of max|want|; bf16 operands against the
@@ -1907,12 +2085,17 @@ def check_ssd_case(label, b, l, h, p, n, chunk, scale, dtype, seed) -> dict:
     reps = 25 if b * l * h < 2 ** 20 else 10
     times = {"ms": time_ms(kernel, reps), "plain_ms": time_ms(plain, reps),
              "back_to_back_ms": time_ms_back_to_back(kernel, 10, 3)}
+    if label.startswith("mamba_layer"):
+        times["phases_ms"] = _phase_ms(kernel)
     bytes_moved, flops = _ssd_work(b, l, h, p, n, q, xdt.element_size())
     bms, by = bound(bytes_moved, flops)
+    # the same work at the rate of the tensor cores the kernel runs on
+    tc_ms, tc_by = bound(bytes_moved, flops, TF32_FLOPS_PER_S)
     case = {"kernel": "ssd_scan", "case": label, "shape": [b, l, h, p, n],
             "chunk": q, "dtype": _dtype_name(dtype), "a_cs_min": a_cs_min,
             "max_abs_err": err, "tol": tol, "finite": finite,
             "launches": launches, **times, "bound_ms": bms, "bound_by": by,
+            "bound_tf32_ms": tc_ms, "bound_tf32_by": tc_by,
             "library_ms": None, "bytes": bytes_moved, "flops": flops}
     emit(case)
     if not (finite and err <= tol and launches == 1):
@@ -1936,7 +2119,10 @@ def phase_ssd_kernels() -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "per": "one launch (batch 4, L 2048, bf16)"}
+            "library_ms": None, "per": "one launch (batch 4, L 2048, bf16)",
+            "back_to_back_ms": main["back_to_back_ms"],
+            "bound_tf32_ms": main["bound_tf32_ms"],
+            "phases_ms": main.get("phases_ms")}
 
 
 def _mamba_rig():

@@ -25,10 +25,9 @@ A plan turns a round into
    codec mix, backend, device) and the strategy's ``plan_knobs`` in a
    bounded LRU; see ``AggregationStrategy.plan``.
 
-The async fold reuses the layout: :func:`build_fold_plan` packs the server
-state and one arriving update into the same buckets and folds them in one
-``axpy_fold`` launch per bucket.  The per-leaf ``aggregate_tree*`` methods
-remain the plans' oracles.
+:func:`build_fold_plan` hands every pair side of the server state to the
+async fold's one grouped ``axpy_fold`` call, each leaf in its own layout.
+The per-leaf ``aggregate_tree*`` methods remain the plans' oracles.
 """
 from __future__ import annotations
 
@@ -38,8 +37,7 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_ref,
-                                          packed_agg, packed_agg_ref,
+from repro_torch.kernels.rbla_agg import (packed_agg, packed_agg_ref,
                                           packed_robust, packed_robust_ref,
                                           packed_stack, packed_stack_ref,
                                           stack_table)
@@ -916,49 +914,38 @@ def build_state_spec(adapters: PyTree, *, kind: str) -> CohortSpec:
 
 
 def build_fold_plan(strategy, spec: CohortSpec) -> Callable:
-    """Packed per-update fold (the async hot path).
+    """Per-update fold plan of a server state (the async hot path).
 
-    The server state and the arriving update pack into the same (width,
-    dtype) buckets as a one-client cohort and fold in **one** ``axpy_fold``
-    **launch per bucket** (its plain version on the ``ref`` backend): cost
-    O(state), whatever the number of pairs.  Returns ``fold_fn(state_ab,
-    upd_ab, row_mass, wa, rank_leaves) -> (new_ab, new_row_mass)``, where
-    ``rank_leaves`` are the update's per-pair rank tensors on the device
-    (data, so one plan serves every client) and every output is a new
-    tensor: the state is never written."""
-    buckets = _make_buckets(spec, use_mask=True)
+    Every pair side of the state becomes one segment of the fold's grouped
+    ``axpy_fold`` call, with RBLA's per-rank-row rates ``wa / (d + wa)``
+    on the rows the update owns (0 elsewhere); B keeps its own layout, its
+    rank axis last.  One launch per dtype triple folds the whole state,
+    whatever the number of pairs.  Returns
+    ``fold_fn(batch, state_ab, upd_ab, row_mass, wa, rank_leaves) ->
+    (new_ab, new_row_mass)``: the sides join ``batch`` (the strategy's
+    fold batch, which the caller runs) and ``new_ab`` holds its
+    placeholders; ``rank_leaves`` are the update's per-pair rank tensors
+    on the device (data, so one plan serves every client)."""
     dev = torch.device(spec.device)
-    kernel = spec.kind == "kernel"
+    # per pair: the storage-row indices and the leading (layer) dims
+    geo = [(torch.arange(meta.a_shape[-2], device=dev),
+            tuple(meta.a_shape[1:-2])) for meta in spec.pairs]
 
-    def fold_fn(state_ab, upd_ab, row_mass, wa, rank_leaves):
-        alphas, new_mass = [], []
-        for pi, meta in enumerate(spec.pairs):
-            r_st = meta.a_shape[-2]
-            owned = (torch.arange(r_st, device=dev)
-                     < rank_leaves[pi][..., None]).float()
-            dmass = row_mass[pi]
-            alphas.append(torch.where(owned > 0, wa / (dmass + wa), 0.0))
+    def fold_fn(batch, state_ab, upd_ab, row_mass, wa, rank_leaves):
+        new_ab, new_mass = [], []
+        for (rows, lead), st, up, dmass, rank in zip(
+                geo, state_ab, upd_ab, row_mass, rank_leaves):
+            owned = (rows < rank[..., None]).float()
+            alpha = torch.where(owned > 0, wa / (dmass + wa), 0.0)
             new_mass.append(dmass + wa * owned)
-        outs = []
-        for b in buckets:
-            y = _gather([_pack_prev_side(state_ab[s.pair_idx][s.side], s)
-                         for s in b.slots], dim=0)
-            x = _gather([_pack_prev_side(upd_ab[s.pair_idx][s.side], s)
-                         for s in b.slots], dim=0)
-            a_parts = []
-            for s in b.slots:
-                al = alphas[s.pair_idx]
-                mid = len(s.lead) - (al.ndim - 1)
-                al = al.reshape(tuple(al.shape[:-1]) + (1,) * mid
-                                + (al.shape[-1],))
-                a_parts.append(al.expand(s.lead + (s.r_st,)).reshape(s.rows))
-            a = _gather(a_parts, dim=0)
-            outs.append(axpy_fold(y, x, a, backend="kernel") if kernel
-                        else axpy_fold_ref(y, x, a))
-        new_ab = [{} for _ in spec.pairs]
-        for bi, b in enumerate(buckets):
-            for s in b.slots:
-                new_ab[s.pair_idx][s.side] = _unpack_slot(outs[bi], s)
+            mid = len(lead) - (alpha.ndim - 1)
+            if mid:             # one rank per leading index of the leaf
+                alpha = alpha.reshape(tuple(alpha.shape[:-1]) + (1,) * mid
+                                      + tuple(alpha.shape[-1:])).expand(
+                    lead + tuple(alpha.shape[-1:]))
+            new_ab.append({"A": batch.add(st["A"], up["A"], alpha),
+                           "B": batch.add(st["B"], up["B"], alpha,
+                                          col=True)})
         return new_ab, new_mass
 
     return fold_fn

@@ -12,9 +12,9 @@ Each method is one :class:`AggregationStrategy` that owns
   :meth:`AggregationStrategy.aggregate_adapters`, and
 * (e) a **per-update fold** for the async aggregation service
   (:meth:`AggregationStrategy.fold` and the ``supports_incremental``
-  declaration; see ``repro_torch.fl.async_agg``): the server state and the
-  arriving update pack into the plan's buckets and fold in one
-  ``axpy_fold`` launch per bucket,
+  declaration; see ``repro_torch.fl.async_agg``): every leaf of the server
+  state and the arriving update is one segment of a single grouped
+  ``axpy_fold`` call per fold (one launch per dtype triple),
 
 behind ``backend="auto" | "ref" | "kernel"`` (``"pallas"`` is an alias of
 ``"kernel"``): ``auto`` runs the kernels for tensors on a CUDA device and
@@ -39,10 +39,10 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_ref,
-                                          flora_stack, packed_agg,
-                                          packed_robust, packed_robust_ref,
-                                          rbla_agg)
+from repro_torch.kernels.rbla_agg import (axpy_fold_group,
+                                          axpy_fold_group_ref, flora_stack,
+                                          packed_agg, packed_robust,
+                                          packed_robust_ref, rbla_agg)
 from repro_torch.kernels.runtime import resolve_backend, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -558,10 +558,10 @@ class AggregationStrategy:
         ``n_examples``).  The update is aggregated as a single-element
         cohort through :meth:`aggregate`, then mixed into the state at
         rate ``alpha = w / (mass + w)`` -- a running weighted mean, exact
-        for fedavg and zeropad.  On the kernel backend the mix is one
-        ``axpy_fold`` launch per float leaf.  The state's tensors are never
-        written: the new state holds new tensors.  Returns ``(new_state,
-        fold_state)``."""
+        for fedavg and zeropad.  The mix of every float leaf (adapters and
+        base trainables) is one grouped ``axpy_fold`` call.  The state's
+        tensors are never written: the new state holds new tensors.
+        Returns ``(new_state, fold_state)``."""
         fs = fold_state if fold_state is not None else self.init_fold(state)
         w = float(update.n_examples if weight is None else weight)
         if w <= 0:
@@ -570,13 +570,14 @@ class AggregationStrategy:
         agg = self.aggregate(state, [update], weights=[w], backend=backend,
                              device=device)
         alpha = w / (fs.mass + w)
-        kind = resolve_backend(backend, device)
+        batch = _FoldBatch()
         new_adapters = state.adapters
         if state.adapters is not None and agg.adapters is not None:
-            new_adapters = _mix_trees(state.adapters, agg.adapters, alpha,
-                                      kind=kind)
-        new_base = _mix_trees(state.base_trainable, agg.base_trainable,
-                              alpha, kind=kind)
+            new_adapters = batch.add_tree(state.adapters, agg.adapters, alpha)
+        new_base = batch.add_tree(state.base_trainable, agg.base_trainable,
+                                  alpha)
+        new_adapters, new_base = batch.run(resolve_backend(backend, device),
+                                           (new_adapters, new_base))
         new_fs = FoldState(mass=fs.mass + w, row_mass=fs.row_mass,
                            n_folds=fs.n_folds + 1)
         current_rank = (adapter_live_ranks(new_adapters)
@@ -588,33 +589,52 @@ class AggregationStrategy:
             current_rank=current_rank), new_fs
 
 
-def _mix_leaf(old: torch.Tensor, new: torch.Tensor, alpha, *,
-              kind: str = "ref") -> torch.Tensor:
-    """One fold step on one leaf: ``old + alpha * (new - old)`` as a new
-    tensor in old's dtype.
+class _Slot:
+    """Where a leaf's fold result lands in a :class:`_FoldBatch`."""
+    __slots__ = ("index",)
 
-    ``alpha`` is a number (the uniform server mix) or a tensor shaped like
-    old's leading dims (one rate per leading index: RBLA's per-rank-row
-    mix).  Those leading dims flatten into the rows of one ``axpy_fold``
-    launch (``kind="kernel"``) or of its plain version (``"ref"``).
-    Integer leaves (rank bookkeeping) take ``new``."""
-    if not old.is_floating_point():
-        return new
-    k = alpha.ndim if isinstance(alpha, torch.Tensor) else 0
-    lead = tuple(old.shape[:k] if k else old.shape[:1])
-    rows = math.prod(lead)
-    y = old.reshape((rows,) + tuple(old.shape[len(lead):]))
-    x = new.reshape(y.shape)
-    a = alpha.reshape(rows) if k else alpha
-    out = (axpy_fold(y, x, a, backend="kernel") if kind == "kernel"
-           else axpy_fold_ref(y, x, a))
-    return out.reshape(old.shape)
+    def __init__(self, index: int):
+        self.index = index
 
 
-def _mix_trees(old: PyTree, new: PyTree, alpha, *,
-               kind: str = "ref") -> PyTree:
-    """Leafwise :func:`_mix_leaf` over parallel trees (one alpha)."""
-    return tree_map(lambda o, n: _mix_leaf(o, n, alpha, kind=kind), old, new)
+class _FoldBatch:
+    """The leaves of one fold, mixed by ONE grouped ``axpy_fold`` call: the
+    kernel (one launch per dtype triple) for ``kind="kernel"``, its plain
+    version for ``"ref"``.  :meth:`add` and :meth:`add_tree` return
+    placeholders that :meth:`run` replaces by the new tensors."""
+
+    def __init__(self):
+        self.ys, self.xs, self.alphas, self.cols = [], [], [], []
+
+    def add(self, old: torch.Tensor, new: torch.Tensor, alpha, *,
+            col: bool = False) -> _Slot:
+        """``old + alpha * (new - old)`` in old's dtype.  ``alpha`` is a
+        number or a tensor over old's leading dims (one rate per rank
+        row); ``col`` reads it over the leading dims and the last axis (a
+        LoRA B leaf, rank axis last)."""
+        self.ys.append(old)
+        self.xs.append(new)
+        self.alphas.append(alpha)
+        self.cols.append(col)
+        return _Slot(len(self.ys) - 1)
+
+    def add_tree(self, old: PyTree, new: PyTree, alpha) -> PyTree:
+        """Every float leaf of ``old`` mixed with ``new``'s at one rate;
+        integer leaves (rank bookkeeping) take ``new``'s."""
+        return tree_map(lambda o, n: self.add(o, n, alpha)
+                        if o.is_floating_point() else n, old, new)
+
+    def run(self, kind: str, tree: PyTree) -> PyTree:
+        """Fold every segment; returns ``tree`` with each placeholder
+        replaced by its result."""
+        if kind == "kernel":
+            outs = axpy_fold_group(self.ys, self.xs, self.alphas,
+                                   cols=self.cols, backend="kernel")
+        else:
+            outs = axpy_fold_group_ref(self.ys, self.xs, self.alphas,
+                                       cols=self.cols)
+        return tree_map(lambda t: outs[t.index] if isinstance(t, _Slot)
+                        else t, tree)
 
 
 # --------------------------------------------------------- the strategies --
@@ -681,13 +701,13 @@ class RBLAStrategy(AggregationStrategy):
                                dtype=torch.float32, device=pair["A"].device)
         return FoldState(row_mass=_map_pairs(zeros, state.adapters))
 
-    def _packed_fold(self, adapters, upd, row_mass, wa: float, kind: str):
-        """Fold through the packed layout: the state's pairs bucket by
-        (width, dtype) as a cohort plan does and the whole update folds in
-        one ``axpy_fold`` launch per bucket (its plain version on ``ref``),
-        instead of two per pair.  Returns ``(new_adapters, new_row_mass)``,
-        or ``None`` when the layout cannot be packed (the per-pair path
-        takes everything)."""
+    def _packed_fold(self, batch: _FoldBatch, adapters, upd, row_mass,
+                     wa: float, kind: str):
+        """Fold through the cached fold plan of the state's spec: each pair
+        side joins ``batch`` as one segment with its per-row rates.
+        Returns ``(new_adapters, new_row_mass)`` with the pair sides as
+        ``batch`` placeholders, or ``None`` when the layout cannot be
+        planned (the per-pair path takes everything)."""
         from .plan import (PlanUnavailable, _make_rebuilder, _walk_pairs,
                            build_fold_plan, build_state_spec)
         try:
@@ -708,7 +728,7 @@ class RBLAStrategy(AggregationStrategy):
             fold_fn = cache[spec] = build_fold_plan(self, spec)
         dev = torch.device(spec.device)
         new_ab, new_mass = fold_fn(
-            [{"A": p["A"], "B": p["B"]} for _, p in state_pairs],
+            batch, [{"A": p["A"], "B": p["B"]} for _, p in state_pairs],
             [{"A": p["A"], "B": p["B"]} for _, p in upd_pairs],
             _flat_pair_values(row_mass), wa,
             [torch.as_tensor(p["rank"], dtype=torch.int32, device=dev)
@@ -726,9 +746,11 @@ class RBLAStrategy(AggregationStrategy):
         gives the arriving update the rate ``w / (d_rho + w)`` on the rows
         it owns and 0 elsewhere, so rows no client has touched keep the
         anchor (retention for free) and folding a cohort one update at a
-        time reproduces the one-shot aggregate.  ``use_plan=False``
-        declines the packed path: two ``axpy_fold`` launches per pair (A,
-        and B transposed so its rank axis leads) on the kernel backend."""
+        time reproduces the one-shot aggregate.  Every pair side and base
+        trainable is one segment of a single grouped ``axpy_fold`` call
+        (B folds in its own layout, rank axis last).  ``use_plan=False``
+        declines the cached fold plan: the rates are built pair by pair,
+        to the same bits."""
         fs = fold_state if fold_state is not None else self.init_fold(state)
         w = float(update.n_examples if weight is None else weight)
         if w <= 0:
@@ -736,6 +758,7 @@ class RBLAStrategy(AggregationStrategy):
         dev = _state_device(state)
         kind = resolve_backend(backend, dev)
 
+        batch = _FoldBatch()
         new_adapters, new_row_mass = state.adapters, fs.row_mass
         rank_seen = update.rank
         wa = w
@@ -749,8 +772,8 @@ class RBLAStrategy(AggregationStrategy):
                 rank_seen = max(ranks) if ranks else None
             wa = self._fold_adapter_weight(update, w, int(rank_seen or 1))
             if use_plan:
-                packed = self._packed_fold(state.adapters, upd, fs.row_mass,
-                                           wa, kind)
+                packed = self._packed_fold(batch, state.adapters, upd,
+                                           fs.row_mass, wa, kind)
         if packed is not None:
             new_adapters, new_row_mass = packed
         elif state.adapters is not None and update.adapters is not None:
@@ -764,11 +787,9 @@ class RBLAStrategy(AggregationStrategy):
                          < rank[..., None]).float()
                 alpha = torch.where(owned > 0, wa / (dmass + wa), 0.0)
                 masses.append(dmass + wa * owned)
-                A = _mix_leaf(pair["A"], upd_pair["A"], alpha, kind=kind)
-                Bt = _mix_leaf(pair["B"].transpose(-1, -2),
-                               upd_pair["B"].transpose(-1, -2), alpha,
-                               kind=kind)
-                return {"A": A, "B": Bt.transpose(-1, -2).contiguous(),
+                return {"A": batch.add(pair["A"], upd_pair["A"], alpha),
+                        "B": batch.add(pair["B"], upd_pair["B"], alpha,
+                                       col=True),
                         "rank": pair["rank"]}
 
             new_adapters = _map_pairs(fold_pair, state.adapters,
@@ -780,9 +801,10 @@ class RBLAStrategy(AggregationStrategy):
 
         new_base = state.base_trainable
         if tree_leaves(update.base_trainable):
-            new_base = _mix_trees(state.base_trainable,
-                                  update.base_trainable, w / (fs.mass + w),
-                                  kind=kind)
+            new_base = batch.add_tree(state.base_trainable,
+                                      update.base_trainable,
+                                      w / (fs.mass + w))
+        new_adapters, new_base = batch.run(kind, (new_adapters, new_base))
 
         new_fs = FoldState(mass=fs.mass + w, row_mass=new_row_mass,
                            n_folds=fs.n_folds + 1)
@@ -1337,9 +1359,10 @@ class FloraStrategy(AggregationStrategy):
         kind = resolve_backend(backend, dev)
         new_base = state.base_trainable
         if tree_leaves(update.base_trainable):
-            new_base = _mix_trees(state.base_trainable,
-                                  update.base_trainable, w / (fs.mass + w),
-                                  kind=kind)
+            batch = _FoldBatch()
+            new_base = batch.run(kind, batch.add_tree(
+                state.base_trainable, update.base_trainable,
+                w / (fs.mass + w)))
 
         new_fs = FoldState(mass=fs.mass + w, n_folds=fs.n_folds + 1,
                            extra=extra)

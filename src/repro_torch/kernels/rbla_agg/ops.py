@@ -11,10 +11,13 @@ JAX plans call inside a traced round -- is the same function.
 """
 from __future__ import annotations
 
+import array
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import math
+import struct
 
 import numpy as np
 import torch
@@ -22,9 +25,9 @@ import torch
 from .. import build, runtime
 from ..runtime import check_launch as _check_launch
 from ..runtime import stream_handle as _stream
-from .ref import (ROBUST_MODES, axpy_fold_ref, flora_stack_ref,
-                  packed_agg_ref, packed_robust_ref, packed_stack_ref,
-                  rbla_agg_ref)
+from .ref import (ROBUST_MODES, axpy_fold_group_ref, axpy_fold_ref,
+                  flora_stack_ref, packed_agg_ref, packed_robust_ref,
+                  packed_stack_ref, rbla_agg_ref)
 
 #: legacy method names -> the kernels' two normalisation modes
 _NORM_BY = {"rbla": "mask", "zeropad": "weight"}
@@ -477,43 +480,151 @@ def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,
 
 
 # ---------------------------------------------------------------- axpy_fold --
+#: rate modes of a fold segment (``Mode`` in csrc/axpy_fold.cu)
+_VALUE, _FIRST, _ROW, _COL = 0, 1, 2, 3
+_F32 = struct.Struct("<f")      # a scalar rate's fp32 bits, as torch rounds
+
+
 @functools.cache
 def _axpy_lib() -> ctypes.CDLL:
     lib = build.load("axpy_fold")
-    lib.axpy_fold_rows.argtypes = [_P, _I, _P, _I, _P, _L, ctypes.c_float,
-                                   _P, _I, _L, _L, _P]
-    lib.axpy_fold_rows.restype = _I
+    lib.axpy_fold_group.argtypes = [_P, _I, _I, _I, _I, _P]
+    lib.axpy_fold_layout.argtypes = [_P, _I, _I, _I, _I, _P, _P]
+    lib.axpy_fold_group_table.argtypes = [_P, _I, _L, _I, _I, _I, _P]
+    for fn in (lib.axpy_fold_group, lib.axpy_fold_layout,
+               lib.axpy_fold_group_table, lib.axpy_fold_inline_segs,
+               lib.axpy_fold_table_bytes):
+        fn.restype = _I
     return lib
 
 
-def _axpy_fold_cuda(y, x, alpha, out_dtype):
-    r, d = y.shape
-    dev = y.device
-    for name, t in (("y", y), ("x", x)):
-        if t.dtype not in _OUT_CODES:
-            raise TypeError(f"axpy_fold: {name} dtype {t.dtype} not in "
-                            f"{list(_OUT_CODES)}")
-    if x.device != dev:
-        raise ValueError(f"axpy_fold: x is on {x.device}, y on {dev}")
-    # a transposed or sliced view is copied once into row-major order
-    y, x = y.contiguous(), x.contiguous()
-    ptr, n_alpha, value = None, 1, 0.0
-    if isinstance(alpha, torch.Tensor):
-        alpha = _on(alpha, dev, torch.float32, "alpha").reshape(-1)
-        ptr, n_alpha = alpha.data_ptr(), alpha.numel()
-    else:
-        value = float(alpha)
-    out = torch.empty((r, d), dtype=out_dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = _axpy_lib().axpy_fold_rows(
-            y.data_ptr(), _OUT_CODES[y.dtype], x.data_ptr(),
-            _OUT_CODES[x.dtype], ptr, n_alpha, value, out.data_ptr(),
-            _OUT_CODES[out_dtype], r, d, _stream(dev))
-    _check_launch(err, "axpy_fold", _axpy_lib())
-    runtime.LAUNCHES["axpy_fold"] += 1
-    return out
+def _fold_segment(y, x, alpha, col: bool) -> tuple[int, int, int, int]:
+    """Check one segment of a grouped fold; returns its kernel geometry
+    ``(rows, width, col_group, mode)``: memory rows of ``width``
+    contiguous elements, and where each element's rate comes from."""
+    if x.shape != y.shape:
+        raise ValueError(f"axpy_fold: x {tuple(x.shape)} vs y "
+                         f"{tuple(y.shape)}")
+    return _geometry(y.shape, alpha.shape if isinstance(alpha, torch.Tensor)
+                     else None, col)
+
+
+@functools.lru_cache(maxsize=4096)
+def _geometry(shape, alpha_shape, col: bool) -> tuple[int, int, int, int]:
+    """:func:`_fold_segment` for a y of ``shape`` and a rate that is a
+    number (``alpha_shape`` None) or a tensor of ``alpha_shape``; a fold
+    sees the same few shapes again and again."""
+    n = math.prod(shape)
+    if alpha_shape is None or (not alpha_shape and not col):
+        rows = shape[0] if shape else 1
+        return rows, n // rows if rows else 0, 0, \
+            _VALUE if alpha_shape is None else _FIRST
+    got = tuple(alpha_shape)
+    if col:
+        want = tuple(shape[:-2]) + tuple(shape[-1:])
+        if len(shape) < 2 or got != want:
+            raise ValueError(f"axpy_fold: column-mode alpha {got} != {want} "
+                             f"(y {tuple(shape)}: its leading dims and its "
+                             "last axis)")
+        return n // shape[-1], shape[-1], shape[-2], _COL
+    want = tuple(shape[:len(got)])
+    if got != want:
+        raise ValueError(f"axpy_fold: alpha {got} != {want} (y's leading "
+                         "dims)")
+    rows = math.prod(got)
+    return rows, n // rows if rows else 0, 0, _ROW
+
+
+def _axpy_group_cuda(ys, xs, alphas, cols, out_dtype=None) -> list:
+    """Check every segment and fold them all: one launch per (y, x, out)
+    dtype triple.  Returns the outputs in order (each in ``out_dtype``,
+    default its y's).  A segment is eight 8-byte words of csrc's SegIn."""
+    dev = ys[0].device
+    index = ys[0].get_device()
+    outs, keep, groups = [], [], {}
+    for y, x, alpha, col in zip(ys, xs, alphas, cols):
+        rows, width, col_group, mode = _fold_segment(y, x, alpha, col)
+        if y.dtype not in _OUT_CODES or x.dtype not in _OUT_CODES:
+            raise TypeError(f"axpy_fold: y {y.dtype}, x {x.dtype}: each "
+                            f"must be one of {list(_OUT_CODES)}")
+        if y.get_device() != index or x.get_device() != index:
+            raise ValueError(f"axpy_fold: y is on {y.device}, x on "
+                             f"{x.device}, the fold on {dev}")
+        # a transposed or sliced view is copied once into row-major order
+        if not y.is_contiguous():
+            y = y.contiguous()
+        if not x.is_contiguous():
+            x = x.contiguous()
+        out = (torch.empty_like(y) if out_dtype is None
+               else torch.empty_like(y, dtype=out_dtype))
+        outs.append(out)
+        if not rows or not width:
+            continue
+        if mode == _VALUE:
+            ptr, bits = 0, int.from_bytes(_F32.pack(alpha), "little")
+        else:
+            if alpha.get_device() != index:
+                raise ValueError(f"axpy_fold: alpha is on {alpha.device}, "
+                                 f"the fold on {dev}")
+            if alpha.dtype != torch.float32 or not alpha.is_contiguous():
+                alpha = alpha.to(torch.float32).contiguous()
+            ptr, bits = alpha.data_ptr(), 0
+        keep += (y, x, alpha)
+        groups.setdefault((y.dtype, x.dtype, out.dtype), []).extend(
+            (y.data_ptr(), x.data_ptr(), out.data_ptr(), ptr, rows, width,
+             col_group, bits | mode << 32))
+    lib = _axpy_lib()
+    with (torch.cuda.device(dev) if torch.cuda.current_device() != index
+          else contextlib.nullcontext()):
+        stream = _stream(dev)
+        for (ty, tx, to), words in groups.items():
+            codes = (_OUT_CODES[ty], _OUT_CODES[tx], _OUT_CODES[to])
+            table = array.array("q", words)
+            addr, n = table.buffer_info()[0], len(words) // 8
+            if n <= lib.axpy_fold_inline_segs():
+                err = lib.axpy_fold_group(addr, n, *codes, stream)
+            else:       # the table goes to the card by one async copy
+                host = torch.empty(n * lib.axpy_fold_table_bytes(),
+                                   dtype=torch.uint8, pin_memory=True)
+                tiles = ctypes.c_int64()
+                err = lib.axpy_fold_layout(addr, n, *codes, host.data_ptr(),
+                                           ctypes.byref(tiles))
+                _check_launch(err, "axpy_fold", lib)
+                dev_table = host.to(dev, non_blocking=True)
+                err = lib.axpy_fold_group_table(dev_table.data_ptr(), n,
+                                                tiles.value, *codes, stream)
+            _check_launch(err, "axpy_fold", lib)
+            runtime.LAUNCHES["axpy_fold"] += 1
+    return outs
+
+
+def axpy_fold_group(ys, xs, alphas, *, cols=None, backend: str = "auto"):
+    """Fold many leaves in one call: ``ys[i] + alphas[i] * (xs[i] - ys[i])``
+    for every segment i, each result a new tensor in ``ys[i]``'s dtype and
+    shape (no ``y`` is written).
+
+    ``alphas[i]`` is a number (one rate for the leaf), a 0-d tensor, or a
+    tensor over ``ys[i]``'s leading dims (one rate per rank row: RBLA's
+    per-row mix, 0 on rows the client does not own).  ``cols[i]`` true
+    reads the rates along the leaf's leading dims and its LAST axis: a
+    LoRA B leaf ``(..., fan_out, r)`` folds in its own layout.  On the
+    card every segment whose (y, x, out) dtypes agree folds in ONE kernel
+    launch (``runtime.LAUNCHES["axpy_fold"]`` counts each); on the CPU the
+    plain version :func:`axpy_fold_group_ref` runs."""
+    n = len(ys)
+    if len(xs) != n or len(alphas) != n or (cols is not None
+                                            and len(cols) != n):
+        raise ValueError(f"axpy_fold_group: {n} ys, {len(xs)} xs, "
+                         f"{len(alphas)} alphas"
+                         + ("" if cols is None else f", {len(cols)} cols"))
+    if not n:
+        return []
+    cols = (False,) * n if cols is None else cols
+    if runtime.use_kernel(backend, ys[0], "axpy_fold"):
+        return _axpy_group_cuda(ys, xs, alphas, cols)
+    for y, x, a, c in zip(ys, xs, alphas, cols):
+        _fold_segment(y, x, a, c)
+    return axpy_fold_group_ref(ys, xs, alphas, cols=cols)
 
 
 def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
@@ -525,7 +636,8 @@ def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
     mix) or an (R,) vector (RBLA's per-row mix: rows the client does not
     own take 0 and pass ``y`` through).  Trailing dims flatten into D and
     are restored.  The result is a new tensor in y's dtype; ``y`` is never
-    written.  ``generator``: with a bf16 ``y``, the fold is computed in fp32
+    written.  On the card this is a one-segment :func:`axpy_fold_group`.
+    ``generator``: with a bf16 ``y``, the fold is computed in fp32
     and rounded back to bf16 stochastically with noise drawn from this
     ``torch.Generator`` (on y's device), so a long stream of low-precision
     folds stays unbiased (``repro_torch.core.codec.stochastic_round``)."""
@@ -540,7 +652,7 @@ def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
     rounds = generator is not None and y.dtype == torch.bfloat16
     out_dtype = torch.float32 if rounds else y.dtype
     if runtime.use_kernel(backend, y, "axpy_fold"):
-        out = _axpy_fold_cuda(y2, x2, alpha, out_dtype)
+        out = _axpy_group_cuda([y2], [x2], [alpha], [False], out_dtype)[0]
     else:
         out = axpy_fold_ref(y2, x2, alpha, out_dtype=out_dtype)
     if rounds:
@@ -551,6 +663,7 @@ def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
 
 __all__ = ["packed_agg", "packed_agg_inline", "rbla_agg", "packed_robust",
            "packed_stack", "flora_stack", "StackTable", "stack_table",
-           "flora_table", "axpy_fold", "packed_agg_ref", "rbla_agg_ref",
-           "packed_robust_ref", "packed_stack_ref", "flora_stack_ref",
-           "axpy_fold_ref", "MAX_ROBUST_CLIENTS"]
+           "flora_table", "axpy_fold", "axpy_fold_group", "packed_agg_ref",
+           "rbla_agg_ref", "packed_robust_ref", "packed_stack_ref",
+           "flora_stack_ref", "axpy_fold_ref", "axpy_fold_group_ref",
+           "MAX_ROBUST_CLIENTS"]

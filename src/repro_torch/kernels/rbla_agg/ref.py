@@ -68,6 +68,13 @@ def rbla_agg_ref(x, ranks, weights, *, norm_by: str = "mask"):
                    None).to(x.dtype)
 
 
+def _fold(y, x, a, out_dtype=None):
+    """``y + a * (x - y)`` as three separately rounded fp32 operations, in
+    ``out_dtype`` (default y's); ``a`` broadcasts against y."""
+    yf = y.float()
+    return (yf + a * (x.float() - yf)).to(out_dtype or y.dtype)
+
+
 def axpy_fold_ref(y, x, alpha, *, out_dtype=None):
     """y, x (R, *dims); alpha a scalar or (R,) -> ``y + alpha * (x - y)``
     in fp32 with alpha broadcast over the trailing dims, in ``out_dtype``
@@ -77,8 +84,31 @@ def axpy_fold_ref(y, x, alpha, *, out_dtype=None):
     a = torch.as_tensor(alpha, dtype=torch.float32, device=y.device)
     if a.ndim == 1:
         a = a.reshape((y.shape[0],) + (1,) * (y.ndim - 1))
-    yf = y.float()
-    return (yf + a * (x.float() - yf)).to(out_dtype or y.dtype)
+    return _fold(y, x, a, out_dtype)
+
+
+def _fold_rate(alpha, y, col: bool = False):
+    """A segment's rate shaped to broadcast against ``y``: a number, a
+    tensor over y's leading dims (one rate per rank row), or with ``col``
+    the same rates over y's leading dims and its LAST axis (a LoRA B leaf
+    ``(..., fan_out, r)``)."""
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=y.device)
+    if col:
+        return a.reshape(tuple(a.shape[:-1]) + (1,) + tuple(a.shape[-1:]))
+    return a.reshape(tuple(a.shape) + (1,) * (y.ndim - a.ndim))
+
+
+def axpy_fold_group_ref(ys, xs, alphas, *, cols=None):
+    """The grouped fold: :func:`axpy_fold_ref`'s arithmetic on every
+    segment ``(ys[i], xs[i], alphas[i])`` (rates as :func:`_fold_rate`
+    reads them, ``cols[i]`` for column mode), each result in y's dtype.
+    Counts one plain call per (y, x) dtype pair among the non-empty
+    segments: one per launch the kernel would make."""
+    cols = (False,) * len(ys) if cols is None else tuple(cols)
+    runtime.PLAIN_CALLS["axpy_fold"] += len(
+        {(y.dtype, x.dtype) for y, x in zip(ys, xs) if y.numel()})
+    return [_fold(y, x, _fold_rate(a, y, c))
+            for y, x, a, c in zip(ys, xs, alphas, cols)]
 
 
 def flora_stack_ref(x, scales, segs, out_rows: int):

@@ -1,4 +1,4 @@
 from .ops import ssd_scan
-from .ref import chunk_len, ssd_scan_ref
+from .ref import chunk_len, ssd_scan_phases, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_scan_ref", "chunk_len"]
+__all__ = ["ssd_scan", "ssd_scan_ref", "ssd_scan_phases", "chunk_len"]

@@ -24,9 +24,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
-    lib.ssd_scan_chunked.argtypes = [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L,
-                                     _L, _L, _L, _P]
+    lib.ssd_scan_chunked.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L,
+                                     _L, _L, _L, _L, _P]
     lib.ssd_scan_chunked.restype = _I
+    lib.ssd_scan_workspace_floats.argtypes = [_L] * 6
+    lib.ssd_scan_workspace_floats.restype = _L
     return lib
 
 
@@ -75,11 +77,14 @@ def _ssd_cuda(xdt, dta, bm, cm, q):
     dev = xdt.device
     y = torch.empty_like(xdt)
     h_final = torch.empty((b, h, p, n), dtype=xdt.dtype, device=dev)
+    # the phases' fp32 scratch: a_cs, C B^T per chunk, the chunk states
+    ws = torch.empty(_lib().ssd_scan_workspace_floats(b, l, h, p, n, q),
+                     dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().ssd_scan_chunked(
             xdt.data_ptr(), dta.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-            y.data_ptr(), h_final.data_ptr(), _CODES[xdt.dtype], b, l, h, p,
-            n, q, runtime.stream_handle(dev))
+            y.data_ptr(), h_final.data_ptr(), ws.data_ptr(),
+            _CODES[xdt.dtype], b, l, h, p, n, q, runtime.stream_handle(dev))
     runtime.check_launch(err, "ssd_scan", _lib())
     runtime.LAUNCHES["ssd_scan"] += 1
     return y, h_final
@@ -90,10 +95,12 @@ def ssd_scan(xdt, dta, bm, cm, chunk: int = 256, *, backend: str = "auto"):
     (B,L,N).  Returns (y (B,L,H,P), h_final (B,H,P,N)) in xdt's dtype.
 
     On the card xdt, bm and cm are fp32 or bf16 (one dtype) and dta fp32,
-    all contiguous; the kernel computes in fp32.  A shape beyond its limits
-    (batch or heads above 65535, or a chunk and state whose tiles need
-    more shared memory than a block has) fails the launch with CUDA's
-    "invalid argument"."""
+    all contiguous; the kernel's four phases (``csrc/ssd_scan.cu``: a_cs
+    and C B^T per chunk, the chunk states, the carry over chunks, the
+    outputs) run on the tensor cores with fp32 accumulation and count as
+    one launch.  A shape beyond its limits (more than 65535 64-row tiles
+    in a chunk or 64 x 64 tiles of P x N, or 2^31 blocks) fails the launch
+    with CUDA's "invalid argument"."""
     _check_shapes(xdt, dta, bm, cm)
     if runtime.use_kernel(backend, xdt, "ssd_scan"):
         return _ssd_cuda(xdt, dta, bm, cm, chunk_len(xdt.shape[1], chunk))

@@ -16,7 +16,8 @@ from _torch_parity import BF16_TOL, F32_TOL, assert_close, need_cuda
 from repro_torch.core import strategy as ts
 from repro_torch.fl import FLConfig, run_simulation
 from repro_torch.kernels import runtime
-from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_ref,
+from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_group,
+                                          axpy_fold_group_ref, axpy_fold_ref,
                                           flora_stack, flora_stack_ref,
                                           packed_agg, packed_agg_ref,
                                           packed_robust, packed_robust_ref,
@@ -463,6 +464,123 @@ def test_axpy_fold_kernel_stochastic_rounding_to_bf16():
     assert bool(((mean - exact).abs() <= 0.5 * one_ulp).all())
 
 
+# -------------------------------------------------------- axpy_fold_group --
+#: (y shape, rate kind) of one grouped fold: the MLP's A and B sides at
+#: r_max 64 (B in its own layout, "col"), a ragged width, a layered pair,
+#: its biases at one rate ("value"), a 0-d rate ("first")
+GROUP_SEGMENTS = [((64, 784), "row"), ((200, 64), "col"), ((64, 200), "row"),
+                  ((200, 64), "col"), ((64, 10), "row"), ((10, 64), "col"),
+                  ((33, 4099), "row"), ((3, 8, 12), "row2"),
+                  ((3, 10, 8), "col"), ((200,), "value"), ((10,), "first"),
+                  ((), "value")]
+
+
+def _group_inputs(seed, dtype=torch.float32, x_dtype=None,
+                  segments=GROUP_SEGMENTS):
+    rng = np.random.default_rng(seed)
+    ys, xs, alphas, cols = [], [], [], []
+    for shape, kind in segments:
+        ys.append(torch.as_tensor(rng.normal(size=shape).astype(
+            np.float32)).to(dtype).cuda())
+        xs.append(torch.as_tensor(rng.normal(size=shape).astype(
+            np.float32)).to(x_dtype or dtype).cuda())
+        if kind in ("value", "first"):
+            a = np.float32(rng.uniform(0.05, 1.0))
+            alphas.append(float(a) if kind == "value"
+                          else torch.tensor(a, device="cuda"))
+        else:
+            ashape = {"row": shape[:1], "row2": shape[:2],
+                      "col": shape[:-2] + shape[-1:]}[kind]
+            a = rng.uniform(0.05, 1.0, ashape).astype(np.float32)
+            a[rng.random(ashape) < 0.3] = 0.0
+            alphas.append(torch.as_tensor(a).cuda())
+        cols.append(kind == "col")
+    return ys, xs, alphas, cols
+
+
+def _check_group(ys, xs, alphas, cols, launches):
+    before = [y.clone() for y in ys]
+    runtime.reset_counts()
+    got = axpy_fold_group(ys, xs, alphas, cols=cols)
+    assert runtime.LAUNCHES["axpy_fold"] == launches
+    assert runtime.PLAIN_CALLS["axpy_fold"] == 0
+    want = axpy_fold_group_ref(ys, xs, alphas, cols=cols)
+    torch.cuda.synchronize()
+    for g, w, y, b in zip(got, want, ys, before):
+        assert g.is_cuda and g.dtype == y.dtype and g.shape == y.shape
+        assert torch.equal(y, b)                      # y is never written
+        if y.dtype == torch.float32:
+            assert torch.equal(g, w)
+        else:                                         # one bf16 ulp
+            ulp = 2.0 ** -7 * w.float().abs() + 1e-30
+            assert bool(((g.float() - w.float()).abs() <= ulp).all())
+    return got
+
+
+@pytest.mark.parametrize("dtypes", [("f32", "f32"), ("bf16", "f32"),
+                                    ("bf16", "bf16")])
+def test_axpy_fold_group_kernel_matches_plain(dtypes):
+    """A whole fold's segments in one launch, against the plain grouped
+    fold: to the bit in fp32, within one bf16 ulp in bf16."""
+    need_cuda()
+    y_dtype, x_dtype = DTYPES[dtypes[0]], DTYPES[dtypes[1]]
+    _check_group(*_group_inputs(1, y_dtype, x_dtype), launches=1)
+
+
+def test_axpy_fold_group_kernel_splits_dtypes_and_takes_views():
+    """A mixed fold launches once per dtype triple; a misaligned view takes
+    the scalar path, a transposed one is copied first."""
+    need_cuda()
+    f32 = _group_inputs(2)
+    bf = _group_inputs(3, torch.bfloat16, segments=GROUP_SEGMENTS[:3])
+    flat = torch.empty(64 * 784 + 1, device="cuda")
+    shifted = flat[1:].view(64, 784).copy_(f32[0][0])
+    assert shifted.data_ptr() % 16 != 0
+    ys = f32[0] + bf[0] + [shifted, f32[0][0].T]
+    xs = f32[1] + bf[1] + [f32[1][0], f32[1][0].T]
+    alphas = f32[2] + bf[2] + [f32[2][0], 0.25]
+    cols = f32[3] + bf[3] + [False, False]
+    _check_group(ys, xs, alphas, cols, launches=2)
+
+
+def test_axpy_fold_group_kernel_device_table_and_no_host_sync():
+    """Past the segments one launch carries in its parameters the table
+    goes to the card by one async copy: still one launch, the same bits,
+    and neither path synchronises with the host."""
+    need_cuda()
+    small = _group_inputs(4)
+    big = _group_inputs(5, segments=GROUP_SEGMENTS * 4)
+    assert len(big[0]) > 32
+    _check_group(*small, launches=1)
+    _check_group(*big, launches=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        axpy_fold_group(*small[:3], cols=small[3])
+        axpy_fold_group(*big[:3], cols=big[3])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_axpy_fold_group_kernel_nan_and_refusals():
+    need_cuda()
+    ys, xs, alphas, cols = _group_inputs(6, segments=GROUP_SEGMENTS[:2])
+    xs[1][5, 3] = float("nan")
+    alphas[1][3] = 0.0
+    got = axpy_fold_group(ys, xs, alphas, cols=cols)
+    want = axpy_fold_group_ref(ys, xs, alphas, cols=cols)
+    assert torch.equal(torch.isnan(got[1]), torch.isnan(want[1]))
+    assert bool(torch.isnan(got[1][5, 3]))
+    with pytest.raises(ValueError, match="always takes the kernel"):
+        axpy_fold_group(ys, xs, alphas, cols=cols, backend="ref")
+    with pytest.raises(ValueError, match="is on cpu"):
+        axpy_fold_group(ys, xs, [alphas[0].cpu(), alphas[1]], cols=cols)
+    with pytest.raises(ValueError, match="column-mode alpha"):
+        axpy_fold_group(ys[1:], xs[1:], [alphas[0].new_zeros(200)],
+                        cols=[True])
+
+
 # ------------------------------------------- the async slice on the card --
 def _fold_cohort(seed, n=4, layers=None, storage=8):
     """A state (adapters at ``storage`` rank rows) and ``n`` uploads."""
@@ -501,9 +619,10 @@ def _to_cuda_update(u):
                                   "flora"])
 def test_fold_kernel_paths_match_ref(name, layers):
     """Every incremental strategy's fold on the card against its ref fold:
-    the packed fold (one axpy_fold per bucket), the per-pair fold (two per
-    pair, the same bits), the default fold (packed_agg + axpy_fold) and
-    flora's stack within its cap (axpy_fold for the base leaf)."""
+    the planned fold and the per-pair fold (the same bits), the default
+    fold (packed_agg + axpy_fold) and flora's stack within its cap
+    (axpy_fold for the base leaf); every fold is one grouped axpy_fold
+    launch."""
     need_cuda()
     from repro_torch.tree import tree_leaves
     strat = ts.get_strategy(name)
@@ -536,9 +655,8 @@ def test_fold_kernel_paths_match_ref(name, layers):
             else:
                 assert torch.equal(a.cpu(), b)
         if name == "rbla" and not layers:
-            n_pairs = len(state.adapters)
-            assert runtime.LAUNCHES["axpy_fold"] == len(ups) * (
-                (3 if use_plan else 2 * n_pairs) + 1)
+            # one grouped launch per fold: every leaf is fp32
+            assert runtime.LAUNCHES["axpy_fold"] == len(ups)
 
 
 def test_fold_never_writes_the_state_on_the_card():
@@ -615,7 +733,7 @@ def test_async_simulation_kernel_folds_match_plain_folds():
               eval_every=4)
     runtime.reset_counts()
     got = run_async_simulation(AsyncFLConfig(**kw))
-    assert runtime.LAUNCHES["axpy_fold"] == 8 * 6
+    assert runtime.LAUNCHES["axpy_fold"] == 8             # one a fold
     assert not any(runtime.PLAIN_CALLS.values())
     want = run_async_simulation(AsyncFLConfig(agg_backend="ref", **kw))
     assert got.test_acc == want.test_acc
@@ -906,6 +1024,27 @@ def test_ssd_scan_kernel_matches_plain(b, l, h, p, n, chunk, scale, dtype):
     assert y.dtype == xdt.dtype and hl.dtype == xdt.dtype
     assert hl.shape == (b, h, p, n)
     assert torch.isfinite(y.float()).all() and torch.isfinite(hl.float()).all()
+    tol = BF16_TOL if dtype == "bf16" else 2e-3
+    assert_close(y, want_y, tol, "y")
+    assert_close(hl, want_h, tol, "h_final")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssd_scan_kernel_at_mamba_batch_4(dtype):
+    """The main path's shape (one mamba2-1.3b layer of a batch-4 prefill,
+    L 2048, Q 256): one launch, fp32 within 2e-3 of max|want|, bf16
+    against the fp32-upcast plain version within 2e-2."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    need_cuda()
+    xdt, dta, bm, cm = _ssd_inputs(4, 2048, 64, 64, 128, 0.7, 4)
+    if dtype == "bf16":
+        xdt, bm, cm = xdt.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    runtime.reset_counts()
+    y, hl = ssd_scan(xdt, dta, bm, cm, 256)
+    assert runtime.LAUNCHES["ssd_scan"] == 1
+    want_y, want_h = ssd_scan_ref(xdt.float(), dta, bm.float(), cm.float(),
+                                  256)
+    torch.cuda.synchronize()
     tol = BF16_TOL if dtype == "bf16" else 2e-3
     assert_close(y, want_y, tol, "y")
     assert_close(hl, want_h, tol, "h_final")

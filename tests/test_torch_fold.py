@@ -8,8 +8,12 @@ one-shot aggregate for every incremental strategy.
 
 The fold is three separately rounded fp32 operations per element in both
 packages, so folds agree within 2e-5 of max|want| (the JAX side runs XLA's
-CPU kernels); the port's packed and per-pair folds run the same arithmetic
-and agree exactly.
+CPU kernels); the port's planned and per-pair folds run the same arithmetic
+and agree exactly.  Every fold is one grouped ``axpy_fold`` call
+(``axpy_fold_group``): its plain version is held bit for bit against
+per-leaf ``axpy_fold_ref`` and within 2e-5 against the JAX kernel, and
+every strategy's fold bit for bit against the per-leaf fold (one
+``axpy_fold`` per leaf, B transposed) that it replaced.
 """
 import jax
 import jax.numpy as jnp
@@ -27,7 +31,8 @@ from repro.lora import init_adapters
 from repro_torch.core import plan as tplan
 from repro_torch.core import strategy as ts
 from repro_torch.kernels import runtime
-from repro_torch.kernels.rbla_agg import axpy_fold, axpy_fold_ref
+from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_group,
+                                          axpy_fold_group_ref, axpy_fold_ref)
 from repro_torch.tree import tree_leaves, tree_map
 
 INCREMENTAL = ["fedavg", "zeropad", "rbla", "rbla_ranked", "flora"]
@@ -137,6 +142,126 @@ def test_axpy_fold_refuses_bad_shapes_and_kernel_on_cpu():
         axpy_fold(y, y, 0.5, backend="kernel")
 
 
+# ------------------------------------------------------ axpy_fold_group --
+#: (label, y shape, rate kind): "row" rates over the leading dims
+#: ("row2" over two of them), "col" over the leading dims and the last
+#: axis (a LoRA B leaf), "value" one number, "first" a 0-d tensor
+GROUP_SEGMENTS = [
+    ("A 64x784", (64, 784), "row"),
+    ("B 784x64", (784, 64), "col"),
+    ("A 64x200 ragged", (64, 203), "row"),
+    ("B 200x64", (200, 64), "col"),
+    ("A layered 3x8x12", (3, 8, 12), "row2"),
+    ("B layered 3x10x8", (3, 10, 8), "col"),
+    ("bias 200", (200,), "value"),
+    ("bias 10", (10,), "first"),
+    ("scalar leaf", (), "value"),
+]
+
+
+def _group_inputs(seed, dtype=torch.float32, segments=GROUP_SEGMENTS):
+    """numpy-made (ys, xs, alphas, cols) of one grouped fold; a third of
+    the rank rows take rate 0 (rows the client does not own)."""
+    rng = np.random.default_rng(seed)
+    ys, xs, alphas, cols = [], [], [], []
+    for _, shape, kind in segments:
+        ys.append(torch.as_tensor(rng.normal(size=shape).astype(np.float32)))
+        xs.append(torch.as_tensor(rng.normal(size=shape).astype(np.float32)))
+        if kind in ("value", "first"):
+            a = np.float32(rng.uniform(0.05, 1.0))
+            alphas.append(float(a) if kind == "value"
+                          else torch.tensor(a))
+        else:
+            ashape = {"row": shape[:1], "row2": shape[:2],
+                      "col": shape[:-2] + shape[-1:]}[kind]
+            a = rng.uniform(0.05, 1.0, ashape).astype(np.float32)
+            a[rng.random(ashape) < 0.3] = 0.0
+            alphas.append(torch.as_tensor(a))
+        cols.append(kind == "col")
+    return ([y.to(dtype) for y in ys], [x.to(dtype) for x in xs], alphas,
+            cols)
+
+
+def _per_leaf(y, x, alpha, col):
+    """One segment through per-leaf ``axpy_fold_ref``, the parent's route:
+    rank rows leading (B transposed), trailing dims flattened."""
+    if col:
+        return _per_leaf(y.transpose(-1, -2), x.transpose(-1, -2),
+                         alpha, False).transpose(-1, -2)
+    k = alpha.ndim if isinstance(alpha, torch.Tensor) and alpha.ndim else 1
+    rows = int(np.prod(y.shape[:k])) if y.ndim else 1
+    a = alpha.reshape(rows) if isinstance(alpha, torch.Tensor) and \
+        alpha.ndim else alpha
+    return axpy_fold_ref(y.reshape(rows, -1), x.reshape(rows, -1),
+                         a).reshape(y.shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_axpy_fold_group_plain_equals_per_leaf_fold(dtype):
+    ys, xs, alphas, cols = _group_inputs(7, getattr(torch, dtype))
+    runtime.reset_counts()
+    got = axpy_fold_group(ys, xs, alphas, cols=cols)
+    assert runtime.PLAIN_CALLS["axpy_fold"] == 1      # one dtype pair
+    assert runtime.LAUNCHES["axpy_fold"] == 0
+    for g, y, x, a, c in zip(got, ys, xs, alphas, cols):
+        assert g.dtype == y.dtype and g.shape == y.shape
+        assert torch.equal(g, _per_leaf(y, x, a, c))
+
+
+@pytest.mark.parametrize("label,shape,kind", GROUP_SEGMENTS)
+def test_axpy_fold_group_matches_jax_pallas(label, shape, kind):
+    """Each segment of a grouped fold against the JAX kernel in interpret
+    mode on the same numpy inputs (B transposed to the JAX layout, rank
+    rows leading), within 2e-5 of max|want|."""
+    ys, xs, alphas, cols = _group_inputs(11, segments=[(label, shape, kind)])
+    (got,) = axpy_fold_group(ys, xs, alphas, cols=cols)
+    y, x, g, a = ys[0].numpy(), xs[0].numpy(), got, alphas[0]
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.float32(a)
+    if kind == "col":           # the JAX layout: the rank axis leads
+        y, x = np.swapaxes(y, -1, -2), np.swapaxes(x, -1, -2)
+        g = g.transpose(-1, -2)
+    # the JAX wrapper folds (R, *dims) with R rank rows (or one 0-d leaf
+    # as one row): fold the leading dims the rates cover into R
+    rows = a.size if a.ndim else (shape[0] if shape else 1)
+    want = jops.axpy_fold(jnp.asarray(y.reshape(rows, -1)),
+                          jnp.asarray(x.reshape(rows, -1)),
+                          jnp.asarray(a.reshape(-1) if a.ndim else a),
+                          interpret=True)
+    assert_close(g.reshape(rows, -1), want, msg=label)
+
+
+def test_axpy_fold_group_counts_one_plain_call_per_dtype_pair():
+    f32 = _group_inputs(3)
+    bf = _group_inputs(4, torch.bfloat16, GROUP_SEGMENTS[:2])
+    ys, xs = f32[0] + bf[0], f32[1] + bf[1]
+    runtime.reset_counts()
+    got = axpy_fold_group(ys, xs, f32[2] + bf[2], cols=f32[3] + bf[3])
+    assert runtime.PLAIN_CALLS["axpy_fold"] == 2      # fp32 and bf16
+    assert [g.dtype for g in got] == [y.dtype for y in ys]
+    empty = axpy_fold_group([torch.zeros(0, 4)], [torch.zeros(0, 4)], [0.5])
+    assert empty[0].shape == (0, 4)
+    assert runtime.PLAIN_CALLS["axpy_fold"] == 2      # nothing to fold
+    assert axpy_fold_group([], [], []) == []
+
+
+def test_axpy_fold_group_refuses_bad_segments():
+    y = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="x"):
+        axpy_fold_group([y], [torch.zeros(4, 2)], [0.5])
+    with pytest.raises(ValueError, match="alpha"):
+        axpy_fold_group([y], [y], [torch.zeros(3)])
+    with pytest.raises(ValueError, match="column-mode alpha"):
+        axpy_fold_group([y], [y], [torch.zeros(4)], cols=[True])
+    with pytest.raises(ValueError, match="2 alphas"):
+        axpy_fold_group([y], [y], [0.5, 0.5])
+    with pytest.raises(ValueError, match="needs CUDA"):
+        axpy_fold_group([y], [y], [0.5], backend="kernel")
+    # the plain version itself takes what the wrapper passes through
+    out = axpy_fold_group_ref([y], [y + 1], [torch.full((3,), 0.5)],
+                              cols=[True])
+    assert torch.equal(out[0], torch.full((4, 3), 0.5))
+
+
 # ---------------------------------------------------- packed fold plans --
 @pytest.mark.parametrize("layers", [None, 3])
 @pytest.mark.parametrize("name", ["rbla", "rbla_ranked"])
@@ -160,17 +285,17 @@ def test_fold_plan_matches_jax_pallas_fold(name, layers):
         for got, want in zip(ts._flat_pair_values(tfs.row_mass),
                              js._flat_pair_values(jfs.row_mass)):
             assert_close(got, want)
-    # one launch (here: plain call) per bucket and one per base leaf
-    n_buckets = len(tplan._make_buckets(tplan.build_state_spec(
-        tst.adapters, kind="ref"), use_mask=True))
-    assert runtime.PLAIN_CALLS["axpy_fold"] == len(tups) * (n_buckets + 1)
+    # one grouped call (here: its plain version) per fold: every pair side
+    # and the base leaf share one dtype pair, so one launch on the card
+    assert runtime.PLAIN_CALLS["axpy_fold"] == len(tups)
     assert runtime.PLAIN_CALLS["packed_agg"] == 0
 
 
 @pytest.mark.parametrize("layers", [None, 3])
 def test_per_pair_fold_equals_packed_fold(layers):
-    """``use_plan=False`` declines the packed path: two axpy_fold calls per
-    pair, the same arithmetic, the same bits."""
+    """``use_plan=False`` declines the fold plan: the rates are built pair
+    by pair, still one grouped axpy_fold call per fold, the same
+    arithmetic, the same bits."""
     _, tups = _updates(layers=layers)
     tstr = ts.get_strategy("rbla")
     tst = _tstate(_jstate(js.get_strategy("rbla"), layers=layers))
@@ -178,9 +303,8 @@ def test_per_pair_fold_equals_packed_fold(layers):
     packed, _ = _fold_all(tstr, tst, tups, backend="ref")
     n_packed = runtime.PLAIN_CALLS["axpy_fold"]
     per_pair, _ = _fold_all(tstr, tst, tups, backend="ref", use_plan=False)
-    n_pairs = len(SPECS)
-    assert (runtime.PLAIN_CALLS["axpy_fold"] - n_packed
-            == len(tups) * (2 * n_pairs + 1))
+    assert n_packed == len(tups)
+    assert runtime.PLAIN_CALLS["axpy_fold"] - n_packed == len(tups)
     for a, b in zip(tree_leaves(packed.adapters),
                     tree_leaves(per_pair.adapters)):
         assert torch.equal(a, b)
@@ -201,6 +325,74 @@ def test_fold_plan_is_cached_per_state_spec():
     assert len(tstr.__dict__["_fold_plan_cache"]) == 2    # dtype is keyed
 
 
+def _parent_fold(strategy, state, update, fs, w):
+    """One fold as the per-leaf path computed it before folds were
+    grouped: one ``axpy_fold_ref`` per float leaf, RBLA's per-row rates
+    on A and on B transposed, the base at ``w / (mass + w)``.  Returns
+    (adapters, base)."""
+    alpha = w / (fs.mass + w)
+    if isinstance(strategy, ts.RBLAStrategy):
+        wa = strategy._fold_adapter_weight(update, w, int(update.rank))
+
+        def pair_fold(pair, upd, dmass):
+            rank = torch.as_tensor(upd["rank"], dtype=torch.int32)
+            owned = (torch.arange(pair["A"].shape[-2])
+                     < rank[..., None]).float()
+            a = torch.where(owned > 0, wa / (dmass + wa), 0.0)
+            return {"A": _per_leaf(pair["A"], upd["A"], a, False),
+                    "B": _per_leaf(pair["B"], upd["B"], a, True),
+                    "rank": pair["rank"]}
+        adapters = ts._map_pairs(pair_fold, state.adapters, update.adapters,
+                                 fs.row_mass)
+        new = update.base_trainable
+    elif strategy.name == "flora":         # copies: only the base mixes
+        adapters, new = None, update.base_trainable
+    else:
+        agg = strategy.aggregate(state, [update], weights=[w], backend="ref",
+                                 device="cpu")
+        adapters = tree_map(lambda o, n: _per_leaf(o, n, alpha, False)
+                            if o.is_floating_point() else n,
+                            state.adapters, agg.adapters)
+        new = agg.base_trainable
+    base = tree_map(lambda o, n: _per_leaf(o, n, alpha, False),
+                    state.base_trainable, new)
+    return adapters, base
+
+
+PARENT_CASES = [(name, dtype, plan) for name in INCREMENTAL
+                for dtype in ("float32", "bfloat16")
+                for plan in ((True, False) if name in ("rbla", "rbla_ranked")
+                             else (True,))]
+
+
+@pytest.mark.parametrize("name,dtype,use_plan", PARENT_CASES)
+def test_fold_equals_parent_per_leaf_fold(name, dtype, use_plan):
+    """Every incremental strategy's fold, three folds in a row, bit for
+    bit against the per-leaf fold it replaced, in one grouped call per
+    fold (two with bf16 adapters beside fp32 base trainables: one per
+    dtype pair)."""
+    _, tups = _updates(3)
+    strat = _configured(ts, name)
+    st = _tstate(_jstate(_configured(js, name)))
+    st = ts.ServerState(adapters=tree_map(
+        lambda t: t.to(getattr(torch, dtype)) if t.is_floating_point() else t,
+        st.adapters), base_trainable=st.base_trainable, r_max=st.r_max)
+    fs = strat.init_fold(st)
+    kw = {} if use_plan else {"use_plan": False}
+    for u in tups:
+        want_ad, want_base = _parent_fold(strat, st, u, fs, u.n_examples)
+        runtime.reset_counts()
+        st, fs = strat.fold(st, u, fold_state=fs, backend="ref", **kw)
+        groups = 1 if dtype == "float32" or name == "flora" else 2
+        assert runtime.PLAIN_CALLS["axpy_fold"] == groups
+        if want_ad is not None:
+            for a, b in zip(tree_leaves(st.adapters), tree_leaves(want_ad)):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(tree_leaves(st.base_trainable),
+                        tree_leaves(want_base)):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name", ["fedavg", "zeropad"])
 def test_default_fold_matches_jax(name):
     """The default fold: a one-client aggregate mixed in at w / (mass +
@@ -214,10 +406,9 @@ def test_default_fold_matches_jax(name):
     runtime.reset_counts()
     got, _ = _fold_all(tstr, tst, tups, backend="ref")
     # per fold: the one-client aggregate (one call per bucket), then one
-    # mix per float leaf: A and B of every pair, and the base leaf
+    # grouped mix of every float leaf: A and B of every pair, the base leaf
     assert runtime.PLAIN_CALLS["packed_agg"] == len(tups) * n_buckets
-    assert runtime.PLAIN_CALLS["axpy_fold"] == len(tups) * (2 * len(SPECS)
-                                                            + 1)
+    assert runtime.PLAIN_CALLS["axpy_fold"] == len(tups)
     for backend in ("ref", "pallas"):
         want, _ = _fold_all(jstr, jst, jups, backend=backend)
         assert_trees_close(got.adapters,

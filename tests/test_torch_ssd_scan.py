@@ -1,7 +1,9 @@
 """The port's chunked SSD (``repro_torch.models.mamba.ssd_chunked``, the
 plain version of the ``ssd_scan`` kernel) against the JAX package's
 ``ssd_chunked`` and its Pallas ``ssd_scan`` in interpret mode, against the
-float64 sequential recurrence, and the wrapper's backend rule on the CPU.
+float64 sequential recurrence, and the wrapper's backend rule on the CPU;
+and the CUDA kernel's four-phase decomposition (``ssd_scan_phases``)
+against the same JAX functions, steep decay and a prime L included.
 
 Tolerances: the port and the JAX ``ssd_chunked`` run the same fp32
 arithmetic, so they agree within F32_TOL; the Pallas kernel takes its
@@ -19,7 +21,8 @@ from _torch_parity import F32_TOL, assert_close
 from repro.kernels import ssd_scan as jax_ssd_scan
 from repro.models import mamba as jax_mamba
 from repro_torch.kernels import runtime
-from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import (chunk_len, ssd_scan,
+                                          ssd_scan_phases, ssd_scan_ref)
 from repro_torch.models import mamba as tm
 
 SSD_TOL = 2e-3
@@ -210,3 +213,47 @@ def test_wrapper_refuses_mismatched_shapes():
         ssd_scan(xdt, dta, bm, cm[..., :8], chunk=8)
     with pytest.raises(ValueError, match="must be"):
         ssd_scan(xdt[0], dta, bm, cm, chunk=8)
+
+
+#: (b, l, h, p, n, chunk, |dta| scale): the SSD shapes, a decay past -100
+#: within a chunk, a prime L (chunks of one step) and a ragged chunk (Q 250)
+PHASE_CASES = [shape + (0.5,) for shape in SSD_SHAPES] + [
+    (1, 64, 2, 16, 32, 32, 8.0),
+    (2, 31, 3, 8, 16, 8, 0.5),
+    (1, 500, 2, 8, 16, 256, 0.5),
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,scale", PHASE_CASES)
+def test_ssd_scan_phases_match_jax(b, l, h, p, n, chunk, scale):
+    """The kernel's decomposition (a_cs and C B^T per chunk, chunk states,
+    the carry, the outputs) against the JAX ``ssd_chunked`` and the Pallas
+    kernel in interpret mode, at the reference's 2e-3; every output
+    finite."""
+    arrays = _inputs(b, l, h, p, n, 3 * l + h, dta_scale=scale)
+    runtime.reset_counts()
+    y, hl = ssd_scan_phases(*_torch(*arrays), chunk)
+    assert runtime.PLAIN_CALLS["ssd_scan"] == 0
+    assert y.shape == (b, l, h, p) and hl.shape == (b, h, p, n)
+    assert torch.isfinite(y).all() and torch.isfinite(hl).all()
+    jy, jh = jax_mamba.ssd_chunked(*_jax(*arrays), chunk)
+    assert_close(y, jy, SSD_TOL, "y vs ssd_chunked")
+    assert_close(hl, jh, SSD_TOL, "h_final vs ssd_chunked")
+    py, ph = jax_ssd_scan(*_jax(*arrays), chunk=chunk, interpret=True)
+    assert_close(y, py, SSD_TOL, "y vs pallas")
+    assert_close(hl, ph, SSD_TOL, "h_final vs pallas")
+
+
+def test_ssd_scan_phases_in_bf16_match_the_plain_version():
+    """bf16 operands: the decomposition computes on their fp32 upcast and
+    rounds once, as the kernel does; within 2e-2 of the plain version on
+    the same upcast."""
+    arrays = _torch(*_inputs(2, 64, 4, 16, 32, 9))
+    xdt, dta, bm, cm = arrays
+    got = ssd_scan_phases(xdt.bfloat16(), dta, bm.bfloat16(), cm.bfloat16(),
+                          16)
+    want = ssd_scan_ref(xdt.bfloat16().float(), dta, bm.bfloat16().float(),
+                        cm.bfloat16().float(), 16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert_close(g, w, 2e-2)

@@ -2,6 +2,14 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases lora_kernels,serve_main [--src DIR]
+
+With no arguments every phase runs.  ``--phases`` runs only the named
+independent phases (after env and build); ``--src`` runs them against
+another checkout's ``src/`` (the parent commit's, say), so that two
+versions are timed in one process order on one card; checks of this
+checkout's design alone (the serve call's device kernels) are then
+reported and not enforced.
 
 Phases, each printing JSON lines:
 
@@ -9,7 +17,8 @@ Phases, each printing JSON lines:
 * build -- nvcc of every kernel source into ``build/kernels/``;
 * kernels -- every kernel held against its plain PyTorch version on the
   card, at the paper MLP's bucket shapes and one large shape, with its time,
-  the plain version's time and the HBM bound; axpy_fold also as grouped
+  the plain version's time and the HBM bound (packed_agg's rbla buckets
+  also back to back and the device's time alone); axpy_fold also as grouped
   calls (a whole rbla fold of the MLP in fp32 and bf16, a column-mode B, a
   ragged width, a mixed-dtype fold that launches twice, a large fold)
   beside ``torch._foreach_lerp`` and the sum of one ``torch.lerp`` a
@@ -53,10 +62,15 @@ Phases, each printing JSON lines:
 * lora_kernels -- batched_lora_matmul and lora_matmul against their plain
   versions at the MLP's three serving paths (500 test rows, 11 slots x
   r_max 64), at bench_serve's full case (512 x 512 x 512, 128 tenants x
-  r_max 8) and at M = K = N = 4096 with 2048 packed rows, fp32 and bf16,
+  r_max 8) and at M = K = N = 4096 with 2048 packed rows (and once more
+  with every tenant at rank 0: the base product alone), fp32 and bf16,
   NaN/Inf outside the live segments and rank-0 slots in every case; time,
-  the plain version's time, the bound and the base product's
-  ``torch.matmul`` time beside it;
+  back-to-back time, the device's time alone (a CUDA graph), the plain
+  version's time, the bound at the fp32 SIMT rate and at the tensor
+  cores' (TF32 for fp32), the base product's ``torch.matmul`` time beside
+  it, and at the serve and large shapes the device kernels of one call
+  (``torch.profiler``: at the serve shape the kernel's two and nothing
+  else);
 * serve_main -- bench_serve's full case through the port's AdapterStore and
   ServingEngine (128 tenants, width 512, batches of 512, 8 mixed batches):
   parity with merged_reference, requests/s, then 4 aggregate -> publish ->
@@ -113,6 +127,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+#: False when ``--src`` runs another checkout: checks of this checkout's
+#: design are reported, not enforced
+ENFORCE_DESIGN = True
+#: the phases ``--phases`` may pick: the others need the main path's run
+SELECTABLE = ("kernels", "lora_kernels", "serve_main", "serve_streams",
+              "ssd_kernels")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -236,6 +256,34 @@ def time_ms_graph(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _device_kernels(fn, calls: int = 5) -> dict:
+    """Every device kernel one call of ``fn`` runs, from ``torch.profiler``
+    over ``calls`` calls: its function name (no namespace, no template
+    arguments) -> [launches a call, device ms a call].  Empty where the
+    profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if not us:
+            continue
+        key = ev.key.replace("(anonymous namespace)::", "")
+        name = key.split("<", 1)[0].split("(", 1)[0].split("::")[-1].split()
+        name = name[-1] if name else key
+        n, ms = out.get(name, (0.0, 0.0))
+        out[name] = [n + ev.count / calls, ms + us / calls / 1e3]
+    return out
+
+
 def bound(bytes_moved: float, flops: float,
           flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -303,6 +351,14 @@ def check_packed_case(n, r, d, x_dtype, out_dtype, norm_by, with_prev,
             "prev": with_prev, "norm_restore": norm_restore,
             "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
+    if ((r, d) in MLP_BUCKETS and x_dtype == torch.float32 and prev is not None
+            and norm_by == "mask" and not norm_restore):
+        # an rbla bucket of the main path: the device's time alone beside
+        # the call's, so that ms minus graph_ms is host work
+        case["back_to_back_ms"] = time_ms_back_to_back(
+            lambda: packed_agg(x, masks, weights, prev, **kw))
+        case["graph_ms"] = time_ms_graph(
+            lambda: packed_agg(x, masks, weights, prev, **kw))
     emit(case)
     if not err <= tol:
         raise AssertionError(f"packed_agg disagrees with its plain version: {case}")
@@ -780,8 +836,9 @@ def phase_kernels() -> dict:
             hit = [c for c in cases if match(c, key)]
             if len(hit) != 1:
                 raise AssertionError(f"no unique case for {key}")
-            for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                if hit[0][f] is not None:
+            for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                      "back_to_back_ms", "graph_ms"):
+                if hit[0].get(f) is not None:
                     rows[f] = rows.get(f, 0.0) + k * hit[0][f]
         return rows
 
@@ -829,6 +886,8 @@ def phase_kernels() -> dict:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row.get("library_ms")}
+    summary["packed_agg"].update(back_to_back_ms=pk["back_to_back_ms"],
+                                 graph_ms=pk["graph_ms"])
     fold = group[0]
     summary["axpy_fold"].update(
         per="one grouped call: an rbla fold of the MLP (9 segments)",
@@ -1436,11 +1495,12 @@ def _dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def _lora_inputs(m, k, n, slots, r_max, dtype, gen):
+def _lora_inputs(m, k, n, slots, r_max, dtype, gen, all_rank_0=False):
     """``slots`` pages of ``r_max`` packed rows on the card: slot 0 (the
-    null adapter) and slot 3 (an evicted one) at rank 0, the last slot
-    named by no request, and NaN/Inf in every row outside the live
-    segments.  Returns the operands, the tables and the live row count."""
+    null adapter) and slot 3 (an evicted one) at rank 0 (every slot with
+    ``all_rank_0``), the last slot named by no request, and NaN/Inf in
+    every row outside the live segments.  Returns the operands, the
+    tables and the live row count."""
     import torch
     dev = "cuda"
     x = torch.randn(m, k, generator=gen, device=dev)
@@ -1452,6 +1512,8 @@ def _lora_inputs(m, k, n, slots, r_max, dtype, gen):
     rank = torch.randint(1, r_max + 1, (slots,), generator=gen, device=dev,
                          dtype=torch.int32)
     rank[0] = rank[3] = 0
+    if all_rank_0:
+        rank.zero_()
     scale = 16.0 / rank.clamp(min=1).float()
     ids = torch.randint(0, slots - 1, (m,), generator=gen, device=dev,
                         dtype=torch.int32)
@@ -1475,11 +1537,17 @@ def _lora_case(kernel, label, shape, dtype, got, want, bytes_moved, flops,
     tol = (2e-2 if dtype == torch.bfloat16 else 2e-5) * scale
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     bms, by = bound(bytes_moved, flops, peak)
+    # the same work at the rate of the tensor cores the kernel runs on
+    # (bf16, or TF32 for fp32 operands: three TF32 products a product)
+    tc = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TF32_FLOPS_PER_S
+    tc_ms, tc_by = bound(bytes_moved, flops, tc)
     case = {"kernel": kernel, "case": label, "shape": shape,
             "dtype": _dtype_name(dtype), **(extra or {}),
             "max_abs_err": err, "tol": tol, "finite": finite, **times,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "bytes": bytes_moved, "flops": flops, "peak_flops_per_s": peak}
+            "bound_ms": bms, "bound_by": by, "bound_tc_ms": tc_ms,
+            "bound_tc_by": tc_by, "library_ms": None,
+            "bytes": bytes_moved, "flops": flops, "peak_flops_per_s": peak,
+            "tc_flops_per_s": tc}
     emit(case)
     if not (finite and err <= tol):
         raise AssertionError(f"{kernel} disagrees with its plain version: "
@@ -1487,28 +1555,38 @@ def _lora_case(kernel, label, shape, dtype, got, want, bytes_moved, flops,
     return case
 
 
-def _lora_times(kernel, plain, x, w) -> dict:
+def _lora_times(kernel, plain, x, w, split=False) -> dict:
     """The wrapper's time, its plain version's, the base product's
     ``torch.matmul(x, W)`` (context only: no single PyTorch call computes
-    the function, so library_ms is null) and the wrapper issued back to
-    back."""
+    the function, so library_ms is null), the wrapper issued back to back,
+    and the device's time alone (``graph_ms``: a CUDA graph of 20 calls),
+    so that ``ms`` minus ``graph_ms`` is host work.  With ``split`` also
+    the device kernels of one call from ``torch.profiler``."""
     import torch
-    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "matmul_ms": time_ms(lambda: torch.matmul(x, w)),
-            "back_to_back_ms": time_ms_back_to_back(kernel)}
+    times = {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+             "matmul_ms": time_ms(lambda: torch.matmul(x, w)),
+             "back_to_back_ms": time_ms_back_to_back(kernel),
+             "graph_ms": time_ms_graph(kernel)}
+    if split:
+        times["device_kernels"] = _device_kernels(kernel)
+    return times
 
 
-def check_batched_case(label, m, k, n, slots, r_max, dtype, seed):
+def check_batched_case(label, m, k, n, slots, r_max, dtype, seed,
+                       all_rank_0=False):
     """batched_lora_matmul on the card against the segment lowering on the
-    same inputs (``ms``: the wrapper, id gather and launch; ``plain_ms``:
-    the segment lowering on the gathered segments)."""
+    same inputs (``ms``: the wrapper and its launch, ids and tenant tables
+    passed as they are; ``plain_ms``: the segment lowering on segments
+    gathered beforehand).  At the serve and large shapes the device
+    kernels of one call are listed, and at the serve shape they must be
+    the kernel's two alone: no clamp, gather or cast."""
     import torch
     from repro_torch.kernels.lora_matmul import (
         batched_lora_matmul, batched_lora_matmul_segments)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x, w, a, b, ids, off, rank, sc, live = _lora_inputs(m, k, n, slots,
-                                                        r_max, dtype, gen)
-    idx = ids.long()
+    x, w, a, b, ids, off, rank, sc, live = _lora_inputs(
+        m, k, n, slots, r_max, dtype, gen, all_rank_0)
+    idx = ids.long()                    # every id names a table entry here
     seg = (off[idx], rank[idx], sc[idx])
 
     def kernel():
@@ -1518,12 +1596,20 @@ def check_batched_case(label, m, k, n, slots, r_max, dtype, seed):
         return batched_lora_matmul_segments(x, w, a, b, *seg)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    times = _lora_times(kernel, plain, x, w)
+    times = _lora_times(kernel, plain, x, w,
+                        split=label.startswith(("serve", "large")))
+    dk = times.get("device_kernels")
+    if ENFORCE_DESIGN and label == "serve" and dk and (
+            set(dk) != {"down_kernel", "gemm_kernel"}
+            or any(v[0] != 1 for v in dk.values())):
+        raise AssertionError(f"batched_lora_matmul at the serve shape runs "
+                             f"{dk}, not its two kernels once each")
     s = x.element_size()
-    cnt_sum = int(rank[idx].sum())
+    cnt_sum = int(seg[1].sum())
     # each input read once: x, W, the live rows of a_rows and b_rows, the
-    # per-request offset/count/scale; y written once
-    bytes_moved = (m * k + k * n + live * (k + n) + m * n) * s + 12 * m
+    # ids and the tenant tables; y written once
+    bytes_moved = (m * k + k * n + live * (k + n) + m * n) * s + 4 * m \
+        + 12 * slots
     flops = 2 * m * n * k + 2 * cnt_sum * (k + n)
     return _lora_case("batched_lora_matmul", label,
                       [m, k, n, slots * r_max], dtype, got, want, bytes_moved,
@@ -1581,6 +1667,10 @@ def phase_lora_kernels() -> dict:
                                         SERVE_CFG["r_max"], dtype, seed + 10))
         batched.append(check_batched_case("large", 4096, 4096, 4096, 32, 64,
                                           dtype, seed + 20))
+        # the base product alone: every tenant at rank 0
+        batched.append(check_batched_case("large rank 0", 4096, 4096, 4096,
+                                          32, 64, dtype, seed + 20,
+                                          all_rank_0=True))
         single.append(check_single_case("large", 4096, 4096, 4096, 64, dtype,
                                         seed + 20))
 
@@ -1594,7 +1684,10 @@ def phase_lora_kernels() -> dict:
                 "bound_by": max(picked, key=lambda c: c["bound_ms"])[
                     "bound_by"],
                 "library_ms": None,
-                "matmul_ms": sum(c["matmul_ms"] for c in picked)}
+                "matmul_ms": sum(c["matmul_ms"] for c in picked),
+                "back_to_back_ms": sum(c["back_to_back_ms"] for c in picked),
+                "graph_ms": sum(c["graph_ms"] for c in picked),
+                "bound_tc_ms": sum(c["bound_tc_ms"] for c in picked)}
     serve = [c for c in batched if c["case"] == "serve"
              and c["dtype"] == "float32"]
     mlp = [c for c in single if c["case"].startswith("mlp")
@@ -2027,25 +2120,9 @@ def _ssd_work(b, l, h, p, n, q, s) -> tuple[int, int]:
 
 def _phase_ms(fn, calls: int = 5) -> dict:
     """Device time per call of each of the scan's kernels (its phases), by
-    name, from ``torch.profiler`` over ``calls`` calls; empty where the
-    profiler reports no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if "ssd_" in ev.key:
-            name = ev.key.split("ssd_", 1)[1].split("<", 1)[0]
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = getattr(ev, "cuda_time_total", 0.0)
-            out[name] = us / calls / 1e3
-    return out
+    name; empty where the profiler reports no device time."""
+    return {name[4:]: ms for name, (_, ms) in _device_kernels(fn, calls).items()
+            if name.startswith("ssd_")}
 
 
 def check_ssd_case(label, b, l, h, p, n, chunk, scale, dtype, seed) -> dict:
@@ -2346,7 +2423,47 @@ def phase_mamba_consistency(rig, rig32):
                              f"full forward: {errs}")
 
 
-def main() -> int:
+def _args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated subset of " + ", ".join(SELECTABLE)
+                    + ": run only these; default every phase")
+    ap.add_argument("--src", default=str(SRC),
+                    help="the source root whose repro_torch runs (default "
+                    "this checkout's src/)")
+    args = ap.parse_args(argv)
+    if args.phases is not None:
+        args.phases = [n for n in args.phases.split(",") if n]
+        unknown = sorted(set(args.phases) - set(SELECTABLE))
+        if unknown:
+            ap.error(f"--phases: unknown {unknown}; options {SELECTABLE}")
+    return args
+
+
+def run_selected(names) -> dict:
+    """The independent phases in ``names``, in that order; returns their
+    kernels' summary rows."""
+    summary = {}
+    for name in names:
+        if name == "kernels":
+            summary.update(phase_kernels())
+        elif name == "lora_kernels":
+            summary.update(phase_lora_kernels())
+        elif name == "serve_main":
+            phase_serve_main()
+        elif name == "serve_streams":
+            phase_serve_streams()
+        elif name == "ssd_kernels":
+            summary["ssd_scan"] = phase_ssd_kernels()
+        emit({"phase": name, "ok": True})
+    return summary
+
+
+def main(argv=None) -> int:
+    global ENFORCE_DESIGN
+    args = _args(argv)
+    src = Path(args.src).resolve()
     try:
         import torch
     except ImportError:
@@ -2356,12 +2473,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: the port is not beside this script ({SRC})",
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the port is not beside this script ({src})",
               file=sys.stderr)
         return 2
+    ENFORCE_DESIGN = src == SRC.resolve()
     t_start = time.perf_counter()
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import build, runtime
     runtime.full_fp32()
 
@@ -2376,7 +2494,17 @@ def main() -> int:
     t0 = time.perf_counter()
     per_source = build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_s": per_source})
+          "per_source_s": per_source, "src": str(src)})
+
+    if args.phases is not None:
+        summary = run_selected(args.phases)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        emit({"kernels": list(summary.values())})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     summary = phase_kernels()
     emit({"phase": "kernels", "ok": True})

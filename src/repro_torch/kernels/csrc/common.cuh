@@ -61,6 +61,55 @@ inline bool aligned(const void* p, size_t bytes) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// ------------------------------------------------ tensor cores (mma.sync) --
+// Fragments of the m16n8 tiles, with g = lane / 4 and t = lane % 4:
+//   A (16 x kdepth, row): a0 (g, .), a1 (g + 8, .), a2 and a3 the same rows
+//     at the second half of the depth;
+//   B (kdepth x 8, col): b0 (., n = g), b1 (second half of the depth, n = g);
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+// TF32 m16n8k8 holds one element of depth t (or t + 4) per register; bf16
+// m16n8k16 holds two, depths 2t and 2t + 1 (or + 8), the lower in the low
+// half.
+
+// d += a * b on one m16n8k8 TF32 tile
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b on one m16n8k16 bf16 tile, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An operand as TF32 hi (and lo = x - hi, unless the value is exact in TF32,
+// as a bf16 value is).  hi is x rounded to nearest, ties away from zero --
+// half a TF32 ulp added to the bits, then the low 13 cleared: what cvt.rna
+// gives, in two integer operations at the full rate; lo = x - hi is exact in
+// fp32, and the tensor core reads it as TF32 by dropping its low 13 bits.
+// Products then take lo*hi + hi*lo + hi*hi ("3xTF32"), about fp32's
+// accuracy (the dropped lo*lo and lo bits are 2^-20 of a product).
+template <bool kExact>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kExact) {
+    hi = __float_as_uint(x);  // a bf16 value: its low 16 bits are zero
+  } else {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+}
+
 }  // namespace
 
 // Every library answers its launch errors through this one symbol.

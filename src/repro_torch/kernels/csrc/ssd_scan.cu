@@ -47,8 +47,9 @@
 // bank conflicts.  Each thread loads its 16 elements of the next slab into
 // registers before the current slab's MMAs (register double buffering), so
 // the loads' latency overlaps the tensor-core work.  An fp32 operand x is
-// split x = hi + lo, both TF32 (cvt.rna), and a product takes hi*hi +
-// hi*lo + lo*hi ("3xTF32"), about fp32's accuracy; a bf16 operand is exact
+// split x = hi + lo (common.cuh's split: hi rounded to TF32, lo exact), and
+// a product takes hi*hi + hi*lo + lo*hi ("3xTF32"), about fp32's
+// accuracy; a bf16 operand is exact
 // in TF32 and is not split.  So in fp32 every product takes three MMAs;
 // with bf16 operands C B^T takes one (both exact), and the decayed scores
 // @ xdt, the state product (decayed B against xdt) and C h_prev^T take two
@@ -95,34 +96,6 @@ constexpr int kLdT = kT + 8;         // [kK][64] slabs: stride = 8 mod 32 banks
 constexpr int kSlab = kT * kLdK > kK * kLdT ? kT * kLdK : kK * kLdT;
 constexpr int kCarryThreads = 256;
 
-__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a * b on one m16n8k8 TF32 tile
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// An operand as TF32 hi (and lo = x - hi, unless the value is exact in TF32)
-template <bool kExact>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (kExact) {
-    hi = __float_as_uint(x);  // a bf16 value: its low 16 bits are zero
-  } else {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  }
-}
-
 // acc (the warp's 32 x 32 part of a 64 x 64 tile) += A (64 x kK) B (kK x 64),
 // A(m, k) = As[m * AM + k * AK], B(k, n) = Bs[k * BK + n * BN].  kAX / kBX:
 // the operand's values are exact in TF32.
@@ -155,9 +128,9 @@ __device__ __forceinline__ void slab_mma(float (&acc)[2][4][4], const float* As,
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        if constexpr (!kAX) mma(acc[mi][ni], al[mi], bh[ni]);
-        if constexpr (!kBX) mma(acc[mi][ni], ah[mi], bl[ni]);
-        mma(acc[mi][ni], ah[mi], bh[ni]);
+        if constexpr (!kAX) mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+        if constexpr (!kBX) mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+        mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
       }
   }
 }

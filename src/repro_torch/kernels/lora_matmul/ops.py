@@ -6,14 +6,17 @@ place of ``interpret`` and without the tile sizes: the kernels mask their
 ragged edges, nothing is padded.  A CUDA tensor launches the kernel (or the
 wrapper raises); a CPU tensor runs the plain version in ``ref.py``.
 
-``batched_lora_matmul`` is the multi-tenant serving entry: per-request
-adapter ids resolve against per-tenant (offset, rank, scale) tables by a
-gather on the tables' device, so ids, offsets, ranks and scales stay
-device data and nothing synchronises with the host.  PyTorch runs
-eagerly: there is no trace to count and no ``*_inline`` form.
+``batched_lora_matmul`` is the multi-tenant serving entry: on the card
+the kernel takes the per-request adapter ids and the per-tenant (offset,
+rank, scale) tables as they are and resolves each row's segment itself;
+on the CPU :func:`~.ref.resolve_segments` gathers them.  Ids, offsets,
+ranks and scales stay device data and nothing synchronises with the
+host.  PyTorch runs eagerly: there is no trace to count and no
+``*_inline`` form.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -21,7 +24,7 @@ import torch
 
 from .. import build, runtime
 from .ref import (batched_lora_matmul_ref, batched_lora_matmul_segments,
-                  lora_matmul_ref)
+                  lora_matmul_ref, resolve_segments)
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -34,8 +37,8 @@ _IMPLS = {"auto": "auto", "kernel": "kernel", "pallas": "kernel",
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("lora_matmul")
-    lib.lora_matmul_batched.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _L, _L, _L, _L, _P]
+    lib.lora_matmul_batched.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _L,
+                                        _P, _P, _I, _L, _L, _L, _L, _P]
     lib.lora_matmul_batched.restype = _I
     lib.lora_matmul_single.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _L,
                                        _L, _L, _L, _P]
@@ -49,11 +52,12 @@ def _check_operands(name: str, x, **operands) -> None:
     copied behind the caller's back."""
     if x.dtype not in _CODES:
         raise TypeError(f"{name}: x dtype {x.dtype} not in {list(_CODES)}")
+    index = x.get_device()
     for key, t in {"x": x, **operands}.items():
         if t.dtype != x.dtype:
             raise TypeError(f"{name}: {key} is {t.dtype} but x is {x.dtype}; "
                             "the kernel takes one dtype for every operand")
-        if t.device != x.device:
+        if t.get_device() != index:
             raise ValueError(f"{name}: {key} is on {t.device}, x on "
                              f"{x.device}")
         if not t.is_contiguous():
@@ -87,6 +91,13 @@ def _scale_on(scale, dev) -> torch.Tensor:
     return torch.full((1,), float(scale), dtype=torch.float32, device=dev)
 
 
+def _on_device(index: int):
+    """A context that makes card ``index`` current, or nothing when it
+    already is."""
+    return (torch.cuda.device(index) if torch.cuda.current_device() != index
+            else contextlib.nullcontext())
+
+
 def _lora_cuda(x, x2, w, a, b, scale):
     m, k = x2.shape
     n, r = w.shape[1], a.shape[0]
@@ -95,7 +106,7 @@ def _lora_cuda(x, x2, w, a, b, scale):
     s = _scale_on(scale, dev)
     u = torch.empty((m, max(r, 1)), dtype=torch.float32, device=dev)
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    with torch.cuda.device(dev):
+    with _on_device(x.get_device()):
         err = _lib().lora_matmul_single(
             x2.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             s.data_ptr(), u.data_ptr(), y.data_ptr(), _CODES[x.dtype], m, k,
@@ -141,6 +152,8 @@ def _impl_backend(impl: str | None) -> str:
 
 
 def _table(t, dev, dtype, name):
+    """A tenant table or the ids as a tensor on ``dev``: host data is
+    copied there, a tensor on another device is refused."""
     if not isinstance(t, torch.Tensor):
         return torch.as_tensor(t, dtype=dtype, device=dev)
     if t.device != dev:
@@ -149,21 +162,33 @@ def _table(t, dev, dtype, name):
     return t
 
 
-def _batched_cuda(x, x2, w, a_rows, b_rows, off, cnt, scale):
+#: the kernel's types for the ids and the three tenant tables
+_TABLE_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32)
+
+
+def _batched_cuda(x, x2, w, a_rows, b_rows, tables):
+    """Check the operands and pass the ids and tenant tables as they are,
+    then one ctypes call: the kernel resolves each row's segment itself.
+    An id or table of another dtype, or not contiguous, is converted once
+    (the serving store's are already int32 / fp32)."""
     m, k = x2.shape
     n, r_tot = w.shape[1], a_rows.shape[0]
-    dev = x.device
+    dtype, index = x.dtype, x.get_device()
     _check_operands("batched_lora_matmul", x, w=w, a_rows=a_rows,
                     b_rows=b_rows)
-    u = torch.empty((m, max(r_tot, 1)), dtype=torch.float32, device=dev)
-    y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().lora_matmul_batched(
+    tables = [t if t.dtype == want and t.is_contiguous()
+              else t.to(want).contiguous()
+              for t, want in zip(tables, _TABLE_DTYPES)]
+    u = torch.empty((m, max(r_tot, 1)), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=dtype, device=x.device)
+    lib = _lib()
+    with _on_device(index):
+        err = lib.lora_matmul_batched(
             x2.data_ptr(), w.data_ptr(), a_rows.data_ptr(), b_rows.data_ptr(),
-            off.data_ptr(), cnt.data_ptr(), scale.data_ptr(), u.data_ptr(),
-            y.data_ptr(), _CODES[x.dtype], m, k, n, r_tot,
-            runtime.stream_handle(dev))
-    runtime.check_launch(err, "batched_lora_matmul", _lib())
+            *(t.data_ptr() for t in tables), tables[1].shape[0],
+            u.data_ptr(), y.data_ptr(),
+            _CODES[dtype], m, k, n, r_tot, runtime.stream_handle(index))
+    runtime.check_launch(err, "batched_lora_matmul", lib)
     runtime.LAUNCHES["batched_lora_matmul"] += 1
     return y
 
@@ -181,11 +206,13 @@ def batched_lora_matmul(x, w, a_rows, b_rows, adapter_ids, seg_off,
     both is one rank-one component -- the
     :class:`~repro_torch.serving.AdapterStore` layout).  ``adapter_ids``
     matches x's leading dims; the three per-tenant tables are tensors on
-    x's device (or host arrays, copied there), gathered by id on that
-    device.  Ids outside the tables clamp to their ends, as the JAX
-    package's gather does.  A tenant with ``seg_rank[t] == 0`` gets the
-    pure base product, and rows outside every requested segment are
-    never read.  The result has x's dtype.
+    x's device (or host arrays, copied there).  On the card the kernel
+    reads ids and tables itself; on the CPU
+    :func:`~.ref.resolve_segments` gathers them.  A negative id counts
+    from the end of the tables and ids still outside them clamp to their
+    ends, as the JAX package's gather does.  A tenant with
+    ``seg_rank[t] == 0`` gets the pure base product, and rows outside
+    every requested segment are never read.  The result has x's dtype.
     """
     k = x.shape[-1]
     _check_shapes("batched_lora_matmul", k, w, a_rows, b_rows,
@@ -194,23 +221,27 @@ def batched_lora_matmul(x, w, a_rows, b_rows, adapter_ids, seg_off,
                                     "batched_lora_matmul")
     lead, n = tuple(x.shape[:-1]), w.shape[-1]
     dev = x.device
-    seg_off = _table(seg_off, dev, torch.int32, "seg_off")
-    seg_rank = _table(seg_rank, dev, torch.int32, "seg_rank")
-    seg_scale = _table(seg_scale, dev, torch.float32, "seg_scale")
-    ids = _table(adapter_ids, dev, torch.int32, "adapter_ids").reshape(-1)
-    if ids.numel() != x.numel() // max(k, 1):
-        raise ValueError(f"batched_lora_matmul: {ids.numel()} adapter ids "
-                         f"for x of shape {tuple(x.shape)}")
-    ids = ids.clamp(0, seg_off.shape[0] - 1)
-    off = seg_off.index_select(0, ids).to(torch.int32)
-    cnt = seg_rank.index_select(0, ids).to(torch.int32)
-    sc = seg_scale.index_select(0, ids).to(torch.float32)
-    x2 = x.reshape(-1, k)
+    ids = _table(adapter_ids, dev, torch.int32, "adapter_ids")
+    # a call at a serving batch's shapes makes no view it does not need
+    tables = (ids if ids.dim() == 1 else ids.reshape(-1),
+              _table(seg_off, dev, torch.int32, "seg_off"),
+              _table(seg_rank, dev, torch.int32, "seg_rank"),
+              _table(seg_scale, dev, torch.float32, "seg_scale"))
+    if tables[0].numel() != x.numel() // max(k, 1):
+        raise ValueError(f"batched_lora_matmul: {tables[0].numel()} adapter "
+                         f"ids for x of shape {tuple(x.shape)}")
+    t = tables[1].shape[0]
+    if t < 1 or tables[2].shape[0] != t or tables[3].shape[0] != t:
+        raise ValueError(f"batched_lora_matmul: tenant tables of "
+                         f"{[tuple(v.shape) for v in tables[1:]]}; each "
+                         "needs the same T >= 1 entries")
+    x2 = x if x.dim() == 2 else x.reshape(-1, k)
     if use_kernel:
-        y = _batched_cuda(x, x2, w, a_rows, b_rows, off, cnt, sc)
+        y = _batched_cuda(x, x2, w, a_rows, b_rows, tables)
     else:
-        y = batched_lora_matmul_segments(x2, w, a_rows, b_rows, off, cnt, sc)
-    return y.reshape(lead + (n,))
+        y = batched_lora_matmul_segments(x2, w, a_rows, b_rows,
+                                         *resolve_segments(*tables))
+    return y if x.dim() == 2 else y.reshape(lead + (n,))
 
 
 def lora_dense_apply(p, x, pair, alpha: float = 16.0,
@@ -228,4 +259,5 @@ def lora_dense_apply(p, x, pair, alpha: float = 16.0,
 
 __all__ = ["lora_matmul", "lora_dense_apply", "lora_matmul_ref",
            "batched_lora_matmul", "batched_lora_matmul_ref",
-           "batched_lora_matmul_segments", "resolve_impl"]
+           "batched_lora_matmul_segments", "resolve_impl",
+           "resolve_segments"]

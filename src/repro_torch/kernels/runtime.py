@@ -77,9 +77,14 @@ def check_launch(err: int, name: str, lib) -> None:
 
 
 def stream_handle(dev) -> int:
-    """The raw handle of PyTorch's current stream on ``dev``: kernels
-    launch there."""
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of PyTorch's current stream on ``dev`` (a device or
+    a CUDA device index): kernels launch there.  Read as the raw handle
+    itself, without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds on every call."""
+    index = dev if isinstance(dev, int) else torch.device(dev).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def resolve_device(device) -> torch.device:

@@ -828,6 +828,127 @@ def test_lora_matmul_kernel_matches_plain(k, n, r, dtype):
     assert_close(lora_dense_apply(p, x, pair), want.float() + 1.0, tol)
 
 
+#: (label, m, k, n, slots, r_max): bench_serve's case, the MLP's three
+#: layers at its test set, ragged edges under both tile shapes (K not a
+#: multiple of bf16's 16-byte vector, N and M of neither tile), and 4096^3
+LORA_SHAPES = [("serve", 512, 512, 512, 128, 8),
+               ("mlp fc1", 500, 784, 200, 11, 64),
+               ("mlp fc2", 500, 200, 200, 11, 64),
+               ("mlp out", 500, 200, 10, 11, 64),
+               ("ragged small", 333, 300, 136, 11, 64),
+               ("ragged large", 1500, 520, 1544, 16, 64),
+               ("large", 4096, 4096, 4096, 32, 64)]
+
+
+def _tenant_case(m, k, n, dtype, seed, slots, r_max):
+    """Packed buffers with rank-0 slots 0 and 3, ids that also leave the
+    tables (-1 names the last slot, counted from the end; -slots - 3 and
+    slots + 5 clamp to the ends), and NaN/Inf in every row outside the
+    segments the resolved ids name; all on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    a_rows = rng.normal(size=(slots * r_max, k)).astype(np.float32)
+    b_rows = rng.normal(size=(slots * r_max, n)).astype(np.float32)
+    off = (np.arange(slots) * r_max).astype(np.int32)
+    rank = rng.integers(1, r_max + 1, slots).astype(np.int32)
+    rank[0] = rank[3] = 0
+    scale = (16.0 / np.maximum(rank, 1)).astype(np.float32)
+    ids = rng.integers(0, slots, m).astype(np.int32)
+    wild = np.array([-1, -slots - 3, slots, slots + 5], np.int32)
+    ids[::7] = wild[np.arange(len(ids[::7])) % len(wild)]
+    resolved = np.clip(np.where(ids < 0, ids + slots, ids), 0, slots - 1)
+    live = np.zeros(slots * r_max, bool)
+    for t in np.unique(resolved):
+        live[off[t]:off[t] + rank[t]] = True
+    a_rows[~live] = np.nan
+    b_rows[~live] = np.inf
+    b_rows[np.flatnonzero(~live)[::2]] = np.nan
+    td = DTYPES[dtype]
+    return tuple(torch.as_tensor(v).to(td).cuda()
+                 for v in (x, w, a_rows, b_rows)) + tuple(
+        torch.as_tensor(v).cuda() for v in (ids, off, rank, scale))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("label,m,k,n,slots,r_max", LORA_SHAPES)
+def test_batched_lora_matmul_kernel_at_serving_shapes(label, m, k, n, slots,
+                                                      r_max, dtype):
+    """The kernel resolves ids in its blocks: out-of-range ids, rank-0
+    tenants and NaN/Inf outside the live segments, at every tile shape,
+    against the segment lowering on resolve_segments' gather; one
+    launch a call."""
+    from repro_torch.kernels.lora_matmul import (batched_lora_matmul,
+                                                 batched_lora_matmul_segments,
+                                                 resolve_segments)
+    need_cuda()
+    x, w, a_rows, b_rows, ids, off, rank, scale = _tenant_case(
+        m, k, n, dtype, m + k + n, slots, r_max)
+    runtime.reset_counts()
+    got = batched_lora_matmul(x, w, a_rows, b_rows, ids, off, rank, scale)
+    assert runtime.LAUNCHES["batched_lora_matmul"] == 1
+    assert not any(runtime.PLAIN_CALLS.values())
+    seg = resolve_segments(ids, off, rank, scale)
+    want = batched_lora_matmul_segments(x, w, a_rows, b_rows, *seg)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
+    assert_close(got, want, BF16_TOL if dtype == "bf16" else F32_TOL, label)
+    zero = seg[1] == 0
+    assert zero.any()
+    assert_close(got[zero], (x[zero].float() @ w.float()).to(x.dtype),
+                 BF16_TOL if dtype == "bf16" else F32_TOL, "rank 0")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n,r", [(4096, 4096, 4096, 64),
+                                     (1500, 520, 1544, 8)])
+def test_lora_matmul_kernel_on_the_tensor_core_body(m, k, n, r, dtype):
+    """lora_matmul at the large and ragged large shapes, which take the
+    128 x 128 tiles, against lora_matmul_ref."""
+    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    need_cuda()
+    rng = np.random.default_rng(m + r)
+    td = DTYPES[dtype]
+    x, w, a, b = (torch.as_tensor(v.astype(np.float32)).to(td).cuda()
+                  for v in (rng.normal(size=(m, k)),
+                            rng.normal(size=(k, n)) / np.sqrt(k),
+                            rng.normal(size=(r, k)), rng.normal(size=(n, r))))
+    scale = torch.tensor(16.0 / r, device="cuda")
+    runtime.reset_counts()
+    got = lora_matmul(x, w, a, b, scale)
+    assert runtime.LAUNCHES["lora_matmul"] == 1
+    want = lora_matmul_ref(x, w, a, b, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert_close(got, want, BF16_TOL if dtype == "bf16" else F32_TOL)
+
+
+def test_batched_lora_matmul_card_path_makes_only_its_outputs():
+    """With int32 ids and tables and fp32 scales the wrapper passes them
+    as they are: the only PyTorch operations of a call are the two
+    allocations (the scratch u and y) and views; no clamp, gather or
+    cast runs on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels.lora_matmul import batched_lora_matmul
+    need_cuda()
+    case = _tenant_case(64, 512, 512, "f32", 3, 16, 8)
+    batched_lora_matmul(*case)                      # build and load first
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    with Ops() as ops:
+        batched_lora_matmul(case[0].reshape(4, 16, 512), *case[1:4],
+                            case[4].reshape(4, 16), *case[5:])
+    assert ops.names.count("empty") == 2, ops.names
+    assert set(ops.names) <= {"empty", "view", "_unsafe_view"}, ops.names
+
+
 def test_batched_lora_matmul_makes_no_host_sync():
     """Ids, offsets, counts and scales stay on the card: neither the
     wrapper nor the engine's apply synchronises with the host."""

@@ -8,6 +8,13 @@ fp32 and bf16 on the same numpy inputs; then the port's own guarantees:
 garbage outside the live segments never reaches the output, ids resolve
 per request row, and the backend rule.
 
+The kernel resolves tenant ids itself; :func:`resolve_segments` is its
+rule written once in PyTorch (negative ids counted from the end, as JAX
+indexes, then clamped) and is held against JAX's gather.
+:func:`matmul_3xtf32` writes out the fp32 arithmetic of the kernel's
+tensor-core body (TF32 hi/lo splits, three products) and is held to the
+fp32 tolerance of the plain fp32 product.
+
 Tolerances as ``_torch_parity.py``: 2e-5 in fp32, 2e-2 in bf16 (of
 max(1, max|want|)).
 """
@@ -23,12 +30,15 @@ from repro.kernels import batched_lora_matmul_ref as j_batched_ref
 from repro.kernels import lora_dense_apply as j_dense
 from repro.kernels import lora_matmul as j_lora
 from repro.kernels import lora_matmul_ref as j_lora_ref
+from repro.kernels.lora_matmul.ops import batched_lora_matmul as j_batched_jit
 from repro_torch.kernels import runtime
 from repro_torch.kernels.lora_matmul import (batched_lora_matmul,
                                              batched_lora_matmul_ref,
                                              batched_lora_matmul_segments,
                                              lora_dense_apply, lora_matmul,
-                                             lora_matmul_ref, resolve_impl)
+                                             lora_matmul_ref, matmul_3xtf32,
+                                             resolve_impl, resolve_segments,
+                                             tf32_split)
 
 DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
           "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
@@ -250,3 +260,119 @@ def test_segments_lowering_equals_the_loop_oracle_on_clipped_segments():
                                               sc),
                  batched_lora_matmul_ref(x, w, a_rows, b_rows, off, cnt, sc),
                  F32_TOL, "clipped segments")
+
+
+# ------------------------------------------------- the kernel's id rule --
+def _wild_ids(n_slots, m, seed):
+    """Ids in and out of the tables: every slot, -1 .. -n_slots (counted
+    from the end), below -n_slots and at or above n_slots (clamped)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-3 * n_slots, 3 * n_slots, m).astype(np.int32)
+    ids[:4] = (-1, -n_slots, -n_slots - 1, n_slots)
+    return ids
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_resolve_segments_matches_the_jax_gather(seed):
+    _, _, _, _, off, rank, scale, _ = packed_case(seed=seed)
+    ids = _wild_ids(len(off), 40, seed)
+    got = resolve_segments(*map(torch.as_tensor, (ids, off, rank, scale)))
+    want = [np.asarray(jnp.asarray(t)[jnp.asarray(ids)])
+            for t in (off, rank, scale)]
+    assert [g.dtype for g in got] == [torch.int32, torch.int32,
+                                      torch.float32]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("jax_impl", ["pallas", "xla"])
+def test_batched_with_ids_outside_the_tables_matches_jax(dtype, jax_impl):
+    """Ids below 0 and at or above T, rank-0 tenants (slot 0 and slot 3)
+    and NaN/Inf in every row outside the segments the ids name: the port
+    gives what ``repro.kernels.lora_matmul.ops.batched_lora_matmul``
+    gives with those rows zeroed (its lowerings multiply them by 0)."""
+    x, w, a_rows, b_rows, off, rank, scale, _ = packed_case(m=24, seed=9)
+    rank[3] = 0
+    ids = _wild_ids(len(off), 24, 9)
+    t = np.clip(np.where(ids < 0, ids + len(off), ids), 0, len(off) - 1)
+    live = np.zeros(a_rows.shape[0], bool)
+    for slot in np.unique(t):
+        live[off[slot]:off[slot] + rank[slot]] = True
+    assert (~live).any() and (rank[t] == 0).any()
+    a_bad, b_bad = a_rows.copy(), b_rows.copy()
+    a_bad[~live] = np.nan
+    b_bad[~live] = np.inf
+    b_bad[np.flatnonzero(~live)[::2]] = np.nan
+    a_zero = np.where(live[:, None], a_rows, 0.0).astype(np.float32)
+    b_zero = np.where(live[:, None], b_rows, 0.0).astype(np.float32)
+    js = [_both(v, dtype)[0] for v in (x, w, a_zero, b_zero)]
+    want = j_batched_jit(*js, jnp.asarray(ids), jnp.asarray(off),
+                         jnp.asarray(rank), jnp.asarray(scale),
+                         impl=jax_impl, interpret=True)
+    got = _port_batched((x, w, a_bad, b_bad, off, rank, scale, ids), dtype)
+    assert torch.isfinite(got.float()).all()
+    assert_close(got, want, DTYPES[dtype][2], f"wild ids vs JAX {jax_impl}")
+    base = (_both(x, dtype)[1].float() @ _both(w, dtype)[1].float()).to(
+        got.dtype)
+    zero = torch.as_tensor(rank[t] == 0)
+    assert_close(got[zero], base[zero], DTYPES[dtype][2], "rank 0")
+
+
+def test_empty_or_mismatched_tables_raise():
+    x, w, a_rows, b_rows, off, rank, scale, ids = map(
+        torch.as_tensor, packed_case(seed=10))
+    with pytest.raises(ValueError, match="T >= 1"):
+        batched_lora_matmul(x, w, a_rows, b_rows, ids, off[:0], rank[:0],
+                            scale[:0])
+    with pytest.raises(ValueError, match="T >= 1"):
+        batched_lora_matmul(x, w, a_rows, b_rows, ids, off, rank[:-1], scale)
+    with pytest.raises(ValueError, match="empty"):
+        resolve_segments(ids, off[:0], rank[:0], scale[:0])
+
+
+# ------------------------------------- the kernel's fp32 arithmetic (3xTF32) --
+def _tf32_numpy(v, away: bool):
+    """An independent TF32 rounding in float64: |v| to 11 significant bits,
+    to nearest with ties away from zero (``away``) or toward zero."""
+    v = np.asarray(v, np.float64)
+    e = np.floor(np.log2(np.abs(np.where(v == 0, 1.0, v))))
+    step = 2.0 ** (e - 10)
+    mag = np.floor(np.abs(v) / step + (0.5 if away else 0.0)) * step
+    return np.where(v == 0, v, np.sign(v) * mag)
+
+
+def test_tf32_split_rounds_hi_to_nearest_away_and_truncates_lo():
+    rng = np.random.default_rng(11)
+    v = np.concatenate([
+        rng.normal(size=2000) * 10.0 ** rng.integers(-6, 6, 2000),
+        [1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 0.0, 3.0]]
+    ).astype(np.float32)
+    hi, lo = tf32_split(torch.as_tensor(v))
+    np.testing.assert_array_equal(hi.numpy(), _tf32_numpy(v, away=True))
+    rest = v.astype(np.float64) - hi.numpy()
+    assert np.array_equal(rest.astype(np.float32), rest)   # x - hi is exact
+    np.testing.assert_array_equal(lo.numpy(), _tf32_numpy(rest, away=False))
+    assert not (hi.numpy().view(np.int32) & 0x1FFF).any()
+    np.testing.assert_array_equal(hi.numpy()[-5:],
+                                  [1 + 2 ** -10, -(1 + 2 ** -10),
+                                   1 + 2 ** -9, 0.0, 3.0])
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 64), (512, 512, 512),
+                                   (500, 784, 200), (500, 200, 200),
+                                   (500, 200, 10)])
+def test_3xtf32_emulation_within_the_fp32_tolerance(m, k, n):
+    """The kernel's fp32 product (3xTF32: TF32 hi/lo splits, three
+    products) within 2e-5 of max|want| of the fp32 product at K = 4096,
+    the serve shape and the MLP's layers; one TF32 product alone (hi hi)
+    is not."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.as_tensor((rng.normal(size=(k, n)) / np.sqrt(k)).astype(
+        np.float32))
+    want = x @ w
+    bound = F32_TOL * float(want.abs().max())
+    assert float((matmul_3xtf32(x, w) - want).abs().max()) <= bound
+    xh, wh = tf32_split(x)[0], tf32_split(w)[0]
+    assert float((xh @ wh - want).abs().max()) > bound

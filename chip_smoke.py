@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases lora_kernels,serve_main [--src DIR]
+    python3 chip_smoke.py --phases agg_rounds,lora_kernels [--src DIR]
 
 With no arguments every phase runs.  ``--phases`` runs only the named
 independent phases (after env and build); ``--src`` runs them against
@@ -17,15 +17,27 @@ Phases, each printing JSON lines:
 * build -- nvcc of every kernel source into ``build/kernels/``;
 * kernels -- every kernel held against its plain PyTorch version on the
   card, at the paper MLP's bucket shapes and one large shape, with its time,
-  the plain version's time and the HBM bound (packed_agg's rbla buckets
-  also back to back and the device's time alone); axpy_fold also as grouped
+  the plain version's time and the HBM bound; packed_agg and packed_robust
+  also as one grouped call of a main-path round (the unit of their rows:
+  rbla's mean, and each robust mode), back to back, the device's time
+  alone and the device kernels of one call; axpy_fold also as grouped
   calls (a whole rbla fold of the MLP in fp32 and bf16, a column-mode B, a
   ragged width, a mixed-dtype fold that launches twice, a large fold)
   beside ``torch._foreach_lerp`` and the sum of one ``torch.lerp`` a
   segment;
+* agg_rounds -- ``CompiledRound.__call__`` on the main-path cohort (the
+  MLP's three pairs, 10 staircase clients, r_max 64, fp32, with prev) for
+  rbla, fedavg, rbla_norm, rbla_clipped, rbla_trimmed, rbla_median and an
+  int8 and a mixed-codec rbla cohort: wall, back-to-back and graph ms and
+  the device kernels of one call (one grouped launch and nothing else,
+  enforced), each against the plain round;
+* robust_large (selectable, not in the default run) -- packed_robust at
+  (10, 2048, 4096) fp32 with prev in each mode: wrapper, back-to-back and
+  graph ms, each device kernel's time (torch.profiler) and the HBM bound;
+  runs on an older port too (``--src``);
 * main_path -- ``run_simulation`` of ``examples/quickstart.py`` (the MNIST
   MLP at full width, 10 clients, r_max 64, 6 rbla rounds) with the launch
-  counts of that run: one packed_agg launch per bucket per round, no plain
+  counts of that run: one grouped packed_agg launch per round, no plain
   version;
 * plain_reference -- the same run aggregating with the plain versions on
   the card; the kernel run must reproduce it;
@@ -36,19 +48,20 @@ Phases, each printing JSON lines:
   SVD; the same rounds with the plain versions on the card must agree, and
   one round at the default cap (2 r_max) re-projects and stacks nothing;
 * robust -- one round each of rbla_clipped, rbla_trimmed and rbla_median
-  (one packed_robust launch per bucket), each against its plain round;
+  (one grouped packed_robust launch a round), each against its plain round;
   then rbla_clipped's cohort again at a clip that fires on half its rows;
 * svd -- one svd round, against its plain round in product space;
 * per_pair -- the last main-path cohort again through the per-pair
   rbla_agg path, the last flora cohort within the cap through flora_stack
-  and the last robust cohort through per-pair packed_robust, each held
+  and the last robust cohort through per-pair packed_robust (one grouped
+  launch a pair), each held
   against its plan's result;
 * async_main -- ``run_async_simulation`` of the same model and clients,
   fully async rbla with polynomial staleness, 60 uploads: one grouped
   axpy_fold launch a fold, no plain version; then the same run with the
   plain versions on the card, which it must reproduce;
 * async_semi -- the same with a buffer of 5: one packed_agg launch per
-  bucket per flush;
+  flush;
 * async_codecs -- the last cohort int8- and bf16-encoded into one buffered
   flush (packed_agg with fused dequantisation), against the fp32 flush
   within the codec's tolerance and against its plain version;
@@ -131,8 +144,8 @@ SRC = ROOT / "src"
 #: design are reported, not enforced
 ENFORCE_DESIGN = True
 #: the phases ``--phases`` may pick: the others need the main path's run
-SELECTABLE = ("kernels", "lora_kernels", "serve_main", "serve_streams",
-              "ssd_kernels")
+SELECTABLE = ("kernels", "agg_rounds", "robust_large", "lora_kernels",
+              "serve_main", "serve_streams", "ssd_kernels")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -158,6 +171,9 @@ SOURCE = {"packed_agg": _CSRC + "rbla_agg.cu", "rbla_agg": _CSRC + "rbla_agg.cu"
           "lora_matmul": _CSRC + "lora_matmul.cu",
           "ssd_scan": _CSRC + "ssd_scan.cu"}
 MLP_BUCKETS = ((64, 784), (256, 200), (64, 10))   # (rows, width), r_max=64
+#: the main path's pairs (fan_out, fan_in) and its staircase cohort's ranks
+MLP_PAIRS = (("fc1", 200, 784), ("fc2", 200, 200), ("out", 10, 200))
+STAIRCASE = (6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
 MLP_PAIR_SIDES = ((64, 784, 1), (64, 200, 4), (64, 10, 1))  # + count/round
 N_CLIENTS = 10
 ROBUST_MODES = ("clipped", "trimmed", "median")
@@ -262,13 +278,19 @@ def _device_kernels(fn, calls: int = 5) -> dict:
     arguments) -> [launches a call, device ms a call].  Empty where the
     profiler reports no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    # a warm-up step, then the counted one: records of the first launches
+    # after the profiler starts may be lost, so only the second step counts
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -451,6 +473,96 @@ def check_robust_case(n, r, d, x_dtype, out_dtype, mode, with_prev, seed):
     if not err_over_tol <= 1.0:
         raise AssertionError(f"packed_robust disagrees with its plain "
                              f"version: {case}")
+    return case
+
+
+def _round_segments(gen, r_max=64):
+    """One main-path round as grouped-call arguments on the card: each
+    pair's A (10, 64, fan_in) and B (10, fan_out, 64), fp32, the staircase
+    ranks' owner masks, a previous global."""
+    import torch
+    own = (torch.arange(r_max, device="cuda")[None, :]
+           < torch.tensor(STAIRCASE, device="cuda")[:, None]).float()
+    n = len(STAIRCASE)
+    xs, prevs, cols = [], [], []
+    for _, fo, fi in MLP_PAIRS:
+        for col, shape in ((False, (r_max, fi)), (True, (fo, r_max))):
+            xs.append(torch.randn((n,) + shape, generator=gen, device="cuda"))
+            prevs.append(torch.randn(shape, generator=gen, device="cuda"))
+            cols.append(col)
+    return dict(xs=xs, masks=own.repeat(1, len(xs)).contiguous(),
+                weights=torch.rand(n, generator=gen, device="cuda") + 0.5,
+                prevs=prevs, cols=cols, scales=[None] * len(xs),
+                mask_offs=[i * r_max for i in range(len(xs))],
+                out_dtypes=[torch.float32] * len(xs))
+
+
+def _round_bytes(kw, owned_only):
+    """Bytes a grouped call must move: every client's segment (only the
+    owned rank rows for the order statistics), the masks and weights, each
+    output once, and prev where no client owns a rank row."""
+    n = int(kw["weights"].numel())
+    b = kw["masks"].numel() * 4 + n * 4
+    for x, prev, col, off in zip(kw["xs"], kw["prevs"], kw["cols"],
+                                 kw["mask_offs"]):
+        shape = tuple(x.shape[1:])
+        rr = shape[-1] * math.prod(shape[:-2]) if col else math.prod(
+            shape[:-1])
+        elems = math.prod(shape) // rr
+        m = kw["masks"][:, off:off + rr]
+        rows = int((m > 0).sum()) if owned_only else n * rr
+        b += rows * elems * x.element_size() + math.prod(shape) * 4
+        if prev is not None:
+            b += int(((m > 0).sum(0) == 0).sum()) * elems * 4
+    return b
+
+
+def check_group_round(kernel, kw, mode=None):
+    """One grouped call over a main-path round's segments (``kernel``
+    packed_agg: rbla's masked mean with prev; packed_robust: ``mode``)
+    against its plain twin, with its time, back-to-back time, the
+    device's time alone, the plain twin's time, the bound and the device
+    kernels of one call."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import rbla_agg as ra
+    extra = {} if mode is None else dict(mode=mode, clip_norm=2.5,
+                                         trim_frac=0.2)
+    group = ra.packed_agg_group if kernel == "packed_agg" \
+        else ra.packed_robust_group
+    plain = ra.packed_agg_group_ref if kernel == "packed_agg" \
+        else ra.packed_robust_group_ref
+
+    def call():
+        return group(**kw, **extra)
+    before = runtime.LAUNCHES[kernel]
+    got = call()
+    launches = runtime.LAUNCHES[kernel] - before
+    want = plain(**kw, **extra)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    tol = 2e-5 * scale
+    n = int(kw["weights"].numel())
+    elems = sum(x[0].numel() for x in kw["xs"])
+    per_elem = (2 if mode is None else 4 if mode == "clipped"
+                else n * max(1, math.ceil(math.log2(n))))
+    bms, by = bound(_round_bytes(kw, mode in ("trimmed", "median")),
+                    per_elem * elems)
+    kernels = _device_kernels(call)
+    case = {"kernel": kernel, "case": "main-path round, one grouped call",
+            "mode": mode, "segments": len(kw["xs"]), "launches": launches,
+            "max_abs_err": err, "tol": tol, "ms": time_ms(call),
+            "plain_ms": time_ms(lambda: plain(**kw, **extra)),
+            "back_to_back_ms": time_ms_back_to_back(call),
+            "graph_ms": time_ms_graph(call), "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "device_kernels": kernels}
+    emit(case)
+    if not err <= tol or launches != 1:
+        raise AssertionError(f"{kernel}: a grouped round disagrees with its "
+                             f"plain twin or launched {launches} times")
+    if sum(c for c, _ in kernels.values()) != 1:
+        raise AssertionError(f"{kernel}: a grouped round ran {kernels}")
     return case
 
 
@@ -761,6 +873,12 @@ def phase_kernels() -> dict:
             seed += 1
             robust.append(check_robust_case(n, 64, 784, f32, f32, mode, True,
                                             seed))
+    # the unit of rows 1 and 3: one grouped call of a main-path round
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    round_kw = _round_segments(gen)
+    agg_round = check_group_round("packed_agg", round_kw)
+    robust_rounds = [check_group_round("packed_robust", round_kw, m)
+                     for m in ROBUST_MODES]
 
     from repro_torch.kernels.rbla_agg import stack_table
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -842,26 +960,17 @@ def phase_kernels() -> dict:
                     rows[f] = rows.get(f, 0.0) + k * hit[0][f]
         return rows
 
-    # one main-path round: rbla buckets in fp32, mask-normalised, with prev
-    pk = main_path_sum(
-        packed,
-        lambda c, key: (tuple(c["shape"][1:]) == key and c["x_dtype"] == "float32"
-                        and c["norm_by"] == "mask" and c["prev"]
-                        and not c["norm_restore"]),
-        {b: 1 for b in MLP_BUCKETS})
+    # one main-path round: one grouped call (rbla, fp32, with prev)
+    pk = main_path_sum([agg_round], lambda c, key: True, {"round": 1})
     # one per-pair round: every A and transposed B side, fp32, rbla
     rk = main_path_sum(
         rbla,
         lambda c, key: (tuple(c["shape"][1:]) == key[:2]
                         and c["x_dtype"] == "float32" and c["method"] == "rbla"),
         {s: s[2] for s in MLP_PAIR_SIDES})
-    # one round of each robust method: its three buckets, fp32, with prev
-    rb = main_path_sum(
-        robust,
-        lambda c, key: (tuple(c["shape"]) == (N_CLIENTS,) + key[1]
-                        and c["mode"] == key[0] and c["x_dtype"] == "float32"
-                        and c["prev"]),
-        {(m, b): 1 for m in ROBUST_MODES for b in MLP_BUCKETS})
+    # one round of each robust method: one grouped call each
+    rb = main_path_sum(robust_rounds, lambda c, key: c["mode"] == key,
+                       {m: 1 for m in ROBUST_MODES})
     # one stacking round: the plan's three buckets
     st = main_path_sum(stack, lambda c, key: c["case"] == key,
                        {f"plan bucket {w}": 1 for w in (784, 200, 10)})
@@ -874,8 +983,9 @@ def phase_kernels() -> dict:
     ax = main_path_sum(group, lambda c, key: c["case"] == key,
                        {"rbla fold": 1})
     summary = {}
-    for name, cases, row in (("packed_agg", packed, pk), ("rbla_agg", rbla, rk),
-                             ("packed_robust", robust, rb),
+    for name, cases, row in (("packed_agg", packed + [agg_round], pk),
+                             ("rbla_agg", rbla, rk),
+                             ("packed_robust", robust + robust_rounds, rb),
                              ("packed_stack", stack, st),
                              ("flora_stack", flora, fl),
                              ("axpy_fold", axpy + group, ax)):
@@ -886,14 +996,157 @@ def phase_kernels() -> dict:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row.get("library_ms")}
-    summary["packed_agg"].update(back_to_back_ms=pk["back_to_back_ms"],
-                                 graph_ms=pk["graph_ms"])
+    summary["packed_agg"].update(
+        per="one grouped call of a main-path rbla round (6 segments)",
+        back_to_back_ms=pk["back_to_back_ms"], graph_ms=pk["graph_ms"])
+    large = {c["mode"]: c for c in robust if c["shape"] == [N_CLIENTS, 2048, 4096]
+             and c["x_dtype"] == "float32" and c["prev"]}
+    summary["packed_robust"].update(
+        per="one grouped call of a main-path round for each robust mode",
+        back_to_back_ms=rb["back_to_back_ms"], graph_ms=rb["graph_ms"],
+        large_fp32={m: {"ms": c["ms"], "bound_ms": c["bound_ms"],
+                        "share_of_bound": c["bound_ms"] / c["ms"]}
+                    for m, c in large.items()})
     fold = group[0]
     summary["axpy_fold"].update(
         per="one grouped call: an rbla fold of the MLP (9 segments)",
         back_to_back_ms=fold["back_to_back_ms"],
         library="torch._foreach_lerp", lerp_sum_ms=fold["lerp_sum_ms"])
     return summary
+
+
+def phase_robust_large() -> list:
+    """packed_robust at (10, 2048, 4096) fp32 with prev, each mode: the
+    wrapper's time, back to back, the device's time alone (a CUDA graph)
+    and each device kernel's time from torch.profiler, against the HBM
+    bound.  Uses only the one-bucket call every version of the port has,
+    so ``--src`` profiles an older port's kernel in the same run."""
+    import torch
+    from repro_torch.kernels.rbla_agg import packed_robust
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, _, masks, weights, prev, _ = _agg_inputs(
+        N_CLIENTS, 2048, 4096, torch.float32, gen, True, False,
+        torch.float32)
+    rows = []
+    for mode in ROBUST_MODES:
+        kw = dict(mode=mode, clip_norm=2.5, trim_frac=0.2)
+
+        def call():
+            return packed_robust(x, masks, weights, prev, **kw)
+        bms, by = bound(_robust_bytes(x, masks, weights, prev, None,
+                                      torch.float32), 0)
+        kernels = _device_kernels(call)
+        device_ms = sum(m for _, m in kernels.values())
+        row = {"phase": "robust_large", "mode": mode,
+               "shape": list(x.shape), "ms": time_ms(call),
+               "back_to_back_ms": time_ms_back_to_back(call),
+               "graph_ms": time_ms_graph(call), "device_kernels": kernels,
+               "device_ms": device_ms, "bound_ms": bms, "bound_by": by,
+               "device_share_of_bound": bms / device_ms if device_ms else None}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# -------------------------------------------------------------- agg rounds --
+#: the rounds agg_rounds times: strategy, then the cohort's upload codec
+AGG_ROUNDS = (("rbla", None), ("fedavg", None), ("rbla_norm", None),
+              ("rbla_clipped", None), ("rbla_trimmed", None),
+              ("rbla_median", None), ("rbla", "int8"), ("rbla", "mixed"))
+
+
+def _mlp_cohort(seed):
+    """The main path's cohort on the card: 10 clients' uploads of the MLP's
+    three pairs at r_max 64 and the staircase ranks (A rows and B columns
+    past a client's rank zero), a previous global at full rank, weights."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def pair(fo, fi, rank):
+        a = torch.randn(64, fi, generator=gen, device="cuda")
+        b = torch.randn(fo, 64, generator=gen, device="cuda")
+        a[rank:], b[:, rank:] = 0.0, 0.0
+        return {"A": a, "B": b, "rank": torch.tensor(rank, dtype=torch.int32,
+                                                     device="cuda")}
+    clients = [{k: pair(fo, fi, r) for k, fo, fi in MLP_PAIRS}
+               for r in STAIRCASE]
+    prev = {k: pair(fo, fi, 64) for k, fo, fi in MLP_PAIRS}
+    return clients, prev, torch.rand(len(STAIRCASE), generator=gen,
+                                     device="cuda") + 0.5
+
+
+def phase_agg_rounds() -> list:
+    """``CompiledRound.__call__`` on the main-path cohort for each of
+    AGG_ROUNDS: wall ms, back-to-back ms, graph ms where the round can be
+    captured, and the device kernels of one call (torch.profiler), with
+    its result against the plain round's.  Uses only APIs the port had
+    before its rounds were grouped, so ``--src`` times an older port in
+    the same run."""
+    import torch
+    from repro_torch.core import codec, plan, strategy
+    from repro_torch.kernels import runtime
+    clients, prev, w = _mlp_cohort(11)
+    ranks = torch.tensor(STAIRCASE, dtype=torch.int32, device="cuda")
+    stacked = strategy.stack_trees(clients)
+    rows = []
+    for name, wire in AGG_ROUNDS:
+        strat = strategy.get_strategy(name).with_options()
+        if wire is None:
+            cohort, codecs = stacked, None
+        else:
+            codecs = ([wire] * len(clients) if wire != "mixed" else
+                      [("int8", "bf16", "none")[i % 3]
+                       for i in range(len(clients))])
+            cohort = [codec.encode_adapters(c, k)
+                      for c, k in zip(clients, codecs)]
+
+        def round_for(kind):
+            if codecs is None:
+                spec = plan.build_cohort_spec(cohort, kind=kind, r_max=64,
+                                              client_ranks=ranks,
+                                              prev_tree=prev)
+            else:
+                spec = plan.build_encoded_cohort_spec(
+                    cohort, codecs, kind=kind, r_max=64, client_ranks=ranks,
+                    prev_tree=prev)
+            return strat.plan(None, spec)
+        round_ = round_for("kernel")
+
+        def call():
+            return round_(cohort, w, prev)
+        before = dict(runtime.LAUNCHES)
+        got = call()
+        launches = {k: runtime.LAUNCHES[k] - before[k] for k in before
+                    if runtime.LAUNCHES[k] != before[k]}
+        want = round_for("ref")(cohort, w, prev)
+        err, scale = _rel_err(got, want)
+        try:
+            graph_ms = time_ms_graph(call)
+        except RuntimeError as e:       # a round that cannot be captured
+            graph_ms = None
+            emit({"phase": "agg_rounds", "case": f"{name} {wire or 'fp32'}",
+                  "graph": f"not captured: {e}"})
+        kernels = _device_kernels(call)
+        row = {"phase": "agg_rounds", "strategy": name,
+               "codec": wire or "fp32", "plan_kind": round_.kind,
+               "plan_launches": round_.n_kernel_launches,
+               "launches": launches, "ms": time_ms(call),
+               "back_to_back_ms": time_ms_back_to_back(call),
+               "graph_ms": graph_ms, "device_kernels": kernels,
+               "n_device_kernels": sum(c for c, _ in kernels.values()),
+               "device_ms": sum(m for _, m in kernels.values()),
+               "max_abs_err": err, "tol": 2e-5 * max(scale, 1.0)}
+        emit(row)
+        rows.append(row)
+        if not err <= 2e-5 * max(scale, 1.0):
+            raise AssertionError(f"agg_rounds {name} {wire}: the kernel round "
+                                 "disagrees with the plain round")
+        if ENFORCE_DESIGN and (sum(launches.values()) != 1
+                               or row["n_device_kernels"] != 1):
+            raise AssertionError(f"agg_rounds {name} {wire}: {launches} "
+                                 f"launches, device kernels {kernels}: one "
+                                 "grouped launch and nothing else expected")
+    return rows
 
 
 # --------------------------------------------------------------- main path --
@@ -989,11 +1242,12 @@ def phase_main_path():
           "round_time_s": hist.round_time_s, "seconds": secs,
           "launches": launches, "plain_calls": plain,
           "plan_buckets": buckets})
-    if buckets != [3]:
-        raise AssertionError(f"expected 3 buckets per round, got {buckets}")
-    if launches["packed_agg"] != MAIN_CFG["rounds"] * 3:
+    # one grouped launch a round (one per (width, dtype) bucket before)
+    if buckets != [1]:
+        raise AssertionError(f"expected 1 launch per round, got {buckets}")
+    if launches["packed_agg"] != MAIN_CFG["rounds"]:
         raise AssertionError(f"packed_agg launched {launches['packed_agg']} "
-                             f"times, expected {MAIN_CFG['rounds'] * 3}")
+                             f"times, expected {MAIN_CFG['rounds']}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
     if not hist.test_acc[-1] > 0.1:
@@ -1015,7 +1269,7 @@ def phase_plain_reference(hist, last):
           "seconds": secs, "launches": launches, "plain_calls": plain,
           "max_acc_gap": acc_gap, "adapters_max_abs_err": err,
           "adapters_tol": 1e-3 * scale})
-    if launches["packed_agg"] or plain["packed_agg"] != MAIN_CFG["rounds"] * 3:
+    if launches["packed_agg"] or plain["packed_agg"] != MAIN_CFG["rounds"]:
         raise AssertionError("the ref backend did not run the plain version")
     if not (acc_gap <= 0.01 and err <= 1e-3 * scale):
         raise AssertionError("kernel rounds disagree with plain rounds")
@@ -1028,7 +1282,7 @@ def phase_other_methods():
         emit({"phase": "one_round", "method": method,
               "test_acc": hist.test_acc, "seconds": secs,
               "launches": launches, "plain_calls": plain})
-        if launches["packed_agg"] != 3 or any(plain.values()):
+        if launches["packed_agg"] != 1 or any(plain.values()):
             raise AssertionError(f"{method}: launches {launches}, plain "
                                  f"{plain}")
         _leaves_on_card(last[2].adapters)
@@ -1111,7 +1365,7 @@ def phase_robust():
         hist, launches, plain, last, secs, rec = drive(cfg)
         emit({"phase": "robust", "method": method, "test_acc": hist.test_acc,
               "seconds": secs, "launches": launches, "plain_calls": plain})
-        if launches["packed_robust"] != 3 or any(plain.values()):
+        if launches["packed_robust"] != 1 or any(plain.values()):
             raise AssertionError(f"{method}: launches {launches}, plain "
                                  f"{plain}")
         _leaves_on_card(last[2].adapters)
@@ -1162,7 +1416,7 @@ def phase_robust_clip(rec):
           "clip_norm": clip, "rows_clipped": int((norms > clip).sum()),
           "launches": launches, "plain_calls": plain, "max_abs_err": err,
           "tol": 2e-5 * scale, "moved_from_default_clip": moved})
-    if launches["packed_robust"] != 3 or any(plain.values()):
+    if launches["packed_robust"] != 1 or any(plain.values()):
         raise AssertionError(f"robust_clip_fires: launches {launches}, "
                              f"plain {plain}")
     if not err <= 2e-5 * scale:
@@ -1321,7 +1575,7 @@ def phase_async_semi():
     _async_line("async_semi", cfg, hist, launches, plain, rec, secs)
     flushes = rec.agg.n_flushes
     if flushes != cfg["total_updates"] // 5 or \
-            launches["packed_agg"] != 3 * flushes or any(plain.values()):
+            launches["packed_agg"] != flushes or any(plain.values()):
         raise AssertionError(f"async_semi: {flushes} flushes, launches "
                              f"{launches}, plain {plain}")
     _leaves_on_card(rec.agg.state.adapters)
@@ -1372,8 +1626,8 @@ def phase_async_codecs(rec):
               "fp32_wire_bytes": base.wire_bytes_received,
               "rel_frobenius_vs_fp32": rel, "codec_tol": CODEC_TOL[codec],
               "plain_max_abs_err": err, "plain_tol": 2e-5 * scale})
-        if launches["packed_agg"] != 3 or any(plain.values()) or \
-                ref_plain["packed_agg"] != 3:
+        if launches["packed_agg"] != 1 or any(plain.values()) or \
+                ref_plain["packed_agg"] != 1:
             raise AssertionError(f"async_codecs {codec}: launches "
                                  f"{launches}, plain {plain}")
         if not (rel <= CODEC_TOL[codec] and err <= 2e-5 * scale):
@@ -1429,10 +1683,10 @@ def phase_async_methods():
     rbla_norm the replay path (packed_agg with norm_restore over the
     updates since the anchor)."""
     n = ASYNC_CFG["n_clients"]
-    per_fold = {"zeropad": {"packed_agg": 3, "axpy_fold": 1},
-                "fedavg": {"packed_agg": 3, "axpy_fold": 1},
+    per_fold = {"zeropad": {"packed_agg": 1, "axpy_fold": 1},
+                "fedavg": {"packed_agg": 1, "axpy_fold": 1},
                 "flora": {"axpy_fold": 1},
-                "rbla_norm": {"packed_agg": 3}}
+                "rbla_norm": {"packed_agg": 1}}
     for method, want in per_fold.items():
         cfg = dict(ASYNC_CFG, method=method, total_updates=n, eval_every=n)
         hist, launches, plain, rec, secs = drive_async(cfg)
@@ -2448,6 +2702,10 @@ def run_selected(names) -> dict:
     for name in names:
         if name == "kernels":
             summary.update(phase_kernels())
+        elif name == "agg_rounds":
+            phase_agg_rounds()
+        elif name == "robust_large":
+            phase_robust_large()
         elif name == "lora_kernels":
             summary.update(phase_lora_kernels())
         elif name == "serve_main":
@@ -2508,6 +2766,9 @@ def main(argv=None) -> int:
 
     summary = phase_kernels()
     emit({"phase": "kernels", "ok": True})
+    rounds = phase_agg_rounds()
+    summary["packed_agg"]["round_ms"] = rounds[0]["ms"]
+    emit({"phase": "agg_rounds", "ok": True})
 
     hist, main_launches, last, main_rec = phase_main_path()
     phase_plain_reference(hist, last)
@@ -2517,14 +2778,14 @@ def main(argv=None) -> int:
     phase_robust_clip(robust["rbla_clipped"][1])
     phase_svd()
     # the per-pair paths on each phase's last cohort: 2 launches a pair
+    # (rbla_agg, flora_stack), one grouped launch a pair (packed_robust)
     pair_launches = phase_per_pair(main_rec, "rbla_agg", 6, 2e-5, "per_pair")
     # the last flora cohort is round 3's, within the cap: pure copies with
     # the plan's scale arithmetic up to its order (a few ulp of B)
     stack_launches = phase_per_pair(flora_rec, "flora_stack", 6, 1e-6,
                                     "per_pair_flora")
-    robust_launches = phase_per_pair(robust["rbla_median"][1],
-                                     "packed_robust", 6, 2e-5,
-                                     "per_pair_robust")
+    phase_per_pair(robust["rbla_median"][1], "packed_robust", 3, 2e-5,
+                   "per_pair_robust")
     summary["packed_agg"]["launches"] = main_launches["packed_agg"]
     summary["rbla_agg"]["launches"] = pair_launches["rbla_agg"]
     summary["packed_robust"]["launches"] = sum(

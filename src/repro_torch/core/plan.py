@@ -1,25 +1,28 @@
-"""Compiled aggregation plans: packed cohort buffers, one launch per bucket.
+"""Compiled aggregation plans: one grouped launch per round.
 
-Walking the adapter tree pair by pair costs two kernel launches per pair.
-A plan turns a round into
+Walking the adapter tree pair by pair costs launches per pair.  A plan
+turns a round into
 
-1. **Pack.**  Every adapter pair of the cohort is flattened into a few
-   packed ``(n_clients, rows, width)`` buffers, **bucketed by (row width,
-   dtype)**.  A factors contribute their rank rows directly; B factors ride
-   transposed so the rank axis leads everywhere.  Each packed row carries
-   its owner mask column (delta_{i,r}), which is static given the cohort's
-   rank multiset, so the whole ``(n, rows)`` owner-mask matrix is built on
-   the host once per plan.  Layer-stacked pairs pack like everything else:
-   layer ``l`` occupies its own rows with its own mask column.
-2. **Combine.**  One launch per bucket (the plain version on the ``ref``
-   backend): ``packed_agg`` for the mean family, with ``prev_global``
-   retention and rbla_norm's norm restoration fused in; ``packed_robust``
-   for the robust family; ``packed_stack`` for flora's copy/scale
-   stacking.  svd buckets pairs by their full geometry instead and runs
-   one batched factored SVD per bucket (``repro_torch.core.lowrank``).
-   Encoded (int8/bf16) cohorts keep each client's wire dtype in the packed
-   payload and hand the int8 scales to the kernel, which dequantises on
-   the load.
+1. **Segments.**  Every pair side of the cohort is one segment of the
+   round's grouped call, in the leaf's own layout: A ``(*lead, r,
+   fan_in)`` by rank row, B ``(*lead, fan_out, r)`` by rank column.  Each
+   rank row carries its owner mask column (delta_{i,r}), which is static
+   given the cohort's rank multiset, so the whole ``(n, rank rows)``
+   owner-mask matrix is built on the host once per plan.  Layer-stacked
+   pairs take one mask column per (layer, rank row).
+2. **Combine.**  The mean family (and rbla_norm's norm restoration, and
+   ``prev_global`` retention) is one ``packed_agg_group`` call, the robust
+   family one ``packed_robust_group`` call (through ``grouped_launch``,
+   its card path without the per-call argument checks: the plan checked
+   the geometry once): one launch a round on the card, the plain version
+   on the ``ref`` backend.  Nothing is packed,
+   transposed, stacked or cast around it.  Encoded (int8/bf16) cohorts
+   hand each client's wire-dtype leaves and int8 scales to the same call,
+   which dequantises on the load.  flora's stack plan still packs
+   ``(n_clients, rows, width)`` buffers bucketed by (row width, dtype),
+   one ``packed_stack`` launch per bucket; svd buckets pairs by their full
+   geometry and runs one batched factored SVD per bucket
+   (``repro_torch.core.lowrank``).
 3. **Cache.**  Plans are cached on the strategy instance keyed by the
    :class:`CohortSpec` (tree structure, shapes, dtypes, rank multiset,
    codec mix, backend, device) and the strategy's ``plan_knobs`` in a
@@ -32,15 +35,17 @@ The per-leaf ``aggregate_tree*`` methods remain the plans' oracles.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.rbla_agg import (packed_agg, packed_agg_ref,
-                                          packed_robust, packed_robust_ref,
+from repro_torch.kernels.rbla_agg import (packed_agg_group_ref,
+                                          packed_robust_group_ref,
                                           packed_stack, packed_stack_ref,
                                           stack_table)
+from repro_torch.kernels.rbla_agg.ops import grouped_launch
 
 from .aggregation import _EPS
 from .masks import pad_to_rank
@@ -234,7 +239,9 @@ def build_encoded_cohort_spec(client_trees: Sequence, codecs, *, kind: str,
 # ---------------------------------------------------------- packed layout --
 @dataclasses.dataclass
 class Slot:
-    """One pair side's home inside a packed bucket."""
+    """One pair side's home in a round: its rank rows start at column
+    ``offset`` of the owner masks (mean plans) or of its stack bucket's
+    output (flora's stack plan)."""
     pair_idx: int
     side: str                  # "A" | "B"
     lead: tuple                # leading (layer/expert) dims
@@ -242,17 +249,16 @@ class Slot:
     rows: int                  # prod(lead) * r_st
     width: int
     dtype: torch.dtype
-    offset: int = 0            # row offset inside the bucket
+    offset: int = 0            # its first rank row in the round or bucket
 
 
 @dataclasses.dataclass
 class Bucket:
-    """All slots sharing (row width, dtype): one launch per round."""
+    """flora's stack plan: all slots sharing (row width, dtype), one
+    ``packed_stack`` launch per round."""
     width: int
     dtype: torch.dtype
     slots: list
-    rows: int = 0
-    mask: np.ndarray | None = None     # (n, rows) owner mask, host-built
 
 
 def _side_geometry(meta: PairMeta, side: str):
@@ -281,25 +287,6 @@ def _slot_mask(meta: PairMeta, slot: Slot, n: int,
     return np.ascontiguousarray(m.reshape(n, slot.rows).astype(np.float32))
 
 
-def _make_buckets(spec: CohortSpec, use_mask: bool) -> list:
-    buckets: dict = {}
-    for pi, meta in enumerate(spec.pairs):
-        for side in ("A", "B"):
-            lead, r_st, rows, width, dtype = _side_geometry(meta, side)
-            b = buckets.setdefault((width, dtype),
-                                   Bucket(width=width, dtype=dtype, slots=[]))
-            b.slots.append(Slot(pair_idx=pi, side=side, lead=lead,
-                                r_st=r_st, rows=rows, width=width,
-                                dtype=dtype, offset=b.rows))
-            b.rows += rows
-    out = list(buckets.values())
-    for b in out:
-        b.mask = np.concatenate(
-            [_slot_mask(spec.pairs[s.pair_idx], s, spec.n_clients, use_mask)
-             for s in b.slots], axis=1)
-    return out
-
-
 def pair_side_rows(x: torch.Tensor, side: str) -> torch.Tensor:
     """Rank-axis-leading row view of one pair side: A ``(..., r, fan_in)``
     passes through, B ``(..., fan_out, r)`` rides transposed to
@@ -316,13 +303,6 @@ def _pack_side(x: torch.Tensor, slot: Slot) -> torch.Tensor:
 def _pack_prev_side(x: torch.Tensor, slot: Slot) -> torch.Tensor:
     """Like :func:`_pack_side` for an unstacked (server-state) leaf."""
     return pair_side_rows(x, slot.side).reshape(slot.rows, slot.width).float()
-
-
-def _unpack_slot(out: torch.Tensor, slot: Slot) -> torch.Tensor:
-    """(rows, width) f32 block -> the slot's leaf layout (contiguous)."""
-    y = out[slot.offset:slot.offset + slot.rows]
-    y = y.reshape(slot.lead + (slot.r_st, slot.width))
-    return pair_side_rows(y, slot.side).to(slot.dtype).contiguous()
 
 
 def _gather(parts: list, dim: int) -> torch.Tensor:
@@ -372,9 +352,10 @@ class CompiledRound:
     """One aggregation round for a fixed :class:`CohortSpec`.
 
     ``__call__(stacked_tree, weights, prev_tree=None)`` runs the round.
-    ``kind`` is "packed" (one launch per bucket) or "eager" (the per-leaf
-    path); ``n_kernel_launches`` is the packed plan's device computations
-    per round (#buckets, plus one per pair re-projected by SVD);
+    ``kind`` is "packed" (a planned round) or "eager" (the per-leaf path);
+    ``n_kernel_launches`` is the packed plan's device computations per
+    round (1 for the mean and robust families; #buckets for the stack and
+    svd plans, plus one per pair re-projected by SVD);
     ``n_fallback_pairs`` counts the pairs a packed plan still routes
     through reference pair math (flora's over-cap re-projection).
     """
@@ -414,12 +395,34 @@ def _client_ranks(spec: CohortSpec):
                         device=spec.device)
 
 
-# ------------------------------------------------------ packed mean plans --
+# ------------------------------------------------------- grouped mean plans --
+def _mean_segments(spec: CohortSpec, use_mask: bool):
+    """The round's segments, every pair's A then B, and the owner-mask
+    matrix ``(n, rank rows)`` built on the host once per plan: the
+    columns of pair side s are its rank rows, lead-major."""
+    slots, cols, off = [], [], 0
+    for pi, meta in enumerate(spec.pairs):
+        for side in ("A", "B"):
+            lead, r_st, rows, width, dtype = _side_geometry(meta, side)
+            slots.append(Slot(pair_idx=pi, side=side, lead=lead, r_st=r_st,
+                              rows=rows, width=width, dtype=dtype,
+                              offset=off))
+            cols.append(_slot_mask(meta, slots[-1], spec.n_clients,
+                                   use_mask))
+            off += rows
+    return slots, np.concatenate(cols, axis=1)
+
+
 def _build_mean_round(strategy, spec: CohortSpec,
                       norm_restore: bool = False) -> CompiledRound:
-    if spec.codecs is not None:
-        return _build_encoded_mean_round(strategy, spec, norm_restore)
-    buckets = _make_buckets(spec, strategy.use_mask)
+    """Mean (and robust) round: every pair side of the cohort is one
+    segment of one ``packed_agg_group`` / ``packed_robust_group`` call, in
+    the leaf's own layout (A by rank row, B by rank column): one launch a
+    round on the card, one plain call on the CPU.  A stacked cohort hands
+    the stacked leaves; an encoded one (``spec.codecs``) each client's
+    wire-dtype leaves and int8 scales, which the kernel dequantises on the
+    load (the output is fp32)."""
+    slots, mask = _mean_segments(spec, strategy.use_mask)
     retains = strategy.retains_prev and spec.has_prev
     if retains:
         for meta in spec.pairs:       # mean plans overlay prev row for row
@@ -429,175 +432,66 @@ def _build_mean_round(strategy, spec: CohortSpec,
                     "prev leaf shapes differ from the cohort's")
     cr = _client_ranks(spec)
     rank_leaves = _out_rank_leaves(spec)
-    masks = [torch.as_tensor(b.mask, device=spec.device) for b in buckets]
-    norm_by = strategy.norm_by
-    # the robust family reuses the packed buckets; its knobs are read here,
-    # once, and are part of the plan's cache key (strategy.plan_knobs)
+    masks = torch.as_tensor(mask, device=spec.device)
+    encoded = spec.codecs is not None
+    kw = dict(cols=[s.side == "B" for s in slots],
+              mask_offs=[s.offset for s in slots],
+              out_dtypes=[s.dtype for s in slots])
+    # the robust family shares the segments; its knobs are read here, once,
+    # and are part of the plan's cache key (strategy.plan_knobs)
     robust = strategy.robustness
-    robust_kw = (dict(mode=robust, clip_norm=float(strategy.clip_norm),
-                      trim_frac=float(strategy.trim_frac))
-                 if robust != "none" else None)
-    rebuild = [None]
+    if robust != "none":
+        name, combine = "packed_robust", packed_robust_group_ref
+        kw.update(mode=robust, clip_norm=float(strategy.clip_norm),
+                  trim_frac=float(strategy.trim_frac))
+    else:
+        name, combine = "packed_agg", packed_agg_group_ref
+        kw.update(norm_by=strategy.norm_by, norm_restore=norm_restore)
+    if spec.kind == "kernel":       # the segments' geometry is checked here
+        combine = functools.partial(grouped_launch, name)
+    scale_key = {"A": "A_scale", "B": "B_scale"}
+    nones = [None] * len(slots)
+    rebuild, paths = [None], [None]
 
-    def execute(stacked_tree, w, prev_tree):
+    def pairs_of(tree) -> list:
+        """The tree's pairs in walk order, by the paths of the first tree
+        this plan saw (the cache key fixes the structure)."""
+        out = []
+        for path in paths[0]:
+            node = tree
+            for k in path:
+                node = node[k]
+            out.append(node)
+        return out
+
+    def execute(cohort, w, prev_tree):
         if rebuild[0] is None:
-            rebuild[0] = _make_rebuilder(stacked_tree)
-        ab = _ab_list(stacked_tree)
-        prev_ab = _ab_list(prev_tree) if retains else None
-        wt = strategy.transform_weights(w, cr)
-        outs = []
-        for bi, b in enumerate(buckets):
-            x = _gather([_pack_side(ab[s.pair_idx][s.side], s)
-                         for s in b.slots], dim=1)
-            prev = None
-            if retains:
-                prev = _gather([_pack_prev_side(prev_ab[s.pair_idx][s.side],
-                                                s) for s in b.slots], dim=0)
-            if robust_kw is not None:
-                if spec.kind == "kernel":
-                    out = packed_robust(x, masks[bi], wt, prev,
-                                        backend="kernel", **robust_kw)
-                else:
-                    out = packed_robust_ref(x, masks[bi], wt, prev,
-                                            **robust_kw)
-            elif spec.kind == "kernel":
-                out = packed_agg(x, masks[bi], wt, prev, norm_by=norm_by,
-                                 norm_restore=norm_restore, backend="kernel")
-            else:
-                out = packed_agg_ref(x, masks[bi], wt, prev, norm_by=norm_by,
-                                     norm_restore=norm_restore)
-            outs.append(out)
-        unpacked = [{} for _ in spec.pairs]
-        for bi, b in enumerate(buckets):
-            for s in b.slots:
-                unpacked[s.pair_idx][s.side] = _unpack_slot(outs[bi], s)
-        return rebuild[0]([{"A": u["A"], "B": u["B"], "rank": rank_leaves[i]}
-                           for i, u in enumerate(unpacked)])
+            first = cohort[0] if encoded else cohort
+            rebuild[0] = _make_rebuilder(first)
+            paths[0] = [p for p, _ in _walk_pairs(first)]
+        prevs = nones
+        if retains:
+            prev_ab = pairs_of(prev_tree)
+            prevs = [prev_ab[s.pair_idx][s.side] for s in slots]
+        if encoded:
+            clients = [pairs_of(t) for t in cohort]
+            xs = [[c[s.pair_idx][s.side] for c in clients] for s in slots]
+            scales = [[c[s.pair_idx].get(scale_key[s.side]) for c in clients]
+                      for s in slots]
+        else:
+            ab = pairs_of(cohort)
+            xs = [ab[s.pair_idx][s.side] for s in slots]
+            scales = nones
+        outs = combine(xs, masks, strategy.transform_weights(w, cr), prevs,
+                       scales=scales, **kw)
+        pairs = [{"A": None, "B": None, "rank": rank_leaves[i]}
+                 for i in range(len(spec.pairs))]       # the leaves' order
+        for s, out in zip(slots, outs):
+            pairs[s.pair_idx][s.side] = out
+        return rebuild[0](pairs)
 
     return CompiledRound(strategy, spec, "packed", execute,
-                         n_kernel_launches=len(buckets))
-
-
-# ---------------------------------------------- encoded (quantised) plans --
-def _enc_ab_list(tree) -> list:
-    """Like :func:`_ab_list`, keeping the int8 codec's per-row scale
-    leaves with each pair."""
-    out = []
-    for _, p in _walk_pairs(tree):
-        d = {"A": p["A"], "B": p["B"]}
-        for k in ("A_scale", "B_scale"):
-            if k in p:
-                d[k] = p[k]
-        out.append(d)
-    return out
-
-
-def _pack_client_side(x: torch.Tensor, slot: Slot, wire: bool):
-    """(*lead, ...) single-client leaf -> (rows, width); ``wire=True`` keeps
-    the upload's wire dtype (int8/bf16), so no fp32 copy is staged."""
-    x = pair_side_rows(x, slot.side).reshape(slot.rows, slot.width)
-    return x if wire else x.float()
-
-
-def _pack_client_scale(pair, slot: Slot) -> torch.Tensor:
-    """Per-row dequantisation scales of one pair side -> (rows,) fp32.
-    Both sides carry a ``(*lead, r)`` scale leaf on the packed row
-    convention (B's packed rows are its columns)."""
-    s = pair["A_scale" if slot.side == "A" else "B_scale"]
-    return s.float().reshape(slot.rows)
-
-
-def _build_encoded_mean_round(strategy, spec: CohortSpec,
-                              norm_restore: bool = False) -> CompiledRound:
-    """Mean (and robust) packed round over an encoded cohort.
-
-    Clients group by codec in first-appearance order.  Each bucket packs one
-    ``(n_g, rows, width)`` payload per group in the group's wire dtype, plus
-    ``(n_g, rows)`` fp32 scales for an int8 group.  A uniform-codec cohort
-    keeps one launch per bucket: the scales ride into ``packed_agg`` /
-    ``packed_robust`` as runtime data and the kernel dequantises on the
-    load, writing fp32.  A cohort that mixes codecs across clients
-    dequantises each group into one fp32 buffer and runs the same single
-    launch per bucket on it (the robust order statistics need every client
-    in one buffer anyway)."""
-    buckets = _make_buckets(spec, strategy.use_mask)
-    retains = strategy.retains_prev and spec.has_prev
-    if retains:
-        for meta in spec.pairs:       # mean plans overlay prev row for row
-            if (meta.prev_a_shape != meta.a_shape[1:]
-                    or meta.prev_b_shape != meta.b_shape[1:]):
-                raise PlanUnavailable(
-                    "prev leaf shapes differ from the cohort's")
-    cr = _client_ranks(spec)
-    rank_leaves = _out_rank_leaves(spec)
-    order: dict = {}
-    for i, c in enumerate(spec.codecs):
-        order.setdefault(c, []).append(i)
-    groups = [(c, tuple(ix)) for c, ix in order.items()]
-    # per-bucket owner masks in group order (host-sliced once per plan)
-    cat_ix = [i for _, ix in groups for i in ix]
-    masks = [torch.as_tensor(b.mask[cat_ix], device=spec.device)
-             for b in buckets]
-    perm = torch.as_tensor(cat_ix, dtype=torch.long, device=spec.device)
-    norm_by = strategy.norm_by
-    robust = strategy.robustness
-    robust_kw = (dict(mode=robust, clip_norm=float(strategy.clip_norm),
-                      trim_frac=float(strategy.trim_frac))
-                 if robust != "none" else None)
-    kernel = spec.kind == "kernel"
-    rebuild = [None]
-
-    def combine(x, m, wt, prev, scales):
-        kw = dict(scales=scales, out_dtype=torch.float32)
-        if robust_kw is not None:
-            kw.update(robust_kw)
-            if kernel:
-                return packed_robust(x, m, wt, prev, backend="kernel", **kw)
-            return packed_robust_ref(x, m, wt, prev, **kw)
-        kw.update(norm_by=norm_by, norm_restore=norm_restore)
-        if kernel:
-            return packed_agg(x, m, wt, prev, backend="kernel", **kw)
-        return packed_agg_ref(x, m, wt, prev, **kw)
-
-    def execute(client_trees, w, prev_tree):
-        if rebuild[0] is None:
-            rebuild[0] = _make_rebuilder(client_trees[0])
-        clients = [_enc_ab_list(t) for t in client_trees]
-        wt = strategy.transform_weights(w, cr)[perm]
-        prev_ab = _ab_list(prev_tree) if retains else None
-        outs = []
-        for bi, b in enumerate(buckets):
-            xs, ss = [], []
-            for cname, ix in groups:
-                xs.append(torch.stack([_gather(
-                    [_pack_client_side(clients[i][s.pair_idx][s.side], s,
-                                       wire=cname != "none")
-                     for s in b.slots], dim=0) for i in ix]))
-                ss.append(torch.stack([_gather(
-                    [_pack_client_scale(clients[i][s.pair_idx], s)
-                     for s in b.slots], dim=0) for i in ix])
-                    if cname == "int8" else None)
-            prev = None
-            if retains:
-                prev = _gather([_pack_prev_side(prev_ab[s.pair_idx][s.side],
-                                                s) for s in b.slots], dim=0)
-            if len(groups) == 1:
-                x, scales = xs[0], ss[0]
-            else:
-                x = torch.cat([xg.float() if sg is None
-                               else sg[:, :, None] * xg.float()
-                               for xg, sg in zip(xs, ss)])
-                scales = None
-            outs.append(combine(x, masks[bi], wt, prev, scales))
-        unpacked = [{} for _ in spec.pairs]
-        for bi, b in enumerate(buckets):
-            for s in b.slots:
-                unpacked[s.pair_idx][s.side] = _unpack_slot(outs[bi], s)
-        return rebuild[0]([{"A": u["A"], "B": u["B"], "rank": rank_leaves[i]}
-                           for i, u in enumerate(unpacked)])
-
-    return CompiledRound(strategy, spec, "packed", execute,
-                         n_kernel_launches=len(buckets))
+                         n_kernel_launches=1)
 
 
 # ------------------------------------------------------ packed stack plans --

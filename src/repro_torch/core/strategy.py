@@ -7,8 +7,9 @@ Each method is one :class:`AggregationStrategy` that owns
   (:meth:`AggregationStrategy.aggregate_tree`, the ``ref`` backend),
 * (c) a **per-pair kernel path**
   (:meth:`AggregationStrategy.aggregate_tree_kernel`), and
-* (d) a **compiled plan** (``repro_torch.core.plan``): packed buckets, one
-  ``packed_agg`` launch per bucket -- the default route of
+* (d) a **compiled plan** (``repro_torch.core.plan``): every pair side of
+  the round in its own layout, one grouped ``packed_agg`` launch per
+  round -- the default route of
   :meth:`AggregationStrategy.aggregate_adapters`, and
 * (e) a **per-update fold** for the async aggregation service
   (:meth:`AggregationStrategy.fold` and the ``supports_incremental``
@@ -41,8 +42,9 @@ import torch
 
 from repro_torch.kernels.rbla_agg import (axpy_fold_group,
                                           axpy_fold_group_ref, flora_stack,
-                                          packed_agg, packed_robust,
-                                          packed_robust_ref, rbla_agg)
+                                          packed_agg_group,
+                                          packed_robust_group,
+                                          packed_robust_group_ref, rbla_agg)
 from repro_torch.kernels.runtime import resolve_backend, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -443,14 +445,14 @@ class AggregationStrategy:
         """Aggregate per-client adapter trees into the global adapter.
 
         Stacks the uploads and runs the round through a cached compiled
-        plan (one fused launch per bucket); ``use_plan=False`` takes the
+        plan (one grouped launch a round); ``use_plan=False`` takes the
         per-leaf path (``aggregate_tree_kernel`` on the kernel backend,
         ``aggregate_tree`` on ref).  Live ranks are reset to ``r_max``.
 
         Encoded uploads (``repro_torch.core.codec``): the mean family plans
         them directly -- per-client wire-dtype payloads, dequantisation
-        fused into ``packed_agg``/``packed_robust``, one launch per bucket
-        for a uniform codec.  Every other strategy, a client whose pairs
+        fused into ``packed_agg``/``packed_robust``, one launch a round
+        (mixed codecs too).  Every other strategy, a client whose pairs
         mix codecs, and an unplannable cohort decode eagerly and take the
         standard path."""
         from repro_torch.lora import adapter_masks
@@ -870,21 +872,20 @@ class RBLANormStrategy(AggregationStrategy):
 
     def aggregate_tree_kernel(self, stacked_tree, weights, client_ranks,
                               prev_tree=None, *, r_max=None):
-        """The masked mean and the per-row norm restore in one
-        ``packed_agg(norm_restore=True)`` launch per side."""
+        """The masked mean and the per-row norm restore of a pair's A and
+        B (by rank column, in its own layout) in one
+        ``packed_agg_group(norm_restore=True)`` launch per pair."""
         w = weights.float()
 
         def agg_pair(pair, _prev):
             A, B = pair["A"], pair["B"]
             masks = stacked_rank_masks(A.shape[-2],
                                        self._pair_ranks(pair, client_ranks))
-            outA = packed_agg(A.contiguous(), masks, w, norm_by="mask",
-                              norm_restore=True, backend="kernel")
-            outB = packed_agg(B.transpose(1, 2).contiguous(), masks, w,
-                              norm_by="mask", norm_restore=True,
-                              backend="kernel").T.contiguous()
-            return {"A": outA.to(A.dtype), "B": outB.to(B.dtype),
-                    "rank": pair["rank"][0]}
+            outA, outB = packed_agg_group(
+                [A, B], masks, w, cols=[False, True], mask_offs=[0, 0],
+                out_dtypes=[A.dtype, B.dtype], norm_by="mask",
+                norm_restore=True, backend="kernel")
+            return {"A": outA, "B": outB, "rank": pair["rank"][0]}
         return _map_pairs(agg_pair, stacked_tree, prev_tree, strict=True)
 
 
@@ -904,7 +905,7 @@ class RobustRBLAStrategy(AggregationStrategy):
     Trimmed and median are unweighted: example counts are client-reported
     and so adversary-controlled.  Rows with no owner keep the previous
     global, as in ``rbla``.  All three lower through the packed mean plan:
-    one ``packed_robust`` launch per (width, dtype) bucket."""
+    one grouped ``packed_robust`` launch per round."""
     norm_by = "mask"
     use_mask = True
     retains_prev = True
@@ -922,7 +923,10 @@ class RobustRBLAStrategy(AggregationStrategy):
         # non-pair leaves have no rank-row structure to defend
         return rbla_leaf(stacked, mask, weights, prev)
 
-    def _robust_pair(self, agg, pair, prev_pair, w, ranks):
+    def _robust_pair(self, group, pair, prev_pair, w, ranks):
+        """One pair through ``group`` (a grouped robust call): A by rank
+        row and B by rank column, both in their own layout, sharing the
+        pair's owner-mask columns."""
         A, B = pair["A"], pair["B"]
         pranks = ranks
         if pranks is None and pair["rank"].ndim == 1:
@@ -933,15 +937,14 @@ class RobustRBLAStrategy(AggregationStrategy):
                 f"A.ndim={A.ndim}); layer-stacked pairs lower through the "
                 "compiled plan, which packs per-layer rows")
         masks = stacked_rank_masks(A.shape[-2], pranks, device=A.device)
-        pA = pB = None
-        if prev_pair is not None:
-            pA, pB = prev_pair["A"], prev_pair["B"].T
-        outA = agg(A.contiguous(), masks, w, pA)
-        outB = agg(B.transpose(1, 2).contiguous(), masks, w, pB).T
-        return {"A": outA.to(A.dtype), "B": outB.to(B.dtype).contiguous(),
-                "rank": pair["rank"][0]}
+        prevs = (None, None) if prev_pair is None else (prev_pair["A"],
+                                                        prev_pair["B"])
+        outA, outB = group([A, B], masks, w, prevs, cols=(False, True),
+                           scales=(None, None), mask_offs=(0, 0),
+                           out_dtypes=(A.dtype, B.dtype))
+        return {"A": outA, "B": outB, "rank": pair["rank"][0]}
 
-    def _map_robust(self, agg, stacked_tree, weights, client_ranks,
+    def _map_robust(self, group, stacked_tree, weights, client_ranks,
                     prev_tree):
         w = torch.as_tensor(weights).float()
         ranks = (None if client_ranks is None
@@ -950,21 +953,22 @@ class RobustRBLAStrategy(AggregationStrategy):
                   trim_frac=self.trim_frac)
         return _map_pairs(
             lambda pair, prev_pair: self._robust_pair(
-                lambda *a: agg(*a, **kw), pair, prev_pair, w, ranks),
+                lambda *a, **k: group(*a, **k, **kw), pair, prev_pair, w,
+                ranks),
             stacked_tree, prev_tree, strict=True)
 
     def aggregate_tree(self, stacked_tree, mask_tree, weights,
                        prev_tree=None, *, r_max=None, client_ranks=None):
-        return self._map_robust(packed_robust_ref, stacked_tree, weights,
-                                client_ranks, prev_tree)
+        return self._map_robust(packed_robust_group_ref, stacked_tree,
+                                weights, client_ranks, prev_tree)
 
     def aggregate_tree_kernel(self, stacked_tree, weights, client_ranks,
                               prev_tree=None, *, r_max=None):
-        """One ``packed_robust`` launch per pair side (the compiled plan
-        fuses all pairs into one launch per bucket)."""
-        def agg(x, masks, w, prev, **kw):
-            return packed_robust(x, masks, w, prev, backend="kernel", **kw)
-        return self._map_robust(agg, stacked_tree, weights, client_ranks,
+        """One ``packed_robust_group`` launch per pair (the compiled plan
+        takes the whole round in one)."""
+        def group(*a, **kw):
+            return packed_robust_group(*a, backend="kernel", **kw)
+        return self._map_robust(group, stacked_tree, weights, client_ranks,
                                 prev_tree)
 
 

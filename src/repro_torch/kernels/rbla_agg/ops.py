@@ -26,7 +26,9 @@ from .. import build, runtime
 from ..runtime import check_launch as _check_launch
 from ..runtime import stream_handle as _stream
 from .ref import (ROBUST_MODES, axpy_fold_group_ref, axpy_fold_ref,
-                  flora_stack_ref, packed_agg_ref, packed_robust_ref,
+                  flora_stack_ref, group_key, leaf_shape,
+                  packed_agg_group_ref, packed_agg_ref,
+                  packed_robust_group_ref, packed_robust_ref,
                   packed_stack_ref, rbla_agg_ref)
 
 #: legacy method names -> the kernels' two normalisation modes
@@ -34,18 +36,41 @@ _NORM_BY = {"rbla": "mask", "zeropad": "weight"}
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("rbla_agg")
-    lib.rbla_packed_agg.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _P,
-                                    _L, _L, _L, _I, _I, _P]
-    lib.rbla_packed_agg.restype = _I
+    _bind_group(lib, "packed_agg", [])
     lib.rbla_rank_agg.argtypes = [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P]
     lib.rbla_rank_agg.restype = _I
     return lib
+
+
+@functools.cache
+def _robust_lib() -> ctypes.CDLL:
+    lib = build.load("packed_robust")
+    _bind_group(lib, "packed_robust", [_F, _F])
+    return lib
+
+
+def _bind_group(lib, name: str, knobs: list) -> None:
+    """ctypes signatures of a grouped kernel's three C entry points and the
+    table queries every grouped library carries (csrc/agg_group.cuh)."""
+    head = [_P, _L, _P, _I, _I, _I]     # masks, mask_cols, weights, n, dtype, mode
+    getattr(lib, f"{name}_group").argtypes = [_P, _I, _P, _I, _P] + head \
+        + knobs + [_P]
+    getattr(lib, f"{name}_layout").argtypes = [_P, _I, _P, _I, _P, _I, _I,
+                                               _I, _P, _P]
+    getattr(lib, f"{name}_group_table").argtypes = [_P, _I, _I, _L] + head \
+        + knobs + [_P]
+    lib.agg_group_fits_inline.argtypes = [_I, _I, _I, _I]
+    lib.agg_group_table_bytes.argtypes = [_I, _I, _I]
+    lib.agg_group_table_bytes.restype = _L
+    for fn in ("group", "layout", "group_table"):
+        getattr(lib, f"{name}_{fn}").restype = _I
+    lib.agg_group_fits_inline.restype = _I
 
 
 def _flat(x, name: str):
@@ -73,52 +98,319 @@ def _norm_code(norm_by: str) -> int:
     return int(norm_by == "weight")
 
 
-def _packed_agg_cuda(x, masks, weights, prev, scales, out_dtype, norm_by,
-                     norm_restore):
-    n, r, d = x.shape
-    dev = x.device
-    if x.dtype not in _IN_CODES:
-        raise TypeError(f"packed_agg: x dtype {x.dtype} not in "
-                        f"{list(_IN_CODES)}")
-    if out_dtype not in _OUT_CODES:
-        raise TypeError(f"packed_agg: out_dtype {out_dtype} not in "
-                        f"{list(_OUT_CODES)}")
-    if not x.is_contiguous():
-        raise ValueError("packed_agg: x must be contiguous")
-    by_weight = _norm_code(norm_by)
-    masks = _on(masks, dev, torch.float32, "masks")
-    weights = _on(weights, dev, torch.float32, "weights")
-    if weights.shape != (n,):
-        raise ValueError(f"packed_agg: weights {tuple(weights.shape)} != ({n},)")
-    if scales is not None:
-        scales = _on(scales, dev, torch.float32, "scales")
-    if prev is not None:
-        prev = _on(prev, dev, out_dtype, "prev")
-    out = torch.empty((r, d), dtype=out_dtype, device=dev)
-    if r * d == 0:
-        return out
-    scratch = None
-    if norm_restore:
-        scratch = (out if out_dtype == torch.float32
-                   else torch.empty((r, d), dtype=torch.float32, device=dev))
-    with torch.cuda.device(dev):
-        err = _lib().rbla_packed_agg(
-            x.data_ptr(), _IN_CODES[x.dtype], masks.data_ptr(),
-            weights.data_ptr(), None if prev is None else prev.data_ptr(),
-            None if scales is None else scales.data_ptr(), out.data_ptr(),
-            _OUT_CODES[out_dtype],
-            None if scratch is None else scratch.data_ptr(), n, r, d,
-            by_weight, int(norm_restore),
-            _stream(dev))
-    _check_launch(err, "packed_agg", _lib())
-    runtime.LAUNCHES["packed_agg"] += 1
-    return out
+# ---------------------------------------------- grouped packed_agg / robust --
+#: the kernels' dtype code of a launch whose clients differ (agg_group.cuh)
+_MIXED = 3
+_NORM_RESTORE = 2             # packed_agg's mode bit (bit 0: norm_by "weight")
+
+
+@functools.lru_cache(maxsize=4096)
+def _seg_geometry(shape: tuple, col: bool) -> tuple:
+    """``(rows, width, col_group, rank_rows, numel)`` of a leaf of ``shape``:
+    memory rows of ``width`` contiguous elements; in column mode (a B leaf
+    ``(*lead, fan_out, r)``) ``col_group`` is fan_out and the rank rows run
+    along the last axis."""
+    if len(shape) < 2:
+        raise ValueError(f"a segment is a leaf of at least 2 dims, got "
+                         f"{shape}")
+    numel = math.prod(shape)
+    width = shape[-1]
+    rows = numel // width if width else math.prod(shape[:-1])
+    if col:
+        return rows, width, shape[-2], math.prod(shape[:-2]) * width, numel
+    return rows, width, 0, rows, numel
+
+
+def _group_args(name, xs, masks, weights, prevs, cols, scales, mask_offs,
+                out_dtypes):
+    """Check a grouped call and fill in its defaults: per segment its prev,
+    column flag, scales, mask offset (default: the segments' rank rows one
+    after another) and output dtype (default the leaf's, fp32 for
+    per-client leaves of differing dtypes)."""
+    k = len(xs)
+    if not k:
+        raise ValueError(f"{name}_group: no segments")
+    lists = dict(prevs=prevs, cols=cols, scales=scales, mask_offs=mask_offs,
+                 out_dtypes=out_dtypes)
+    for key, v in lists.items():
+        if v is not None and len(v) != k:
+            raise ValueError(f"{name}_group: {k} segments, {len(v)} {key}")
+    n = int(masks.shape[0]) if masks.ndim == 2 else -1
+    if masks.ndim != 2 or tuple(weights.shape) != (n,):
+        raise ValueError(f"{name}_group: masks {tuple(masks.shape)} and "
+                         f"weights {tuple(weights.shape)} must be (n, "
+                         "mask_cols) and (n,)")
+    cols = (False,) * k if cols is None else tuple(bool(c) for c in cols)
+    prevs = (None,) * k if prevs is None else tuple(prevs)
+    scales = (None,) * k if scales is None else tuple(scales)
+    offs, dts, off = [], [], 0
+    for i, x in enumerate(xs):
+        if isinstance(x, torch.Tensor):
+            if x.shape[0] != n:
+                raise ValueError(f"{name}_group: segment {i} stacks "
+                                 f"{x.shape[0]} clients, masks {n}")
+        elif len(x) != n or any(t.shape != x[0].shape for t in x):
+            raise ValueError(f"{name}_group: segment {i} needs {n} "
+                             "per-client leaves of one shape")
+        shape = leaf_shape(x)
+        geo = _seg_geometry(shape, cols[i])
+        o = off if mask_offs is None else int(mask_offs[i])
+        if o < 0 or o + geo[3] > masks.shape[1]:
+            raise ValueError(f"{name}_group: segment {i}'s rank rows "
+                             f"[{o}, {o + geo[3]}) exceed the masks' "
+                             f"{masks.shape[1]} columns")
+        offs.append(o)
+        off = o + geo[3]
+        if prevs[i] is not None and tuple(prevs[i].shape) != shape:
+            raise ValueError(f"{name}_group: prev {tuple(prevs[i].shape)} "
+                             f"!= the leaf's {shape}")
+        sc = scales[i]
+        if sc is not None and not (
+                sc.numel() == n * geo[3] if isinstance(sc, torch.Tensor)
+                else len(sc) == n and all(t is None or t.numel() == geo[3]
+                                          for t in sc)):
+            raise ValueError(f"{name}_group: segment {i}'s scales do "
+                                 f"not hold one per (client, rank row): "
+                                 f"{geo[3]} rank rows")
+        if out_dtypes is not None and out_dtypes[i] is not None:
+            dts.append(out_dtypes[i])
+        else:
+            key = group_key(x)
+            dts.append(key[0] if len(key) == 1 else torch.float32)
+    return prevs, cols, scales, tuple(offs), tuple(dts)
+
+
+def _f32(t, index: int, name: str):
+    """``t`` as a contiguous fp32 tensor on CUDA device ``index`` (copied
+    only where it is not one); a tensor elsewhere is refused."""
+    if not isinstance(t, torch.Tensor):
+        return torch.as_tensor(t, dtype=torch.float32,
+                               device=f"cuda:{index}").contiguous()
+    if t.get_device() != index:
+        raise ValueError(f"{name} is on {t.device}, x on cuda:{index}")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.to(torch.float32).contiguous()
+    return t
+
+
+def grouped_launch(name: str, xs, masks, weights, prevs, *, cols, scales,
+                   mask_offs, out_dtypes, **kw) -> list:
+    """The card path of :func:`packed_agg_group` (``name`` "packed_agg",
+    ``kw`` its ``norm_by`` and ``norm_restore``) or
+    :func:`packed_robust_group` ("packed_robust", ``kw`` its ``mode``,
+    ``clip_norm`` and ``trim_frac``) without their argument checks: for a
+    caller whose segments come from a checked geometry (the compiled
+    plans), every list given in full.  CPU tensors are refused, as the
+    kernel backend refuses them everywhere."""
+    runtime.use_kernel("kernel", xs[0] if isinstance(xs[0], torch.Tensor)
+                       else xs[0][0], name)
+    if name == "packed_agg":
+        mode = _norm_code(kw.get("norm_by", "mask")) \
+            | _NORM_RESTORE * bool(kw.get("norm_restore", False))
+        return _group_cuda(name, _lib(), xs, masks, weights, prevs, cols,
+                           scales, mask_offs, out_dtypes, mode)
+    return _group_cuda(name, _robust_lib(), xs, masks, weights, prevs, cols,
+                       scales, mask_offs, out_dtypes, _MODE_CODES[kw["mode"]],
+                       (float(kw.get("clip_norm", 0.0)),
+                        float(kw.get("trim_frac", 0.0))))
+
+
+@dataclasses.dataclass(eq=False)
+class _Layout:
+    """The static part of one launch's segment table: each segment's words
+    with its pointers left 0, and where its output lies in one allocation
+    per output dtype.  Built once per geometry; a call fills the pointers."""
+    words: array.array          # twelve words a segment (SegIn)
+    n_ents: int                 # per-client entries (Entry, two words)
+    shapes: tuple
+    strides: tuple
+    numels: tuple
+    out_dtypes: tuple
+    offsets: tuple              # each output's first element in its buffer
+    sizes: dict                 # elements of each output dtype's buffer
+    esize: int                  # a stacked client element's bytes, or 0
+
+
+@functools.lru_cache(maxsize=512)
+def _layout(geo: tuple, esize: int) -> _Layout:
+    """``geo``: per segment ``(shape, col, mask_off, out_dtype,
+    per_client)``; ``esize``: the clients' element bytes (stacked
+    segments step by it)."""
+    words, sizes, offsets, strides, numels = array.array("q"), {}, [], [], []
+    n_ents = 0
+    for shape, col, off, odt, per_client in geo:
+        rows, width, col_group, rr, numel = _seg_geometry(shape, col)
+        at = sizes.get(odt, 0)
+        offsets.append(at)
+        sizes[odt] = at + -(-numel // 16) * 16      # 64-byte aligned outputs
+        strides.append(tuple(math.prod(shape[i + 1:])
+                             for i in range(len(shape))))
+        numels.append(numel)
+        n_ents += per_client
+        words.extend((0, numel, 0, rr, 0, 0, rows, width, col_group, off,
+                      0 if per_client else -1, _OUT_CODES[odt]))
+    return _Layout(words, n_ents, tuple(g[0] for g in geo), tuple(strides),
+                   tuple(numels), tuple(g[3] for g in geo), tuple(offsets),
+                   sizes, esize)
+
+
+def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
+                mask_offs, out_dtypes, mode, knobs=()):
+    """Run a checked grouped call on the card: one launch per client-dtype
+    key (:func:`group_key`).  Returns the outputs in order, each a view of
+    one allocation per output dtype."""
+    x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
+    dev, index = x0.device, x0.get_device()
+    masks = _f32(masks, index, "masks")
+    weights = _f32(weights, index, "weights")
+    n = int(weights.shape[0])
+    by_key: dict = {}
+    for i, x in enumerate(xs):
+        by_key.setdefault(group_key(x), []).append(i)
+    outs = [None] * len(xs)
+    keep = []
+    with (torch.cuda.device(dev) if torch.cuda.current_device() != index
+          else contextlib.nullcontext()):
+        stream = _stream(dev)
+        for key, idx in by_key.items():
+            for t in key:
+                if t not in _IN_CODES:
+                    raise TypeError(f"{name}: x dtype {t} not in "
+                                    f"{list(_IN_CODES)}")
+            lay = _layout(tuple(
+                (leaf_shape(xs[i]), cols[i], mask_offs[i], out_dtypes[i],
+                 not isinstance(xs[i], torch.Tensor)) for i in idx),
+                key[0].itemsize)
+            for odt in lay.out_dtypes:
+                if odt not in _OUT_CODES:
+                    raise TypeError(f"{name}: out_dtype {odt} not in "
+                                    f"{list(_OUT_CODES)}")
+            bufs = {dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
+                    for dt, sz in lay.sizes.items()}
+            words = array.array("q", lay.words)
+            ents = array.array("q", bytes(16 * n * lay.n_ents))
+            ent = 0
+            for j, i in enumerate(idx):
+                odt = lay.out_dtypes[j]
+                buf = bufs[odt]
+                out = buf.as_strided(lay.shapes[j], lay.strides[j],
+                                     lay.offsets[j])
+                outs[i] = out
+                if not lay.numels[j]:
+                    continue
+                w = 12 * j
+                words[w + 5] = buf.data_ptr() + lay.offsets[j] * odt.itemsize
+                x, prev, sc = xs[i], prevs[i], scales[i]
+                clients = (x,) if isinstance(x, torch.Tensor) else x
+                for t in clients:
+                    if t.get_device() != index:
+                        raise ValueError(f"{name}: a client leaf is on "
+                                         f"{t.device}, the call on {dev}")
+                if not all(t.is_contiguous() for t in clients):
+                    clients = [t.contiguous() for t in clients]
+                    keep.append(clients)
+                ptrs = [t.data_ptr() for t in clients]
+                vec = all(p % 16 == 0 for p in ptrs)
+                if prev is not None:
+                    if prev.get_device() != index:
+                        raise ValueError(f"{name}: prev is on {prev.device}, "
+                                         f"the call on {dev}")
+                    if prev.dtype != odt or not prev.is_contiguous():
+                        prev = prev.to(odt).contiguous()
+                        keep.append(prev)
+                    words[w + 4] = prev.data_ptr()
+                    vec = vec and words[w + 4] % 16 == 0
+                if isinstance(x, torch.Tensor):
+                    words[w] = ptrs[0]
+                    vec = vec and (lay.numels[j] * lay.esize) % 16 == 0
+                    if sc is not None:
+                        sc = _f32(sc, index, "scales")
+                        keep.append(sc)
+                        words[w + 2] = sc.data_ptr()
+                else:
+                    scs = (None,) * n if sc is None else sc
+                    for c, (p, s) in enumerate(zip(ptrs, scs)):
+                        ents[2 * (ent * n + c)] = p
+                        if s is not None:
+                            s = _f32(s, index, "scales")
+                            keep.append(s)
+                            ents[2 * (ent * n + c) + 1] = s.data_ptr()
+                    words[w + 10] = ent * n
+                    ent += 1
+                words[w + 11] |= int(vec) << 8
+            codes = None
+            if len(key) == 1:
+                dtype = _IN_CODES[key[0]]
+            else:
+                dtype = _MIXED
+                codes = bytes(_IN_CODES[t] for t in key)
+            n_segs, n_ents = len(idx), n * lay.n_ents
+            seg_addr, ent_addr = words.buffer_info()[0], ents.buffer_info()[0]
+            head = (masks.data_ptr(), int(masks.shape[1]), weights.data_ptr(),
+                    n, dtype, mode, *knobs)
+            if lib.agg_group_fits_inline(n_segs, n_ents, n, dtype):
+                err = getattr(lib, f"{name}_group")(
+                    seg_addr, n_segs, ent_addr, n_ents, codes, *head, stream)
+            else:       # the table goes to the card by one async copy
+                host = torch.empty(lib.agg_group_table_bytes(
+                    n_segs, n_ents, n if codes else 0), dtype=torch.uint8,
+                    pin_memory=True)
+                tiles = ctypes.c_int64()
+                err = getattr(lib, f"{name}_layout")(
+                    seg_addr, n_segs, ent_addr, n_ents, codes, n, dtype, mode,
+                    host.data_ptr(), ctypes.byref(tiles))
+                _check_launch(err, name, lib)
+                table = host.to(dev, non_blocking=True)
+                err = getattr(lib, f"{name}_group_table")(
+                    table.data_ptr(), n_segs, n_ents, tiles.value, *head,
+                    stream)
+            _check_launch(err, name, lib)
+            runtime.LAUNCHES[name] += 1
+    return outs
+
+
+def packed_agg_group(xs, masks, weights, prevs=None, *, cols=None,
+                     scales=None, mask_offs=None, out_dtypes=None,
+                     norm_by: str = "mask", norm_restore: bool = False,
+                     backend: str = "auto"):
+    """Aggregate every leaf of a round in one call (the compiled plan's op):
+    for each segment i the masked weighted mean of :func:`packed_agg` over
+    the rank rows of leaf ``xs[i]``, in the leaf's own layout.
+
+    ``xs[i]``: the leaf stacked over the n clients, ``(n, *shape)``, or a
+    sequence of n per-client leaves of ``shape`` (an encoded cohort: each
+    in its wire dtype, fp32, bf16 or int8).  ``cols[i]`` true: a B leaf
+    ``(*lead, fan_out, r)`` whose rank rows are its columns; otherwise its
+    rank rows are its rows (an A leaf ``(*lead, r, fan_in)``).  Rank row j
+    of segment i takes column ``mask_offs[i] + j`` of the owner masks
+    ``masks`` (n, mask_cols) (default: the segments' rank rows one after
+    another) and row j of ``scales[i]`` (per (client, rank row):
+    ``(n, rank_rows)``, or per client a tensor or None).  ``prevs[i]``
+    (the leaf's shape) is kept where no client owns a rank row.  Returns
+    one tensor per segment in the leaf's shape and ``out_dtypes[i]``
+    (default the leaf's dtype).  On the card every segment whose clients
+    share their dtypes runs in ONE launch (``runtime.LAUNCHES
+    ["packed_agg"]`` counts each); on the CPU the plain version
+    :func:`packed_agg_group_ref` runs."""
+    prevs, cols, scales, offs, dts = _group_args(
+        "packed_agg", xs, masks, weights, prevs, cols, scales, mask_offs,
+        out_dtypes)
+    mode = _norm_code(norm_by) | _NORM_RESTORE * bool(norm_restore)
+    x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
+    if runtime.use_kernel(backend, x0, "packed_agg"):
+        return _group_cuda("packed_agg", _lib(), xs, masks, weights, prevs,
+                           cols, scales, offs, dts, mode)
+    return packed_agg_group_ref(xs, masks, torch.as_tensor(weights), prevs,
+                                cols=cols, scales=scales, mask_offs=offs,
+                                out_dtypes=dts, norm_by=norm_by,
+                                norm_restore=norm_restore)
 
 
 def packed_agg(x, masks, weights, prev=None, *, norm_by: str = "mask",
                norm_restore: bool = False, scales=None, out_dtype=None,
                backend: str = "auto"):
-    """Fused-bucket aggregation (the compiled plan's hot op).
+    """Fused-bucket aggregation: the one-segment form of
+    :func:`packed_agg_group`.
 
     ``x``: (N, R, *dims) packed rows spanning many pairs; ``masks``:
     (N, R) per-row owner indicators; ``weights``: (N,); ``prev``:
@@ -143,8 +435,10 @@ def packed_agg(x, masks, weights, prev=None, *, norm_by: str = "mask",
                              f"{(r,) + lead}")
         pv = prev.reshape(r, d)
     if runtime.use_kernel(backend, x, "packed_agg"):
-        out = _packed_agg_cuda(x2, masks, weights, pv, scales, out_dtype,
-                               norm_by, norm_restore)
+        out = _group_cuda(
+            "packed_agg", _lib(), [x2], masks, weights, [pv], [False],
+            [scales], [0], [out_dtype],
+            _norm_code(norm_by) | _NORM_RESTORE * bool(norm_restore))[0]
     else:
         out = packed_agg_ref(x2, masks, torch.as_tensor(weights), pv,
                              norm_by=norm_by, norm_restore=norm_restore,
@@ -210,61 +504,52 @@ _MODE_CODES = {"clipped": 0, "trimmed": 1, "median": 2}
 MAX_ROBUST_CLIENTS = 2048
 
 
-@functools.cache
-def _robust_lib() -> ctypes.CDLL:
-    lib = build.load("packed_robust")
-    lib.robust_packed_agg.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _L, _L,
-                                      _L, _I, ctypes.c_float, ctypes.c_float,
-                                      _P]
-    lib.robust_packed_agg.restype = _I
-    return lib
-
-
-def _packed_robust_cuda(x, masks, weights, prev, scales, out_dtype, mode,
-                        clip_norm, trim_frac):
-    n, r, d = x.shape
-    dev = x.device
-    if x.dtype not in _IN_CODES:
-        raise TypeError(f"packed_robust: x dtype {x.dtype} not in "
-                        f"{list(_IN_CODES)}")
-    if out_dtype not in _OUT_CODES:
-        raise TypeError(f"packed_robust: out_dtype {out_dtype} not in "
-                        f"{list(_OUT_CODES)}")
-    if not 1 <= n <= MAX_ROBUST_CLIENTS:
+def _check_robust(mode: str, n: int, on_card: bool) -> None:
+    if mode not in ROBUST_MODES:
+        raise ValueError(f"unknown robust mode {mode!r}; options: "
+                         f"{list(ROBUST_MODES)}")
+    if on_card and not 1 <= n <= MAX_ROBUST_CLIENTS:
         raise ValueError(f"packed_robust: the kernel takes 1 to "
                          f"{MAX_ROBUST_CLIENTS} clients, got {n}")
-    if not x.is_contiguous():
-        raise ValueError("packed_robust: x must be contiguous")
-    masks = _on(masks, dev, torch.float32, "masks")
-    weights = _on(weights, dev, torch.float32, "weights")
-    if scales is not None:
-        scales = _on(scales, dev, torch.float32, "scales")
-    if prev is not None:
-        prev = _on(prev, dev, out_dtype, "prev")
-    out = torch.empty((r, d), dtype=out_dtype, device=dev)
-    if r * d == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = _robust_lib().robust_packed_agg(
-            x.data_ptr(), _IN_CODES[x.dtype], masks.data_ptr(),
-            weights.data_ptr(), None if prev is None else prev.data_ptr(),
-            None if scales is None else scales.data_ptr(), out.data_ptr(),
-            _OUT_CODES[out_dtype], n, r, d, _MODE_CODES[mode],
-            float(clip_norm), float(trim_frac), _stream(dev))
-    _check_launch(err, "packed_robust", _robust_lib())
-    runtime.LAUNCHES["packed_robust"] += 1
-    return out
+
+
+def packed_robust_group(xs, masks, weights, prevs=None, *, mode: str,
+                        clip_norm: float = 0.0, trim_frac: float = 0.0,
+                        cols=None, scales=None, mask_offs=None,
+                        out_dtypes=None, backend: str = "auto"):
+    """The robust aggregation of every leaf of a round in one call:
+    :func:`packed_robust`'s ``mode`` over the segments of
+    :func:`packed_agg_group` (same layout, masks, scales, prev rule and
+    outputs).  On the card one launch per client-dtype key
+    (``runtime.LAUNCHES["packed_robust"]``); on the CPU the plain version
+    :func:`packed_robust_group_ref`."""
+    prevs, cols, scales, offs, dts = _group_args(
+        "packed_robust", xs, masks, weights, prevs, cols, scales, mask_offs,
+        out_dtypes)
+    x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
+    on_card = runtime.use_kernel(backend, x0, "packed_robust")
+    _check_robust(mode, int(masks.shape[0]), on_card)
+    if on_card:
+        return _group_cuda("packed_robust", _robust_lib(), xs, masks,
+                           weights, prevs, cols, scales, offs, dts,
+                           _MODE_CODES[mode],
+                           (float(clip_norm), float(trim_frac)))
+    return packed_robust_group_ref(
+        xs, masks, torch.as_tensor(weights), prevs, mode=mode, cols=cols,
+        scales=scales, mask_offs=offs, out_dtypes=dts, clip_norm=clip_norm,
+        trim_frac=trim_frac)
 
 
 def packed_robust(x, masks, weights, prev=None, *, mode: str,
                   clip_norm: float = 0.0, trim_frac: float = 0.0,
                   scales=None, out_dtype=None, backend: str = "auto"):
-    """Byzantine-robust bucket aggregation: ``mode`` "clipped" (per-row L2
-    clip, then the masked weighted mean), "trimmed" (per-coordinate
-    trimmed mean over a row's owners) or "median" (coordinate-wise median
-    over them); rows no client owns keep ``prev``.  Layout, ``scales`` and
-    ``out_dtype`` as in :func:`packed_agg` (dequantisation comes before the
-    clip or the sort); see ``packed_robust_ref`` for the exact contract."""
+    """Byzantine-robust bucket aggregation, the one-segment form of
+    :func:`packed_robust_group`: ``mode`` "clipped" (per-row L2 clip, then
+    the masked weighted mean), "trimmed" (per-coordinate trimmed mean over
+    a row's owners) or "median" (coordinate-wise median over them); rows no
+    client owns keep ``prev``.  Layout, ``scales`` and ``out_dtype`` as in
+    :func:`packed_agg` (dequantisation comes before the clip or the sort);
+    see ``packed_robust_ref`` for the exact contract."""
     x2, lead = _flat(x, "packed_robust")
     n, r, d = x2.shape
     if tuple(masks.shape) != (n, r):
@@ -273,9 +558,8 @@ def packed_robust(x, masks, weights, prev=None, *, mode: str,
     if scales is not None and tuple(scales.shape) != (n, r):
         raise ValueError(f"packed_robust: scales {tuple(scales.shape)} != "
                          f"({n}, {r})")
-    if mode not in ROBUST_MODES:
-        raise ValueError(f"unknown robust mode {mode!r}; options: "
-                         f"{list(ROBUST_MODES)}")
+    on_card = runtime.use_kernel(backend, x, "packed_robust")
+    _check_robust(mode, n, on_card)
     out_dtype = out_dtype or x.dtype
     pv = None
     if prev is not None:
@@ -284,9 +568,11 @@ def packed_robust(x, masks, weights, prev=None, *, mode: str,
                              f"{(r,) + lead}")
         pv = prev.reshape(r, d)
     kw = dict(mode=mode, clip_norm=clip_norm, trim_frac=trim_frac)
-    if runtime.use_kernel(backend, x, "packed_robust"):
-        out = _packed_robust_cuda(x2, masks, weights, pv, scales, out_dtype,
-                                  **kw)
+    if on_card:
+        out = _group_cuda("packed_robust", _robust_lib(), [x2], masks,
+                          weights, [pv], [False], [scales], [0], [out_dtype],
+                          _MODE_CODES[mode],
+                          (float(clip_norm), float(trim_frac)))[0]
     else:
         out = packed_robust_ref(x2, masks, torch.as_tensor(weights), pv,
                                 scales=scales, out_dtype=out_dtype, **kw)
@@ -661,9 +947,10 @@ def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
     return out.reshape(y.shape)
 
 
-__all__ = ["packed_agg", "packed_agg_inline", "rbla_agg", "packed_robust",
-           "packed_stack", "flora_stack", "StackTable", "stack_table",
-           "flora_table", "axpy_fold", "axpy_fold_group", "packed_agg_ref",
-           "rbla_agg_ref", "packed_robust_ref", "packed_stack_ref",
+__all__ = ["packed_agg", "packed_agg_group", "packed_agg_inline", "rbla_agg",
+           "packed_robust", "packed_robust_group", "packed_stack",
+           "flora_stack", "StackTable", "stack_table", "flora_table", "axpy_fold", "axpy_fold_group", "packed_agg_ref",
+           "rbla_agg_ref", "packed_robust_ref", "packed_agg_group_ref",
+           "packed_robust_group_ref", "packed_stack_ref",
            "flora_stack_ref", "axpy_fold_ref", "axpy_fold_group_ref",
            "MAX_ROBUST_CLIENTS"]

@@ -8,6 +8,8 @@ kernels are held against.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import runtime
@@ -23,6 +25,22 @@ def _finish(num, den, wtot, norm_by: str, prev):
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), fb)
 
 
+def _packed_agg_math(xf, m, w, prev, norm_by: str, norm_restore: bool):
+    """:func:`packed_agg_ref`'s arithmetic on dequantised fp32 rows."""
+    wm = w[:, None] * m                                    # (N, R)
+    num = (wm[:, :, None] * xf).sum(0)
+    out = _finish(num, wm.sum(0)[:, None], w.sum(), norm_by, prev)
+    if norm_restore:
+        xm = m[:, :, None] * xf
+        row_norms = xm.square().sum(-1).sqrt()             # (N, R)
+        own = (m > 0).float() * w[:, None]
+        target = (own * row_norms).sum(0) / (own.sum(0) + 1e-12)
+        agg = out.square().sum(1).sqrt()
+        out = out * torch.where(agg > 1e-12, target / (agg + 1e-12),
+                                1.0)[:, None]
+    return out
+
+
 def packed_agg_ref(x, masks, weights, prev=None, *, norm_by: str = "mask",
                    norm_restore: bool = False, scales=None, out_dtype=None):
     """x (N, R, D); masks (N, R); weights (N,); prev (R, D) or None;
@@ -36,19 +54,8 @@ def packed_agg_ref(x, masks, weights, prev=None, *, norm_by: str = "mask",
     xf = x.float()
     if scales is not None:
         xf = scales.float()[:, :, None] * xf
-    m = masks.float()
-    w = weights.float()
-    wm = w[:, None] * m                                    # (N, R)
-    num = (wm[:, :, None] * xf).sum(0)
-    out = _finish(num, wm.sum(0)[:, None], w.sum(), norm_by, prev)
-    if norm_restore:
-        xm = m[:, :, None] * xf
-        row_norms = xm.square().sum(-1).sqrt()             # (N, R)
-        own = (m > 0).float() * w[:, None]
-        target = (own * row_norms).sum(0) / (own.sum(0) + 1e-12)
-        agg = out.square().sum(1).sqrt()
-        out = out * torch.where(agg > 1e-12, target / (agg + 1e-12),
-                                1.0)[:, None]
+    out = _packed_agg_math(xf, masks.float(), weights.float(), prev, norm_by,
+                           norm_restore)
     return out.to(out_dtype or x.dtype)
 
 
@@ -180,12 +187,16 @@ def packed_robust_ref(x, masks, weights, prev=None, *, mode: str,
     xf = x.float()
     if scales is not None:
         xf = scales.float()[:, :, None] * xf
-    m = masks.float()
+    out = _packed_robust_math(xf, masks.float(), weights.float(), prev,
+                              mode, clip_norm, trim_frac)
+    return out.to(out_dtype or x.dtype)
+
+
+def _packed_robust_math(xf, m, w, prev, mode, clip_norm, trim_frac):
+    """:func:`packed_robust_ref`'s arithmetic on dequantised fp32 rows."""
     fb = (prev.float() if prev is not None
-          else torch.zeros(x.shape[1:], device=x.device))
-    out_dtype = out_dtype or x.dtype
+          else torch.zeros(xf.shape[1:], device=xf.device))
     if mode == "clipped":
-        w = weights.float()
         norms = xf.square().sum(-1).sqrt()                    # (N, R)
         clip = torch.clamp(torch.tensor(clip_norm, dtype=torch.float32)
                            / norms.clamp(min=1e-12), max=1.0)
@@ -193,14 +204,13 @@ def packed_robust_ref(x, masks, weights, prev=None, *, mode: str,
         part = wm[:, :, None] * (clip[:, :, None] * xf)
         num = torch.where(wm[:, :, None] != 0, part, 0.0).sum(0)
         den = wm.sum(0)[:, None]
-        out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0), fb)
-        return out.to(out_dtype)
-    n = x.shape[0]
+        return torch.where(den > 0, num / torch.where(den > 0, den, 1.0), fb)
+    n = xf.shape[0]
     owned = m > 0
     s = torch.sort(torch.where(owned[:, :, None], xf, _SENTINEL),
                    dim=0).values
     c = owned.sum(0).to(torch.int32)                          # (R,)
-    idx = torch.arange(n, dtype=torch.int32, device=x.device)[:, None]
+    idx = torch.arange(n, dtype=torch.int32, device=xf.device)[:, None]
     if mode == "median":
         lo = ((c - 1).div(2, rounding_mode="floor")).clamp(min=0)[None, :]
         hi = c.div(2, rounding_mode="floor")[None, :]
@@ -213,5 +223,115 @@ def packed_robust_ref(x, masks, weights, prev=None, *, mode: str,
         inc = ((idx >= k[None, :]) & (idx < (c - k)[None, :])).float()
         cnt = (c - 2 * k).float().clamp(min=1.0)[:, None]
         out = (inc[:, :, None] * s).sum(0) / cnt
-    out = torch.where((c > 0)[:, None], out, fb)
-    return out.to(out_dtype)
+    return torch.where((c > 0)[:, None], out, fb)
+
+
+# ------------------------------------------------------------ grouped twins --
+def leaf_rank_rows(x, col: bool):
+    """A leaf stacked over clients ``(n, *lead, a, b)`` as rank rows ``(n,
+    lead * rank, elems)``: an A leaf (row mode) by its rows, a B leaf
+    ``(..., fan_out, r)`` (column mode) by its columns."""
+    if col:
+        x = x.transpose(-1, -2)
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def leaf_from_rank_rows(rows, shape, col: bool):
+    """The inverse of :func:`leaf_rank_rows` for one leaf of ``shape``."""
+    if col:
+        return rows.reshape(tuple(shape[:-2]) + (shape[-1], shape[-2])
+                            ).transpose(-1, -2)
+    return rows.reshape(shape)
+
+
+def leaf_shape(x) -> tuple:
+    """The leaf shape of a segment: a stacked tensor's after the client
+    axis, or the shape of each per-client tensor."""
+    return tuple(x.shape[1:] if isinstance(x, torch.Tensor) else x[0].shape)
+
+
+def group_key(x) -> tuple:
+    """The client dtypes of one segment: one dtype where every client has
+    it (a stacked tensor, or per-client tensors of one dtype), else each
+    client's.  The kernels make one launch per distinct key among a call's
+    non-empty segments."""
+    if isinstance(x, torch.Tensor):
+        return (x.dtype,)
+    key = tuple(t.dtype for t in x)
+    return key[:1] if len(set(key)) == 1 else key
+
+
+def group_launches(xs) -> int:
+    """The launches a grouped call makes (see :func:`group_key`)."""
+    return len({group_key(x) for x in xs if math.prod(leaf_shape(x))})
+
+
+def _segment_rows(x, scales, col: bool):
+    """One segment's clients as dequantised fp32 rank rows ``(n, R, E)``."""
+    if isinstance(x, torch.Tensor):
+        xf = leaf_rank_rows(x.float(), col)
+        sc = None if scales is None else scales.float().reshape(
+            xf.shape[0], -1)
+    else:
+        xf = leaf_rank_rows(torch.stack([t.float() for t in x]), col)
+        sc = None
+        if scales is not None and any(s is not None for s in scales):
+            sc = torch.stack([
+                torch.ones(xf.shape[1], device=xf.device) if s is None
+                else s.float().reshape(-1) for s in scales])
+    if sc is not None:
+        xf = sc[:, :, None] * xf
+    return xf
+
+
+def _group_ref(arith, name, xs, masks, weights, prevs, cols, scales,
+               mask_offs, out_dtypes):
+    runtime.PLAIN_CALLS[name] += group_launches(xs)
+    m_all, w = masks.float(), weights.float()
+    outs = []
+    for x, prev, col, sc, off, odt in zip(xs, prevs, cols, scales,
+                                          mask_offs, out_dtypes):
+        shape = leaf_shape(x)
+        if not math.prod(shape):
+            outs.append(torch.empty(shape, dtype=odt, device=w.device))
+            continue
+        xf = _segment_rows(x, sc, col)
+        m = m_all[:, off:off + xf.shape[1]]
+        pv = None if prev is None else leaf_rank_rows(prev[None], col)[0]
+        out = arith(xf, m, w, pv)
+        outs.append(leaf_from_rank_rows(out, shape, col).to(odt)
+                    .contiguous())
+    return outs
+
+
+def packed_agg_group_ref(xs, masks, weights, prevs, *, cols, scales,
+                         mask_offs, out_dtypes, norm_by: str = "mask",
+                         norm_restore: bool = False):
+    """The grouped mean: :func:`packed_agg_ref`'s arithmetic on every
+    segment.  ``xs[i]`` is a leaf stacked over the clients ``(n, *shape)``
+    or a sequence of n per-client leaves of ``shape``; ``cols[i]`` reads
+    its rank rows along the last axis (a B leaf); ``scales[i]`` the
+    per-client dequantisation scales of its rank rows (stacked, or one per
+    client, None for a client without); ``mask_offs[i]`` its first column
+    of ``masks`` (n, mask_cols); each result in the leaf's shape and
+    ``out_dtypes[i]``.  Counts one plain call per launch the kernel would
+    make (:func:`group_launches`)."""
+    return _group_ref(
+        lambda xf, m, w, pv: _packed_agg_math(xf, m, w, pv, norm_by,
+                                              norm_restore),
+        "packed_agg", xs, masks, weights, prevs, cols, scales, mask_offs,
+        out_dtypes)
+
+
+def packed_robust_group_ref(xs, masks, weights, prevs, *, mode: str, cols,
+                            scales, mask_offs, out_dtypes,
+                            clip_norm: float = 0.0, trim_frac: float = 0.0):
+    """The grouped robust aggregation: :func:`packed_robust_ref`'s
+    arithmetic on every segment, laid out as in
+    :func:`packed_agg_group_ref`."""
+    _check_mode(mode)
+    return _group_ref(
+        lambda xf, m, w, pv: _packed_robust_math(xf, m, w, pv, mode,
+                                                 clip_norm, trim_frac),
+        "packed_robust", xs, masks, weights, prevs, cols, scales, mask_offs,
+        out_dtypes)

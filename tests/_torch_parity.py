@@ -161,7 +161,106 @@ def need_cuda():
                     "False)")
 
 
+_GROUP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+def group_cohort(seed, n=5, dtype="f32", fans=(10, 24), r=8, lead=(),
+                 with_prev=True, use_mask=True, per_client=False):
+    """The segments of one grouped round, made with numpy from ``seed``:
+    for each fan an A leaf ``(n, *lead, r, fan)`` (row mode) and a B leaf
+    ``(n, *lead, fan, r)`` (column mode), stacked over the n clients or
+    (``per_client``) as n per-client tensors.  Ranks per (client, lead
+    index) in [0, r - 2], client 0 at rank 0, so the last two rank rows have
+    no owner; ``use_mask=False`` owns every row.  ``dtype`` "int8" carries
+    per-(client, rank row) scales; "mixed" (per-client only) cycles fp32,
+    bf16 and int8 clients.  Outputs are bf16 for a bf16 cohort, else fp32.
+    Returns the keyword arguments of ``packed_agg_group`` (CPU tensors)."""
+    rng = np.random.default_rng(seed)
+    kinds = ([("f32", "bf16", "int8")[i % 3] for i in range(n)]
+             if dtype == "mixed" else [dtype] * n)
+    ranks = rng.integers(0, r - 1, (n,) + tuple(lead))
+    ranks[0] = 0
+    own = np.arange(r) < ranks[..., None]                 # (n, *lead, r)
+    if not use_mask:
+        own[:] = True
+    out_dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+    xs, prevs, cols, scales, offs, masks = [], [], [], [], [], []
+    off = 0
+    for fan in fans:
+        for col in (False, True):
+            shape = tuple(lead) + ((fan, r) if col else (r, fan))
+            clients, scs = [], []
+            for kind in kinds:
+                v = rng.normal(size=shape).astype(np.float32)
+                sc = None
+                if kind == "int8":
+                    v = rng.integers(-127, 128, shape).astype(np.int8)
+                    sc = torch.as_tensor(rng.uniform(
+                        0.001, 0.02, tuple(lead) + (r,)).astype(np.float32))
+                clients.append(torch.as_tensor(v).to(_GROUP_DTYPES[kind]))
+                scs.append(sc)
+            if per_client:
+                xs.append(clients)
+                scales.append(scs if any(s is not None for s in scs)
+                              else None)
+            else:
+                xs.append(torch.stack(clients))
+                scales.append(torch.stack(scs) if scs[0] is not None
+                              else None)
+            prevs.append(torch.as_tensor(rng.normal(size=shape).astype(
+                np.float32)).to(out_dtype) if with_prev else None)
+            cols.append(col)
+            offs.append(off)
+            masks.append(own.reshape(n, -1).astype(np.float32))
+            off += masks[-1].shape[1]
+    weights = torch.as_tensor(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    return dict(xs=xs, masks=torch.as_tensor(np.concatenate(masks, 1)),
+                weights=weights, prevs=prevs, cols=cols, scales=scales,
+                mask_offs=offs, out_dtypes=[out_dtype] * len(xs))
+
+
+def group_to_buckets(kw):
+    """The cohort of :func:`group_cohort` packed as the JAX plans pack it:
+    every segment's rank rows (B transposed), buckets by row width.
+    Returns ``[(x, masks, prev, scales, [(segment, first_row, rows)])]``
+    with x ``(n, rows, width)``: a stacked cohort in its dtype with its
+    scales, per-client leaves dequantised to fp32 (``s * x`` in fp32, as
+    the kernel dequantises on the load)."""
+    from repro_torch.kernels.rbla_agg.ref import leaf_rank_rows
+    buckets = {}
+    for i, (x, prev, col, sc, off) in enumerate(zip(
+            kw["xs"], kw["prevs"], kw["cols"], kw["scales"],
+            kw["mask_offs"])):
+        if isinstance(x, torch.Tensor):
+            xr = leaf_rank_rows(x, col)
+            sr = None if sc is None else sc.reshape(xr.shape[0], -1)
+        else:           # per-client leaves: dequantised fp32 rows
+            clients = []
+            for t, s in zip(x, sc or [None] * len(x)):
+                tr = leaf_rank_rows(t[None].float(), col)[0]
+                if s is not None:
+                    tr = s.reshape(-1)[:, None] * tr
+                clients.append(tr)
+            xr, sr = torch.stack(clients), None
+        rows = xr.shape[1]
+        m = kw["masks"][:, off:off + rows]
+        pr = None if prev is None else leaf_rank_rows(prev[None], col)[0]
+        b = buckets.setdefault(xr.shape[-1], ([], [], [], [], []))
+        start = sum(p.shape[1] for p in b[0])
+        for lst, v in zip(b, (xr.contiguous(), m, pr, sr,
+                              (i, start, rows))):
+            lst.append(v)
+    out = []
+    for xs, ms, ps, ss, where in buckets.values():
+        out.append((torch.cat(xs, 1), torch.cat(ms, 1),
+                    None if ps[0] is None else torch.cat(ps, 0),
+                    None if ss[0] is None else torch.cat(ss, 1), where))
+    return out
+
+
 __all__ = ["F32_TOL", "BF16_TOL", "np32", "assert_close",
            "assert_trees_close", "jax_tree_to_numpy", "port_tree",
            "sim_reference_inputs", "async_reference_inputs", "spy_states",
-           "need_cuda", "from_jax_adapters", "from_jax_params", "to_numpy"]
+           "need_cuda", "from_jax_adapters", "from_jax_params", "to_numpy",
+           "group_cohort", "group_to_buckets"]

@@ -191,7 +191,7 @@ def _encoded_cohort(codecs, seed=0):
 @pytest.mark.parametrize("name", MEAN + ROBUST)
 def test_encoded_plan_matches_jax_aggregate(name, mix):
     """The same encoded cohort through both packages' encoded plans (JAX
-    on its reference backend): one plain call per bucket, no decode."""
+    on its reference backend): one plain call per round, no decode."""
     jenc, tenc, ranks, w = _encoded_cohort(MIXES[mix])
     prev = hetero_cohort(n=1, seed=9)[0][0]
     kw = dict(r_max=R_MAX, client_ranks=None)
@@ -205,7 +205,7 @@ def test_encoded_plan_matches_jax_aggregate(name, mix):
     kernel = "packed_robust" if name in ROBUST else "packed_agg"
     (plan,) = tstr.__dict__["_plan_cache"].values()
     assert plan.spec.codecs == MIXES[mix] and plan.kind == "packed"
-    assert runtime.PLAIN_CALLS[kernel] == plan.n_kernel_launches == 3
+    assert runtime.PLAIN_CALLS[kernel] == plan.n_kernel_launches == 1
     assert_trees_close(got, jax.tree.map(np.asarray, want), msg=name)
 
 

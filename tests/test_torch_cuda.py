@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import BF16_TOL, F32_TOL, assert_close, need_cuda
+from _torch_parity import (BF16_TOL, F32_TOL, assert_close, group_cohort,
+                           need_cuda)
 
 from repro_torch.core import strategy as ts
 from repro_torch.fl import FLConfig, run_simulation
@@ -160,7 +161,10 @@ def test_strategy_kernel_paths_match_ref(name):
                 assert got[k][side].is_cuda
                 assert_close(got[k][side], want[k][side])
     assert runtime.PLAIN_CALLS == dict.fromkeys(runtime.KERNELS, 0)
-    assert runtime.LAUNCHES["packed_agg"] >= 3
+    # the plan's round is one grouped launch; rbla_norm's per-pair path one
+    # more per pair (the others take rbla_agg there)
+    want_launches = 1 + (len(want) if name == "rbla_norm" else 0)
+    assert runtime.LAUNCHES["packed_agg"] == want_launches
 
 
 def test_simulation_kernel_rounds_match_plain_rounds():
@@ -169,7 +173,7 @@ def test_simulation_kernel_rounds_match_plain_rounds():
               batch_size=16, lr=0.01, r_max=8)
     runtime.reset_counts()
     got = run_simulation(FLConfig(**kw))
-    assert runtime.LAUNCHES["packed_agg"] == 2 * 3
+    assert runtime.LAUNCHES["packed_agg"] == 2 * 1       # one a round
     assert runtime.PLAIN_CALLS["packed_agg"] == 0
     want = run_simulation(FLConfig(agg_backend="ref", **kw))
     np.testing.assert_allclose(got.test_acc, want.test_acc, atol=0.01)
@@ -240,6 +244,211 @@ def test_packed_robust_kernel_refuses_too_many_clients():
     with pytest.raises(ValueError, match="2048"):
         packed_robust(x, torch.ones(2049, 2, device="cuda"),
                       torch.ones(2049, device="cuda"), mode="median")
+
+
+# ------------------------------------------ grouped packed_agg / robust --
+GROUP_FANS = (10, 200, 784, 4099)
+
+
+def _on_card(kw):
+    """``group_cohort``'s arguments with every tensor on the card."""
+    def move(v):
+        if v is None or isinstance(v, torch.Tensor):
+            return None if v is None else v.cuda()
+        return [move(t) for t in v]
+    out = dict(kw)
+    for k in ("xs", "prevs", "scales"):
+        out[k] = [move(v) for v in kw[k]]
+    out["masks"], out["weights"] = kw["masks"].cuda(), kw["weights"].cuda()
+    return out
+
+
+def _one_segment(kw, i, fn, **extra):
+    """Segment i through the one-segment form ``fn`` (packed_agg or
+    packed_robust) on its rank rows packed by hand (per-client leaves
+    dequantised in fp32 first, as the kernel dequantises on the load)."""
+    from repro_torch.kernels.rbla_agg.ref import (leaf_from_rank_rows,
+                                                  leaf_rank_rows)
+    x, col, off = kw["xs"][i], kw["cols"][i], kw["mask_offs"][i]
+    sc = kw["scales"][i]
+    if isinstance(x, torch.Tensor):
+        shape, xr = tuple(x.shape[1:]), leaf_rank_rows(x, col).contiguous()
+        sc = None if sc is None else sc.reshape(xr.shape[0], -1)
+    else:
+        shape, clients = tuple(x[0].shape), []
+        for t, s in zip(x, sc or [None] * len(x)):
+            tr = leaf_rank_rows(t[None].float(), col)[0]
+            clients.append(tr if s is None else s.reshape(-1)[:, None] * tr)
+        xr, sc = torch.stack(clients), None
+    m = kw["masks"][:, off:off + xr.shape[1]].contiguous()
+    prev = kw["prevs"][i]
+    pr = None if prev is None else leaf_rank_rows(prev[None], col)[0]
+    out = fn(xr, m, kw["weights"], pr, scales=sc,
+             out_dtype=kw["out_dtypes"][i], **extra)
+    return leaf_from_rank_rows(out, shape, col)
+
+
+def _check_agg_group(kw, group, group_ref, one, exact, name, **extra):
+    """The grouped kernel in one launch against its plain twin (within the
+    fp32/bf16 tolerance), against a second run (bit for bit) and against
+    the one-segment form on the hand-packed cohort: bit for bit where
+    ``exact``; else (row norms: a rank column of B sums in another order
+    than the packed row) within 1e-6 of max|want| in fp32, and in bf16
+    within one bf16 rounding of the element more."""
+    before = runtime.LAUNCHES[name]
+    got = group(**kw, **extra)
+    assert runtime.LAUNCHES[name] == before + 1
+    again = group(**kw, **extra)
+    want = group_ref(**kw, **extra)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if kw["out_dtypes"][0] == torch.bfloat16 else F32_TOL
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert g.is_cuda and g.dtype == kw["out_dtypes"][i]
+        assert torch.equal(g, a), f"segment {i}: two runs differ"
+        assert_close(g, w, tol, f"segment {i}")
+        o = _one_segment(kw, i, one, **extra)
+        if exact:
+            assert torch.equal(g, o), f"segment {i}: not the one-segment bits"
+        else:
+            diff = (g.float() - o.float()).abs()
+            tol = 1e-6 * max(float(o.float().abs().max()), 1e-30)
+            if g.dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -7 * o.float().abs()
+            assert bool((diff <= tol).all()), f"segment {i}"
+
+
+@pytest.mark.parametrize("lead", [(), (2,)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8", "mixed"])
+@pytest.mark.parametrize("norm_by,restore", [("mask", False),
+                                             ("weight", False),
+                                             ("mask", True)])
+def test_packed_agg_group_kernel_matches_plain_and_one_segment(
+        norm_by, restore, dtype, lead):
+    """Every pair side of a round, ragged widths, rank-0 clients and rows no
+    one owns, stacked or per-client (mixed wire dtypes): one launch."""
+    from repro_torch.kernels.rbla_agg import (packed_agg_group,
+                                              packed_agg_group_ref)
+    need_cuda()
+    kw = _on_card(group_cohort(20 + len(lead), n=10, dtype=dtype,
+                               fans=GROUP_FANS, r=16, lead=lead,
+                               per_client=dtype == "mixed"))
+    _check_agg_group(kw, packed_agg_group, packed_agg_group_ref, packed_agg,
+                     not restore, "packed_agg", norm_by=norm_by,
+                     norm_restore=restore)
+
+
+@pytest.mark.parametrize("n", [1, 10, 33, 70])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8", "mixed"])
+@pytest.mark.parametrize("mode", ["clipped", "trimmed", "median"])
+def test_packed_robust_group_kernel_matches_plain_and_one_segment(
+        mode, dtype, n):
+    """Exact networks (N = 1, 10), the 64-slot one (33) and selection by
+    counting (70), over every dtype and a mixed per-client cohort."""
+    from repro_torch.kernels.rbla_agg import (packed_robust_group,
+                                              packed_robust_group_ref)
+    need_cuda()
+    kw = _on_card(group_cohort(30 + n, n=n, dtype=dtype, fans=GROUP_FANS,
+                               r=16, lead=(2,) if n == 10 else (),
+                               per_client=dtype == "mixed"))
+    _check_agg_group(kw, packed_robust_group, packed_robust_group_ref,
+                     packed_robust, mode != "clipped", "packed_robust",
+                     mode=mode, **ROBUST_KNOBS)
+
+
+@pytest.mark.parametrize("kernel", ["packed_agg", "packed_robust"])
+def test_group_kernel_takes_a_table_too_long_for_the_parameters(kernel):
+    """20 segments (the parameter space holds 16): the table goes to the
+    card by one async copy, still one launch, the same bits as each
+    segment alone."""
+    from repro_torch.kernels.rbla_agg import (packed_agg_group,
+                                              packed_agg_group_ref,
+                                              packed_robust_group,
+                                              packed_robust_group_ref)
+    need_cuda()
+    kw = _on_card(group_cohort(40, n=10, fans=tuple(range(3, 13)), r=8))
+    assert len(kw["xs"]) == 20
+    if kernel == "packed_agg":
+        _check_agg_group(kw, packed_agg_group, packed_agg_group_ref,
+                         packed_agg, True, kernel)
+    else:
+        _check_agg_group(kw, packed_robust_group, packed_robust_group_ref,
+                         packed_robust, True, kernel, mode="median",
+                         **ROBUST_KNOBS)
+
+
+def test_group_kernel_nan_follows_the_plain_version():
+    """A NaN or inf among a row's owned values: the flagged element gives
+    the plain version's NaN or infinity; its neighbours stay finite."""
+    from repro_torch.kernels.rbla_agg import (packed_robust_group,
+                                              packed_robust_group_ref)
+    need_cuda()
+    kw = _on_card(group_cohort(41, n=10, fans=(200,), r=16))
+    owner = int(kw["masks"][:, 2].argmax())
+    kw["xs"][0][owner, 2, 5] = float("nan")
+    kw["xs"][1][owner, 7, 2] = float("inf")     # B: rank column 2
+    for mode in ("trimmed", "median"):
+        got = packed_robust_group(**kw, mode=mode, **ROBUST_KNOBS)
+        want = packed_robust_group_ref(**kw, mode=mode, **ROBUST_KNOBS)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            assert torch.equal(torch.isinf(g), torch.isinf(w))
+            fin = torch.isfinite(w)
+            assert_close(g[fin], w[fin])
+        assert bool(torch.isnan(got[0][2, 5])) and \
+            bool(torch.isfinite(got[0][2, 4]))
+
+
+def test_rbla_round_on_the_card_runs_the_grouped_kernel_alone():
+    """One rbla CompiledRound call: the grouped kernel is the only device
+    kernel (torch.profiler), and no PyTorch operation concatenates,
+    stacks, copies or casts leaf data."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import plan as tplan
+    need_cuda()
+    clients, ranks, weights, prev = _cohort(0)
+    cuda = lambda t: t.cuda()                                 # noqa: E731
+    stacked = ts.stack_trees([tree_map(cuda, c) for c in clients])
+    cprev, w = tree_map(cuda, prev), weights.cuda()
+    round_ = ts.get_strategy("rbla").plan(None, tplan.build_cohort_spec(
+        stacked, kind="kernel", r_max=8, client_ranks=ranks.cuda(),
+        prev_tree=cprev))
+    assert round_.n_kernel_launches == 1
+    round_(stacked, w, cprev)
+    torch.cuda.synchronize()
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    before = runtime.LAUNCHES["packed_agg"]
+    with Ops() as ops:
+        round_(stacked, w, cprev)
+    assert runtime.LAUNCHES["packed_agg"] == before + 1
+    moved = {"cat", "stack", "copy_", "_to_copy", "clone", "index_select",
+             "gather", "mul", "add"}
+    assert not moved & set(ops.names), ops.names
+    # a warm-up step, then the counted one (records of the first launches
+    # after the profiler starts may be lost)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            round_(stacked, w, cprev)
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us:
+            kernels += [ev.key] * ev.count
+    assert len(kernels) == 1 and "stream_kernel" in kernels[0], kernels
 
 
 # ----------------------------------------------------------- stack kernels --
@@ -325,8 +534,8 @@ def test_later_strategy_kernel_paths_match_ref(name, options):
     if name == "flora" and options["stack_r_cap"] == 64:
         assert runtime.LAUNCHES["packed_stack"] == 3
         assert runtime.LAUNCHES["flora_stack"] == 2 * len(want)
-    if kernel:
-        assert runtime.LAUNCHES[kernel] == 3 + 2 * len(want)
+    if kernel:      # the plan's one grouped launch, then one per pair
+        assert runtime.LAUNCHES[kernel] == 1 + len(want)
 
 
 def _layered(t, layers=3):
@@ -678,8 +887,9 @@ def test_fold_never_writes_the_state_on_the_card():
 @pytest.mark.parametrize("name", ["rbla", "zeropad", "rbla_norm",
                                   "rbla_trimmed"])
 def test_encoded_plan_kernel_matches_ref(name, mix):
-    """An encoded cohort on the card: one kernel launch per bucket with
-    the int8 scales dequantised in the kernel, against the ref plan."""
+    """An encoded cohort on the card: one grouped kernel launch a round,
+    each upload read in its wire dtype with the int8 scales dequantised in
+    the kernel, against the ref plan."""
     need_cuda()
     from repro_torch.core import codec as tcodec
     clients, ranks, weights, prev = _cohort(4)
@@ -696,7 +906,7 @@ def test_encoded_plan_kernel_matches_ref(name, mix):
                                    prev_global=tree_map(cuda, prev))
     torch.cuda.synchronize()
     kernel = "packed_robust" if name == "rbla_trimmed" else "packed_agg"
-    assert runtime.LAUNCHES[kernel] == 3
+    assert runtime.LAUNCHES[kernel] == 1
     assert not any(runtime.PLAIN_CALLS.values())
     for k in want:
         for side in ("A", "B"):

@@ -28,7 +28,6 @@ from repro.core import strategy as js
 from repro.kernels.rbla_agg import ops as jops
 from repro.kernels.rbla_agg import ref as jref
 from repro.lora import init_adapters
-from repro_torch.core import plan as tplan
 from repro_torch.core import strategy as ts
 from repro_torch.kernels import runtime
 from repro_torch.kernels.rbla_agg import (axpy_fold, axpy_fold_group,
@@ -401,13 +400,11 @@ def test_default_fold_matches_jax(name):
     jstr, tstr = js.get_strategy(name), ts.get_strategy(name)
     jst = _jstate(jstr)
     tst = _tstate(jst)
-    n_buckets = len(tplan._make_buckets(tplan.build_state_spec(
-        tst.adapters, kind="ref"), use_mask=True))
     runtime.reset_counts()
     got, _ = _fold_all(tstr, tst, tups, backend="ref")
-    # per fold: the one-client aggregate (one call per bucket), then one
+    # per fold: the one-client aggregate (one grouped call), then one
     # grouped mix of every float leaf: A and B of every pair, the base leaf
-    assert runtime.PLAIN_CALLS["packed_agg"] == len(tups) * n_buckets
+    assert runtime.PLAIN_CALLS["packed_agg"] == len(tups)
     assert runtime.PLAIN_CALLS["axpy_fold"] == len(tups)
     for backend in ("ref", "pallas"):
         want, _ = _fold_all(jstr, jst, jups, backend=backend)

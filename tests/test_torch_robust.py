@@ -176,12 +176,12 @@ def test_robust_plan_launches_once_per_bucket(name):
         ts.stack_trees([port_tree(a) for a in adapters]), kind="ref",
         r_max=R_MAX, client_ranks=torch.as_tensor(np.array(ranks)),
         prev_tree=port_tree(prev)))
-    widths = {w for fo_fi in SPECS.values() for w in fo_fi}
-    assert round_.kind == "packed" and round_.n_kernel_launches == len(widths)
+    # every pair side of the round in one grouped call
+    assert round_.kind == "packed" and round_.n_kernel_launches == 1
     runtime.reset_counts()
     round_(ts.stack_trees([port_tree(a) for a in adapters]), torch.ones(5),
            port_tree(prev))
-    assert runtime.PLAIN_CALLS["packed_robust"] == len(widths)
+    assert runtime.PLAIN_CALLS["packed_robust"] == 1
     assert runtime.PLAIN_CALLS["packed_agg"] == 0
 
 

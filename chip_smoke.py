@@ -19,8 +19,11 @@ Phases, each printing JSON lines:
   card, at the paper MLP's bucket shapes and one large shape, with its time,
   the plain version's time and the HBM bound; packed_agg and packed_robust
   also as one grouped call of a main-path round (the unit of their rows:
-  rbla's mean, and each robust mode), back to back, the device's time
-  alone and the device kernels of one call; axpy_fold also as grouped
+  rbla's mean, and each robust mode), rbla_agg and flora_stack as one
+  grouped call of a per-pair round (6 segments; their one-segment forms
+  per pair side too, the unit of their rows before) and at one large
+  shape each, back to back, the device's time alone and the device
+  kernels of one call; axpy_fold also as grouped
   calls (a whole rbla fold of the MLP in fp32 and bf16, a column-mode B, a
   ragged width, a mixed-dtype fold that launches twice, a large fold)
   beside ``torch._foreach_lerp`` and the sum of one ``torch.lerp`` a
@@ -31,6 +34,13 @@ Phases, each printing JSON lines:
   int8 and a mixed-codec rbla cohort: wall, back-to-back and graph ms and
   the device kernels of one call (one grouped launch and nothing else,
   enforced), each against the plain round;
+* per_pair_rounds -- ``aggregate_tree_kernel``, the per-pair round (the
+  mean family's fallback without a plan, flora's per-pair stacking), on
+  the same cohort for rbla, zeropad and rbla_ranked and on a flora cohort
+  within the cap (a global at storage 512, live rank 64): wall,
+  back-to-back and graph ms and the device kernels and copies of one call
+  (one grouped kernel for rbla, zeropad and flora, enforced), each against
+  the plain path; runs on an older port too (``--src``);
 * robust_large (selectable, not in the default run) -- packed_robust at
   (10, 2048, 4096) fp32 with prev in each mode: wrapper, back-to-back and
   graph ms, each device kernel's time (torch.profiler) and the HBM bound;
@@ -52,10 +62,11 @@ Phases, each printing JSON lines:
   then rbla_clipped's cohort again at a clip that fires on half its rows;
 * svd -- one svd round, against its plain round in product space;
 * per_pair -- the last main-path cohort again through the per-pair
-  rbla_agg path, the last flora cohort within the cap through flora_stack
-  and the last robust cohort through per-pair packed_robust (one grouped
-  launch a pair), each held
-  against its plan's result;
+  rbla_agg path and the last flora cohort within the cap through
+  flora_stack (one grouped launch a round, and one device kernel in a
+  round's profile, enforced), and the last robust cohort through per-pair
+  packed_robust (one grouped launch a pair), each held against its plan's
+  result;
 * async_main -- ``run_async_simulation`` of the same model and clients,
   fully async rbla with polynomial staleness, 60 uploads: one grouped
   axpy_fold launch a fold, no plain version; then the same run with the
@@ -144,8 +155,8 @@ SRC = ROOT / "src"
 #: design are reported, not enforced
 ENFORCE_DESIGN = True
 #: the phases ``--phases`` may pick: the others need the main path's run
-SELECTABLE = ("kernels", "agg_rounds", "robust_large", "lora_kernels",
-              "serve_main", "serve_streams", "ssd_kernels")
+SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
+              "lora_kernels", "serve_main", "serve_streams", "ssd_kernels")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -549,7 +560,7 @@ def check_group_round(kernel, kw, mode=None):
                 else n * max(1, math.ceil(math.log2(n))))
     bms, by = bound(_round_bytes(kw, mode in ("trimmed", "median")),
                     per_elem * elems)
-    kernels = _device_kernels(call)
+    kernels, copies = _device_events(call)
     case = {"kernel": kernel, "case": "main-path round, one grouped call",
             "mode": mode, "segments": len(kw["xs"]), "launches": launches,
             "max_abs_err": err, "tol": tol, "ms": time_ms(call),
@@ -561,8 +572,190 @@ def check_group_round(kernel, kw, mode=None):
     if not err <= tol or launches != 1:
         raise AssertionError(f"{kernel}: a grouped round disagrees with its "
                              f"plain twin or launched {launches} times")
-    if sum(c for c, _ in kernels.values()) != 1:
-        raise AssertionError(f"{kernel}: a grouped round ran {kernels}")
+    if sum(c for c, _ in kernels.values()) != 1 or copies:
+        raise AssertionError(f"{kernel}: a grouped round ran {kernels}, "
+                             f"{copies}")
+    return case
+
+
+def _pair_round_kw(gen, r_max=64, dtype=None):
+    """One per-pair round as rbla_agg_group's arguments on the card: each
+    MLP pair's A (10, 64, fan_in) and B (10, fan_out, 64), the staircase
+    ranks as one column, a previous global, weights."""
+    import torch
+    n = len(STAIRCASE)
+    xs, prevs, cols = [], [], []
+    for _, fo, fi in MLP_PAIRS:
+        for col, shape in ((False, (r_max, fi)), (True, (fo, r_max))):
+            xs.append(torch.randn((n,) + shape, generator=gen,
+                                  device="cuda").to(dtype or torch.float32))
+            prevs.append(torch.randn(shape, generator=gen,
+                                     device="cuda").to(xs[-1].dtype))
+            cols.append(col)
+    return dict(xs=xs, ranks=torch.tensor(STAIRCASE, dtype=torch.int32,
+                                          device="cuda")[:, None],
+                weights=torch.rand(n, generator=gen, device="cuda") + 0.5,
+                prevs=prevs, cols=cols, rank_cols=[0] * len(xs))
+
+
+def _rbla_group_bytes(kw):
+    """Bytes rbla_agg_group must move: every client's segment (the mean
+    reads each value, owned or not: a NaN anywhere reaches the result),
+    the ranks and weights, each output once, prev where no client owns a
+    rank row."""
+    ranks = kw["ranks"]
+    b = ranks.numel() * 4 + kw["weights"].numel() * 4
+    for x, prev, col, c in zip(kw["xs"], kw["prevs"], kw["cols"],
+                               kw["rank_cols"]):
+        r = x.shape[-1] if col else x.shape[-2]
+        b += x.numel() * x.element_size() + x[0].numel() * x.element_size()
+        if prev is not None:
+            unowned = max(0, r - int(ranks[:, c].max()))
+            b += unowned * (x[0].numel() // r) * prev.element_size()
+    return b
+
+
+def check_rbla_group_case(label, kw, method="rbla", tol_rel=2e-5):
+    """One grouped rbla_agg call (``rbla_agg_group``) on the card against
+    its plain twin, with its time, back-to-back time, the device's time
+    alone (a CUDA graph), the plain twin's time, the bound and the device
+    kernels of one call (one launch and nothing else, enforced)."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.rbla_agg import (rbla_agg_group,
+                                              rbla_agg_group_ref)
+    norm_by = {"rbla": "mask", "zeropad": "weight"}[method]
+
+    def call():
+        return rbla_agg_group(kw["xs"], kw["ranks"], kw["weights"],
+                              kw["prevs"], cols=kw["cols"],
+                              rank_cols=kw["rank_cols"], method=method)
+
+    def plain():
+        return rbla_agg_group_ref(kw["xs"], kw["ranks"], kw["weights"],
+                                  kw["prevs"], cols=kw["cols"],
+                                  rank_cols=kw["rank_cols"], norm_by=norm_by)
+    before = runtime.LAUNCHES["rbla_agg"]
+    got = call()
+    launches = runtime.LAUNCHES["rbla_agg"] - before
+    want = plain()
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    tol = tol_rel * max(1.0, max(float(w.float().abs().max()) for w in want))
+    elems = sum(x.numel() for x in kw["xs"])
+    bms, by = bound(_rbla_group_bytes(kw), 2 * elems)
+    kernels, copies = _device_events(call)
+    case = {"kernel": "rbla_agg", "case": label, "method": method,
+            "segments": len(kw["xs"]),
+            "shapes": [list(x.shape) for x in kw["xs"]],
+            "x_dtype": _dtype_name(kw["xs"][0].dtype), "launches": launches,
+            "max_abs_err": err, "tol": tol, "ms": time_ms(call),
+            "plain_ms": time_ms(plain),
+            "back_to_back_ms": time_ms_back_to_back(call),
+            "graph_ms": time_ms_graph(call), "device_kernels": kernels,
+            "device_ms": sum(m for _, m in kernels.values()), "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+    case["device_share_of_bound"] = (bms / case["device_ms"]
+                                     if case["device_ms"] else None)
+    emit(case)
+    if not err <= tol or launches != 1:
+        raise AssertionError(f"rbla_agg_group disagrees with its plain twin "
+                             f"or launched {launches} times: {case}")
+    if sum(c for c, _ in kernels.values()) != 1 or copies:
+        raise AssertionError(f"rbla_agg_group: one call ran {kernels}, "
+                             f"{copies}")
+    return case
+
+
+def _flora_round_kw(gen, r_max=64, cap=512, dtype=None):
+    """One per-pair flora round as flora_stack_group's arguments on the
+    card: each MLP pair's A and B at storage r_max, a global at storage cap
+    and live rank r_max first, the staircase cohort's ranks, flora's mass
+    scales on B."""
+    import torch
+    n = len(STAIRCASE)
+    con = ((-1, r_max),) + tuple(enumerate(STAIRCASE))
+    xs, prevs, cols = [], [], []
+    for _, fo, fi in MLP_PAIRS:
+        for col, shape, pshape in ((False, (r_max, fi), (cap, fi)),
+                                   (True, (fo, r_max), (fo, cap))):
+            xs.append(torch.randn((n,) + shape, generator=gen,
+                                  device="cuda").to(dtype or torch.float32))
+            prevs.append(torch.randn(pshape, generator=gen,
+                                     device="cuda").to(xs[-1].dtype))
+            cols.append(col)
+    return dict(xs=xs, contribs=[con] * len(xs), prevs=prevs, cap=cap,
+                cols=cols, scales=[None, "mass"] * len(MLP_PAIRS),
+                weights=torch.rand(n, generator=gen, device="cuda") + 0.5,
+                prev_weight=1.0)
+
+
+def _flora_group_bytes(kw):
+    """Bytes flora_stack_group must move: the stacked rank rows of each
+    source read once, each output written once, the weights."""
+    b = kw["weights"].numel() * 4
+    for x, con, col in zip(kw["xs"], kw["contribs"], kw["cols"]):
+        width = x.shape[-2] if col else x.shape[-1]
+        layers = math.prod(x.shape[1:-2])
+        rows = sum(r for _, r in con)
+        b += layers * width * (rows + kw["cap"]) * x.element_size()
+    return b
+
+
+def check_flora_group_case(label, kw):
+    """One grouped flora_stack call (``flora_stack_group``) on the card
+    against its plain twin (bit for bit: one fp32 multiply per element,
+    the mass scales summed in the same order), with its times, the device
+    kernels of one call (one and nothing else, enforced) and the bound."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.rbla_agg import (flora_stack_group,
+                                              flora_stack_group_ref)
+
+    def call():
+        return flora_stack_group(**kw)
+
+    def plain():
+        k = len(kw["xs"])
+        return flora_stack_group_ref(
+            kw["xs"], kw["contribs"], kw["prevs"], cols=kw["cols"],
+            caps=[kw["cap"]] * k, scales=kw["scales"], weights=kw["weights"],
+            prev_weight=kw["prev_weight"], out_dtypes=[
+                x.dtype for x in kw["xs"]])
+    before = runtime.LAUNCHES["flora_stack"]
+    got = call()
+    launches = runtime.LAUNCHES["flora_stack"] - before
+    want = plain()
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    copied = sum(math.prod(x.shape[1:-2]) * (x.shape[-2] if c else
+                                             x.shape[-1])
+                 * sum(r for _, r in con)
+                 for x, con, c in zip(kw["xs"], kw["contribs"], kw["cols"]))
+    bms, by = bound(_flora_group_bytes(kw), copied)
+    kernels, copies = _device_events(call)
+    case = {"kernel": "flora_stack", "case": label,
+            "segments": len(kw["xs"]),
+            "shapes": [list(x.shape) for x in kw["xs"]], "cap": kw["cap"],
+            "x_dtype": _dtype_name(kw["xs"][0].dtype), "launches": launches,
+            "max_abs_err": err, "tol": 0.0, "ms": time_ms(call),
+            "plain_ms": time_ms(plain),
+            "back_to_back_ms": time_ms_back_to_back(call),
+            "graph_ms": time_ms_graph(call), "device_kernels": kernels,
+            "device_ms": sum(m for _, m in kernels.values()), "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+    case["device_share_of_bound"] = (bms / case["device_ms"]
+                                     if case["device_ms"] else None)
+    emit(case)
+    if not exact or launches != 1:
+        raise AssertionError(f"flora_stack_group disagrees with its plain "
+                             f"twin or launched {launches} times: {case}")
+    if sum(c for c, _ in kernels.values()) != 1 or copies:
+        raise AssertionError(f"flora_stack_group: one call ran {kernels}, "
+                             f"{copies}")
     return case
 
 
@@ -602,17 +795,19 @@ def check_stack_case(label, x, scales, prev, copies_x, copies_prev, out_rows,
 
 
 def check_flora_case(label, x, scales, segs, out_rows):
+    """flora_stack, the one-segment form of flora_stack_group, on the card
+    against its plain version (one fp32 multiply per element: exact)."""
     import torch
-    from repro_torch.kernels.rbla_agg import (flora_stack, flora_stack_ref,
-                                              flora_table)
+    from repro_torch.kernels.rbla_agg import flora_stack, flora_stack_ref
     got = flora_stack(x, scales, segs=segs, out_rows=out_rows)
     want = flora_stack_ref(x, scales, segs, out_rows)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     ms = time_ms(lambda: flora_stack(x, scales, segs=segs, out_rows=out_rows))
     plain_ms = time_ms(lambda: flora_stack_ref(x, scales, segs, out_rows))
-    table = flora_table(tuple(segs), out_rows, x.shape[1])
-    bms, by = bound(_stack_bytes(table, x), out_rows * x.shape[-1])
+    d, es = x.shape[-1], x.element_size()
+    bms, by = bound((sum(segs) + out_rows) * d * es + 4 * len(segs),
+                    sum(segs) * d)
     case = {"kernel": "flora_stack", "case": label,
             "shape": [*x.shape, out_rows], "x_dtype": str(x.dtype).split(".")[-1],
             "max_abs_err": err, "tol": 0.0, "ms": ms, "plain_ms": plain_ms,
@@ -858,6 +1053,23 @@ def phase_kernels() -> dict:
                 rbla.append(check_rbla_case(N_CLIENTS, r, d, dtype, method,
                                             seed))
 
+    # the unit of row 2: one grouped call of a per-pair round; and one large
+    # segment (every client's value read, owned or not)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pair_rounds = [check_rbla_group_case("per-pair round, one grouped call",
+                                         _pair_round_kw(gen)),
+                   check_rbla_group_case("per-pair round, zeropad",
+                                         _pair_round_kw(gen), "zeropad"),
+                   check_rbla_group_case("per-pair round, bf16",
+                                         _pair_round_kw(gen, dtype=bf16),
+                                         tol_rel=2e-2)]
+    x, ranks, _, weights, prev, _ = _agg_inputs(
+        N_CLIENTS, 2048, 4096, f32, gen, True, False, f32)
+    rbla_large = check_rbla_group_case("large", dict(
+        xs=[x], ranks=ranks.to(torch.int32)[:, None].contiguous(),
+        weights=weights, prevs=[prev], cols=[False], rank_cols=[0]))
+    del x, prev
+
     robust = []
     for n, r, d in shapes:
         for mode in ROBUST_MODES:
@@ -908,12 +1120,25 @@ def phase_kernels() -> dict:
             scales = torch.rand(N_CLIENTS + 1, generator=gen, device="cuda")
             flora.append(check_flora_case(f"per-pair {d}", x, scales,
                                           FLORA_SEGS, 512))
-    for dtype in (f32, bf16):
-        x = torch.randn(N_CLIENTS, 2048, 4096, generator=gen,
-                        device="cuda").to(dtype)
-        scales = torch.rand(N_CLIENTS, generator=gen, device="cuda")
-        flora.append(check_flora_case("large", x, scales,
-                                      (200,) * N_CLIENTS, 4096))
+    # the unit of row 6: one grouped call of a per-pair flora round; and
+    # 10 contributors x 200 rank rows into a 2048-row cap at width 4096, by
+    # rank row (an A side) and by rank column (a B side)
+    flora_rounds = [check_flora_group_case("per-pair round, one grouped call",
+                                           _flora_round_kw(gen)),
+                    check_flora_group_case("per-pair round, bf16",
+                                           _flora_round_kw(gen, dtype=bf16))]
+    flora_large = []
+    for col in (False, True):
+        x = torch.randn((N_CLIENTS,) + ((4096, 256) if col else (256, 4096)),
+                        generator=gen, device="cuda")
+        flora_large.append(check_flora_group_case(
+            "large, by rank " + ("column" if col else "row"), dict(
+                xs=[x], contribs=[tuple((i, 200) for i in range(N_CLIENTS))],
+                prevs=[None], cap=2048, cols=[col],
+                scales=[torch.rand(N_CLIENTS, generator=gen, device="cuda")],
+                weights=torch.rand(N_CLIENTS, generator=gen, device="cuda"),
+                prev_weight=1.0)))
+        del x
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     axpy = []
@@ -962,7 +1187,8 @@ def phase_kernels() -> dict:
 
     # one main-path round: one grouped call (rbla, fp32, with prev)
     pk = main_path_sum([agg_round], lambda c, key: True, {"round": 1})
-    # one per-pair round: every A and transposed B side, fp32, rbla
+    # one per-pair round through the one-segment form: every A and
+    # transposed B side, fp32, rbla (the parent's unit of this row)
     rk = main_path_sum(
         rbla,
         lambda c, key: (tuple(c["shape"][1:]) == key[:2]
@@ -974,7 +1200,8 @@ def phase_kernels() -> dict:
     # one stacking round: the plan's three buckets
     st = main_path_sum(stack, lambda c, key: c["case"] == key,
                        {f"plan bucket {w}": 1 for w in (784, 200, 10)})
-    # one per-pair flora round: every A and transposed B side, fp32
+    # one per-pair flora round through the one-segment form: every A and
+    # transposed B side, fp32 (the parent's unit of this row)
     fl = main_path_sum(
         flora, lambda c, key: (c["case"] == f"per-pair {key[0]}"
                                and c["x_dtype"] == "float32"),
@@ -982,12 +1209,17 @@ def phase_kernels() -> dict:
     # one main-path rbla fold: one grouped call
     ax = main_path_sum(group, lambda c, key: c["case"] == key,
                        {"rbla fold": 1})
+    # one per-pair round: one grouped call each (rbla fp32; flora fp32)
+    prk = main_path_sum(pair_rounds[:1], lambda c, key: True, {"round": 1})
+    pfl = main_path_sum(flora_rounds[:1], lambda c, key: True, {"round": 1})
     summary = {}
     for name, cases, row in (("packed_agg", packed + [agg_round], pk),
-                             ("rbla_agg", rbla, rk),
+                             ("rbla_agg", rbla + pair_rounds + [rbla_large],
+                              prk),
                              ("packed_robust", robust + robust_rounds, rb),
                              ("packed_stack", stack, st),
-                             ("flora_stack", flora, fl),
+                             ("flora_stack", flora + flora_rounds
+                              + flora_large, pfl),
                              ("axpy_fold", axpy + group, ax)):
         summary[name] = {
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -999,6 +1231,18 @@ def phase_kernels() -> dict:
     summary["packed_agg"].update(
         per="one grouped call of a main-path rbla round (6 segments)",
         back_to_back_ms=pk["back_to_back_ms"], graph_ms=pk["graph_ms"])
+    for name, row, side_sum, large in (
+            ("rbla_agg", prk, rk, [rbla_large]),
+            ("flora_stack", pfl, fl, flora_large)):
+        summary[name].update(
+            per="one grouped call of a per-pair round (6 segments)",
+            back_to_back_ms=row["back_to_back_ms"], graph_ms=row["graph_ms"],
+            per_side_sum_ms=side_sum["ms"],
+            large_fp32={c["case"]: {"device_ms": c["device_ms"],
+                                    "bound_ms": c["bound_ms"],
+                                    "device_share_of_bound":
+                                        c["device_share_of_bound"]}
+                        for c in large})
     large = {c["mode"]: c for c in robust if c["shape"] == [N_CLIENTS, 2048, 4096]
              and c["x_dtype"] == "float32" and c["prev"]}
     summary["packed_robust"].update(
@@ -1126,7 +1370,8 @@ def phase_agg_rounds() -> list:
             graph_ms = None
             emit({"phase": "agg_rounds", "case": f"{name} {wire or 'fp32'}",
                   "graph": f"not captured: {e}"})
-        kernels = _device_kernels(call)
+        kernels, copies = _device_events(call)
+        kernels.update(copies)      # a round moves nothing: any copy counts
         row = {"phase": "agg_rounds", "strategy": name,
                "codec": wire or "fp32", "plan_kind": round_.kind,
                "plan_launches": round_.n_kernel_launches,
@@ -1439,10 +1684,32 @@ def phase_svd():
     _against_plain(cfg, hist, last, "svd")
 
 
-def phase_per_pair(rec, kernel, want_launches, tol_rel, phase):
+#: ``_device_kernels``' names of memory copies and sets, not kernels
+COPIES = ("DtoH", "HtoD", "DtoD", "HtoH", "Memset")
+
+
+def _device_events(fn, tries: int = 3) -> tuple[dict, dict]:
+    """``_device_kernels`` of ``fn`` split into kernels and memory copies,
+    profiled again (up to ``tries`` times) where the profiler lost records
+    (a count a call that is not whole)."""
+    for _ in range(tries):
+        events = _device_kernels(fn)
+        if all(float(c).is_integer() for c, _ in events.values()):
+            break
+    copies = {k: v for k, v in events.items() if k in COPIES}
+    return {k: v for k, v in events.items() if k not in copies}, copies
+
+
+def phase_per_pair(rec, kernel, want_launches, tol_rel, phase,
+                   one_kernel=False):
     """The recorded last cohort of ``rec`` through the strategy's per-pair
-    kernel path (``use_plan=False``), held against the plan's result."""
+    kernel path (``use_plan=False``), held against the plan's result.  With
+    ``one_kernel`` the round's device events (``aggregate_tree_kernel`` on
+    the stacked cohort, torch.profiler) must hold one kernel, the grouped
+    one, and no other; copies are reported (flora reads the live ranks its
+    host-side offsets need)."""
     import torch
+    from repro_torch.core.strategy import stack_trees
     from repro_torch.kernels import runtime
     prev_state, updates, out_state = rec.last
     ranks = torch.tensor([u.rank for u in updates], dtype=torch.int32,
@@ -1455,15 +1722,106 @@ def phase_per_pair(rec, kernel, want_launches, tol_rel, phase):
     torch.cuda.synchronize()
     launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
     err, scale = _rel_err(got, out_state.adapters)
-    emit({"phase": phase, "launches": launches, "plain_calls": plain,
-          "max_abs_err": err, "tol": tol_rel * scale})
+    row = {"phase": phase, "launches": launches, "plain_calls": plain,
+           "max_abs_err": err, "tol": tol_rel * scale}
+    if one_kernel:
+        stacked = stack_trees([u.adapters for u in updates])
+        w = torch.tensor([float(u.n_examples) for u in updates],
+                         device="cuda")
+        row["round_kernels"], row["round_copies"] = _device_events(
+            lambda: rec.strategy.aggregate_tree_kernel(
+                stacked, w, ranks, prev_state.adapters,
+                r_max=MAIN_CFG["r_max"]))
+    emit(row)
     if launches[kernel] != want_launches or any(plain.values()):
         raise AssertionError(f"{phase}: launches {launches}, plain {plain}")
     if not err <= tol_rel * scale:
         raise AssertionError(f"{phase}: the per-pair kernel path disagrees "
                              "with the plan")
+    if one_kernel and sum(c for c, _ in row["round_kernels"].values()) != 1:
+        raise AssertionError(f"{phase}: a per-pair round ran "
+                             f"{row['round_kernels']}: one grouped kernel "
+                             "and nothing else expected")
     _leaves_on_card(got)
     return launches
+
+
+#: the per-pair rounds per_pair_rounds times: strategy, options
+PER_PAIR_ROUNDS = (("rbla", {}), ("zeropad", {}), ("rbla_ranked", {}),
+                   ("flora", dict(stack_r_cap=512)))
+
+
+def phase_per_pair_rounds() -> list:
+    """``aggregate_tree_kernel`` -- the per-pair round, the fallback of
+    every mean strategy without a plan and flora's per-pair stacking -- on
+    the main-path cohort (rbla, zeropad, rbla_ranked: the MLP's three pairs,
+    10 staircase clients, r_max 64, fp32, with prev) and on the flora
+    cohort within the cap (the same clients, a global at storage 512 and
+    live rank 64 first): wall, back-to-back and graph ms (None where the
+    round reads ranks to the host and cannot be captured) and the device
+    events of one call, each result against the strategy's plain path.
+    Uses only APIs every version of the port has, so ``--src`` times an
+    older port in the same run."""
+    import torch
+    from repro_torch.core import strategy
+    clients, prev, w = _mlp_cohort(12)
+    ranks = torch.tensor(STAIRCASE, dtype=torch.int32, device="cuda")
+    stacked = strategy.stack_trees(clients)
+
+    def widen(pair):        # a flora global: storage 512, live rank 64
+        return {"A": torch.cat([pair["A"], torch.zeros(
+                    448, pair["A"].shape[1], device="cuda")]),
+                "B": torch.cat([pair["B"], torch.zeros(
+                    pair["B"].shape[0], 448, device="cuda")], 1),
+                "rank": pair["rank"]}
+    flora_prev = {k: widen(p) for k, p in prev.items()}
+    rows = []
+    for name, opts in PER_PAIR_ROUNDS:
+        strat = strategy.get_strategy(name).with_options(**opts)
+        pv = flora_prev if name == "flora" else prev
+
+        def call():
+            return strat.aggregate_tree_kernel(stacked, w, ranks, pv,
+                                               r_max=64)
+        got = call()
+        want = strat.aggregate_adapters(
+            clients, w, r_max=64,
+            client_ranks=ranks, prev_global=pv, backend="ref",
+            use_plan=False)
+        if name == "flora":
+            err, scale = _product_err(got, want)
+            tol = 1e-5 * scale
+        else:
+            err, scale = _rel_err({k: {s: p[s] for s in "AB"}
+                                   for k, p in got.items()},
+                                  {k: {s: p[s] for s in "AB"}
+                                   for k, p in want.items()})
+            tol = 2e-5 * max(scale, 1.0)
+        try:
+            graph_ms = time_ms_graph(call)
+        except RuntimeError as e:       # a round that reads to the host
+            graph_ms = None
+            emit({"phase": "per_pair_rounds", "strategy": name,
+                  "graph": f"not captured: {str(e)[:200]}"})
+        kernels, copies = _device_events(call)
+        row = {"phase": "per_pair_rounds", "strategy": name,
+               "ms": time_ms(call),
+               "back_to_back_ms": time_ms_back_to_back(call),
+               "graph_ms": graph_ms, "device_kernels": kernels,
+               "device_copies": copies,
+               "n_device_kernels": sum(c for c, _ in kernels.values()),
+               "device_ms": sum(m for _, m in kernels.values()),
+               "max_abs_err": err, "tol": tol}
+        emit(row)
+        rows.append(row)
+        if not err <= tol:
+            raise AssertionError(f"per_pair_rounds {name}: the kernel round "
+                                 "disagrees with the plain path")
+        if ENFORCE_DESIGN and name in ("rbla", "zeropad", "flora") and \
+                row["n_device_kernels"] != 1:
+            raise AssertionError(f"per_pair_rounds {name}: device kernels "
+                                 f"{kernels}: one grouped launch expected")
+    return rows
 
 
 # -------------------------------------------------------------- async slice --
@@ -2706,6 +3064,8 @@ def run_selected(names) -> dict:
             phase_agg_rounds()
         elif name == "robust_large":
             phase_robust_large()
+        elif name == "per_pair_rounds":
+            phase_per_pair_rounds()
         elif name == "lora_kernels":
             summary.update(phase_lora_kernels())
         elif name == "serve_main":
@@ -2769,6 +3129,10 @@ def main(argv=None) -> int:
     rounds = phase_agg_rounds()
     summary["packed_agg"]["round_ms"] = rounds[0]["ms"]
     emit({"phase": "agg_rounds", "ok": True})
+    pair_rounds = {r["strategy"]: r for r in phase_per_pair_rounds()}
+    summary["rbla_agg"]["round_ms"] = pair_rounds["rbla"]["ms"]
+    summary["flora_stack"]["round_ms"] = pair_rounds["flora"]["ms"]
+    emit({"phase": "per_pair_rounds", "ok": True})
 
     hist, main_launches, last, main_rec = phase_main_path()
     phase_plain_reference(hist, last)
@@ -2777,13 +3141,14 @@ def main(argv=None) -> int:
     robust = phase_robust()
     phase_robust_clip(robust["rbla_clipped"][1])
     phase_svd()
-    # the per-pair paths on each phase's last cohort: 2 launches a pair
-    # (rbla_agg, flora_stack), one grouped launch a pair (packed_robust)
-    pair_launches = phase_per_pair(main_rec, "rbla_agg", 6, 2e-5, "per_pair")
+    # the per-pair paths on each phase's last cohort: one grouped launch a
+    # round (rbla_agg, flora_stack), one grouped launch a pair (packed_robust)
+    pair_launches = phase_per_pair(main_rec, "rbla_agg", 1, 2e-5, "per_pair",
+                                   one_kernel=True)
     # the last flora cohort is round 3's, within the cap: pure copies with
     # the plan's scale arithmetic up to its order (a few ulp of B)
-    stack_launches = phase_per_pair(flora_rec, "flora_stack", 6, 1e-6,
-                                    "per_pair_flora")
+    stack_launches = phase_per_pair(flora_rec, "flora_stack", 1, 1e-6,
+                                    "per_pair_flora", one_kernel=True)
     phase_per_pair(robust["rbla_median"][1], "packed_robust", 3, 2e-5,
                    "per_pair_robust")
     summary["packed_agg"]["launches"] = main_launches["packed_agg"]

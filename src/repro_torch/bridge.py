@@ -13,6 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.tree import tree_map
 
 PyTree = Any
@@ -26,9 +27,12 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def from_jax_params(tree: PyTree, device="cpu") -> PyTree:
+def from_jax_params(tree: PyTree, device="cuda") -> PyTree:
     """A JAX-package parameter or adapter tree (numpy leaves; adapters'
-    rank leaves int32) as port tensors on ``device``."""
+    rank leaves int32) as port tensors on ``device``: the card unless the
+    caller asks for the CPU, as every entry point of the port; a CUDA
+    device must exist."""
+    device = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, device), tree)
 
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import math
+import functools
 from collections import OrderedDict
 from typing import Any, Mapping, Sequence
 
@@ -41,10 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.rbla_agg import (axpy_fold_group,
-                                          axpy_fold_group_ref, flora_stack,
-                                          packed_agg_group,
+                                          axpy_fold_group_ref,
+                                          flora_stack_group, packed_agg_group,
                                           packed_robust_group,
-                                          packed_robust_group_ref, rbla_agg)
+                                          packed_robust_group_ref,
+                                          rbla_agg_group)
 from repro_torch.kernels.runtime import resolve_backend, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -203,23 +204,36 @@ def _infer_ranks(stacked_tree: PyTree) -> torch.Tensor | None:
     return found[0] if found else None
 
 
-def _retain_prev(tree: PyTree, prev: PyTree,
-                 client_ranks: torch.Tensor) -> PyTree:
-    """Rank-rows no participant owns (r >= max participant rank) keep the
-    server's current value."""
-    rmax_part = client_ranks.max()
+def _collect_pairs(tree: PyTree, prev: PyTree | None) -> tuple:
+    """Every LoRA pair of ``tree`` with its ``prev`` pair (None without),
+    in traversal order, and the tree with each pair replaced by a
+    :class:`_Slot` of its index (for :func:`_place_pairs`).  Bare leaves
+    raise, as ``_map_pairs(strict=True)``."""
+    found: list = []
 
-    def fix(pair, prev_pair):
-        owned = (torch.arange(pair["A"].shape[-2], device=pair["A"].device)
-                 < rmax_part)
-        return {
-            "A": torch.where(owned[:, None], pair["A"],
-                             prev_pair["A"].to(pair["A"].dtype)),
-            "B": torch.where(owned[None, :], pair["B"],
-                             prev_pair["B"].to(pair["B"].dtype)),
-            "rank": pair["rank"],
-        }
-    return _map_pairs(fix, tree, prev)
+    def grab(pair, prev_pair):
+        found.append((pair, prev_pair))
+        return _Slot(len(found) - 1)
+    return _map_pairs(grab, tree, prev, strict=True), found
+
+
+@functools.lru_cache(maxsize=256)
+def _rank_leaf(shape: tuple, rank: int, device: torch.device) -> torch.Tensor:
+    """An output pair's rank leaf: ``rank`` int32 of ``shape``, made once
+    per (shape, rank, device) and shared, as a compiled plan shares its
+    rank leaves between rounds (a new one would cost a fill launch a pair)."""
+    return torch.full(shape, rank, dtype=torch.int32, device=device)
+
+
+def _place_pairs(skeleton: PyTree, outs: Sequence) -> PyTree:
+    """:func:`_collect_pairs`'s tree with slot i replaced by ``outs[i]``."""
+    if isinstance(skeleton, _Slot):
+        return outs[skeleton.index]
+    if isinstance(skeleton, Mapping):
+        return {k: _place_pairs(v, outs) for k, v in skeleton.items()}
+    if isinstance(skeleton, (tuple, list)):
+        return type(skeleton)(_place_pairs(v, outs) for v in skeleton)
+    return skeleton
 
 
 def _flat_pair_values(tree: PyTree) -> list:
@@ -400,41 +414,70 @@ class AggregationStrategy:
     def aggregate_tree_kernel(self, stacked_tree: PyTree, weights,
                               client_ranks, prev_tree: PyTree | None = None,
                               *, r_max: int | None = None) -> PyTree:
-        """Two ``rbla_agg`` launches per pair: A ``(n, r_max, fan_in)``
-        directly, B ``(n, fan_out, r_max)`` as a contiguous rank-leading
-        copy.  Takes scalar-rank pairs only (layer-stacked pairs go through
-        the compiled plan)."""
+        """One ``rbla_agg_group`` launch a round: every pair's A ``(n,
+        r_max, fan_in)`` by rank row and B ``(n, fan_out, r_max)`` by rank
+        column, in their own layouts; the kernel takes each pair's owner
+        masks from the ranks (one column for every pair when
+        ``client_ranks`` is given) and, for strategies that retain it,
+        reads ``prev`` in place where no participant owns a rank row.
+        Takes scalar-rank pairs only (layer-stacked pairs go through the
+        compiled plan)."""
         w = self.transform_weights(weights.float(), client_ranks)
+        skeleton, pairs = _collect_pairs(stacked_tree, prev_tree)
+        if not pairs:
+            return skeleton
+        ranks, rank_cols = self._round_ranks([p for p, _ in pairs],
+                                             client_ranks)
+        xs, prevs = [], []
+        for pair, prev_pair in pairs:
+            xs += [pair["A"], pair["B"]]
+            keep = prev_pair is not None and self.retains_prev
+            prevs += [prev_pair["A"], prev_pair["B"]] if keep else [None] * 2
+        outs = rbla_agg_group(xs, ranks, w, prevs, cols=(False, True) * len(
+            pairs), rank_cols=[c for c in rank_cols for _ in "AB"],
+            method=self.kernel_method, backend="kernel")
+        return _place_pairs(skeleton, [
+            {"A": outs[2 * i], "B": outs[2 * i + 1], "rank": pair["rank"][0]}
+            for i, (pair, _) in enumerate(pairs)])
 
-        def agg_pair(pair, prev_pair):
-            A, B = pair["A"], pair["B"]
-            pranks = self._pair_ranks(pair, client_ranks)
-            outA = rbla_agg(A.contiguous(), pranks, w,
-                            method=self.kernel_method, backend="kernel")
-            outB = rbla_agg(B.transpose(1, 2).contiguous(), pranks, w,
-                            method=self.kernel_method,
-                            backend="kernel").T.contiguous()
-            out = {"A": outA, "B": outB, "rank": pair["rank"][0]}
-            if prev_pair is not None and self.retains_prev:
-                out = _retain_prev(out, prev_pair, pranks)
-            return out
-
-        return _map_pairs(agg_pair, stacked_tree, prev_tree, strict=True)
-
-    def _pair_ranks(self, pair, client_ranks) -> torch.Tensor:
+    @staticmethod
+    def _check_pair(pair, client_ranks) -> None:
         A, B = pair["A"], pair["B"]
-        pranks = client_ranks
-        if pranks is None and pair["rank"].ndim == 1:
-            pranks = pair["rank"]
-        if A.ndim != 3 or B.ndim != 3 or pranks is None:
+        if A.ndim != 3 or B.ndim != 3 or (client_ranks is None
+                                          and pair["rank"].ndim != 1):
             raise NotImplementedError(
                 "the per-pair kernel path takes scalar-rank pairs (got "
                 f"A.ndim={A.ndim}); layer-stacked pairs go through the "
                 "compiled plan (use_plan=True)")
+
+    def _pair_ranks(self, pair, client_ranks) -> torch.Tensor:
+        self._check_pair(pair, client_ranks)
+        A = pair["A"]
         if not self.use_mask:
             return torch.full((A.shape[0],), A.shape[-2], dtype=torch.int32,
                               device=A.device)
-        return torch.as_tensor(pranks, dtype=torch.int32, device=A.device)
+        return torch.as_tensor(pair["rank"] if client_ranks is None
+                               else client_ranks, dtype=torch.int32,
+                               device=A.device)
+
+    def _round_ranks(self, pairs, client_ranks) -> tuple:
+        """The per-pair round's rank matrix ``(n, cols)`` int32 on the
+        pairs' device, and each pair's column: one column for every pair
+        when ``client_ranks`` is given or ``use_mask`` is off (then a rank
+        no storage reaches: every rank row owned), else pair p's own ranks
+        in column p."""
+        for pair in pairs:
+            self._check_pair(pair, client_ranks)
+        A = pairs[0]["A"]
+        shared = [0] * len(pairs)
+        if not self.use_mask:
+            return torch.full((A.shape[0], 1), torch.iinfo(torch.int32).max,
+                              dtype=torch.int32, device=A.device), shared
+        if client_ranks is not None:
+            return torch.as_tensor(client_ranks, dtype=torch.int32,
+                                   device=A.device).reshape(-1, 1), shared
+        return (torch.stack([p["rank"] for p in pairs], 1).to(torch.int32),
+                list(range(len(pairs))))
 
     # ----------------------------------------------------- mid-level API --
     def aggregate_adapters(self, client_adapters: Sequence[PyTree], weights,
@@ -1199,7 +1242,8 @@ class FloraStrategy(AggregationStrategy):
     def _prev_rank_of(prev_pair) -> int | None:
         if prev_pair is None:
             return None
-        return int(torch.as_tensor(prev_pair["rank"]).max())
+        # read to the host first: a copy, and no reduction on the card
+        return int(torch.as_tensor(prev_pair["rank"]).cpu().max())
 
     def finalize_tree(self, out: PyTree, r_max: int | None) -> PyTree:
         return out                       # live ranks already written
@@ -1399,63 +1443,57 @@ class FloraStrategy(AggregationStrategy):
     # --------------------------------------------- (c) per-pair kernel path --
     def aggregate_tree_kernel(self, stacked_tree, weights, client_ranks,
                               prev_tree=None, *, r_max=None):
-        """The stack is a pure copy/scale, so one ``flora_stack`` launch
-        per pair side places every contributor's live rows at its offset
-        (a layer-stacked pair in the same launch, one table block per
-        layer).  Over-cap cohorts are re-projected by SVD through the pair
+        """One ``flora_stack_group`` launch stacks every pair within the
+        cap, each side read where it lies and written in its final layout
+        and dtype: prev first, then the live clients by index; A rows pass
+        verbatim, B columns take ``mhat_i * r_total / r_i``, computed in the
+        kernel from the weights; a layer-stacked pair stacks each layer on
+        its own.  Over-cap pairs are re-projected by SVD through the pair
         math, for which the TPU package has no kernel either."""
         w = weights.float()
-
-        def agg_pair(pair, prev_pair):
+        skeleton, pairs = _collect_pairs(stacked_tree, prev_tree)
+        shared = (None if client_ranks is None
+                  else self._concrete_ranks(client_ranks))
+        outs: list = [None] * len(pairs)
+        segs: dict = {k: [] for k in ("xs", "contribs", "prevs", "cols",
+                                      "caps", "scales")}
+        stacked = []
+        for p, (pair, prev_pair) in enumerate(pairs):
             A, B = pair["A"], pair["B"]
-            ranks = self._pair_ranks(pair, client_ranks)
+            ranks = (shared if shared is not None
+                     else self._pair_ranks(pair, None))
             prev_rank = self._prev_rank_of(prev_pair)
             pA = prev_pair["A"] if prev_pair is not None else None
             pB = prev_pair["B"] if prev_pair is not None else None
             cap = self.resolve_cap(r_max, r_storage=A.shape[-2])
             self._validate_cap(cap, ranks, r_max)
-
             has_prev = pA is not None and bool(prev_rank)
-            seg_ranks = [int(prev_rank)] if has_prev else []
-            live = [i for i in range(len(ranks)) if int(ranks[i]) > 0]
-            seg_ranks += [int(ranks[i]) for i in live]
-            r_total = int(sum(seg_ranks))
+            con = (((-1, int(prev_rank)),) if has_prev else ()) + tuple(
+                (i, int(r)) for i, r in enumerate(ranks) if int(r) > 0)
+            r_total = sum(r for _, r in con)
             if r_total > cap:
                 A_out, B_out, r_out = self._stack_pair(
                     A, B, ranks, w, pA, pB, prev_rank, r_max)
-                return {"A": A_out, "B": B_out,
-                        "rank": self._out_rank_leaf(pair["rank"], r_out)}
-
-            # uniform-storage contributor stacks (prev first), rank axis
-            # leading in each layer: B rides transposed
-            lead = tuple(A.shape[1:-2])
-            n_layers = math.prod(lead)
-            r_st = max(A.shape[-2], pA.shape[-2] if has_prev else 0)
-
-            def rows(t, n):          # (n, *lead, r, width) -> (n, L*r_st, width)
-                t = pad_to_rank(t.float(), -2, r_st)
-                return t.reshape(n, n_layers * r_st, t.shape[-1])
-            keep = torch.as_tensor(live, dtype=torch.long, device=A.device)
-            partsA = [rows(A[keep], len(live))]
-            partsBt = [rows(B[keep].transpose(-1, -2), len(live))]
-            masses = [w[i] for i in live]
-            if has_prev:
-                partsA.insert(0, rows(pA[None], 1))
-                partsBt.insert(0, rows(pB[None].transpose(-1, -2), 1))
-                masses.insert(0, self.prev_weight * w.mean())
-            m = torch.stack(masses)
-            mhat = m / (m.sum() + _EPS)
-            scales = mhat * torch.as_tensor(
-                np.float32(r_total) / np.asarray(seg_ranks, np.float32),
-                device=A.device)
-            kw = dict(segs=seg_ranks, out_rows=cap, layers=n_layers,
-                      backend="kernel")
-            A_out = flora_stack(torch.cat(partsA), torch.ones_like(scales),
-                                **kw)
-            Bt_out = flora_stack(torch.cat(partsBt), scales, **kw)
-            A_out = A_out.reshape(lead + (cap, A.shape[-1]))
-            B_out = Bt_out.reshape(lead + (cap, B.shape[-2])).transpose(-1, -2)
-            return {"A": A_out.to(A.dtype),
-                    "B": B_out.to(B.dtype).contiguous(),
-                    "rank": self._out_rank_leaf(pair["rank"], r_total)}
-        return _map_pairs(agg_pair, stacked_tree, prev_tree, strict=True)
+                outs[p] = {"A": A_out, "B": B_out,
+                           "rank": self._out_rank_leaf(pair["rank"], r_out)}
+                continue
+            if not con:
+                raise ValueError("flora: empty cohort (all ranks are zero)")
+            segs["xs"] += [A, B]
+            segs["contribs"] += [con, con]
+            segs["prevs"] += [pA, pB] if has_prev else [None, None]
+            segs["cols"] += [False, True]
+            segs["caps"] += [cap, cap]
+            segs["scales"] += [None, "mass"]
+            stacked.append((p, r_total))
+        if stacked:
+            got = flora_stack_group(
+                segs["xs"], segs["contribs"], segs["prevs"], cap=segs["caps"],
+                cols=segs["cols"], scales=segs["scales"], weights=w,
+                prev_weight=self.prev_weight, eps=_EPS, backend="kernel")
+            for j, (p, r_total) in enumerate(stacked):
+                outs[p] = {"A": got[2 * j], "B": got[2 * j + 1],
+                           "rank": _rank_leaf(
+                               tuple(pairs[p][0]["rank"].shape[1:]), r_total,
+                               pairs[p][0]["rank"].device)}
+        return _place_pairs(skeleton, outs)

@@ -8,7 +8,10 @@
 // axis is the contiguous one, and element (row, col) belongs to rank row
 // (row / col_group) * width + col, with col_group = fan_out.  Rank row rr of
 // a segment is column mask_off + rr of the launch's owner-mask matrix
-// (n, mask_cols) and row rr of each client's dequantisation scales.
+// (n, mask_cols) and row rr of each client's dequantisation scales.  A launch
+// may take its owner masks from an int32 rank matrix (n, mask_cols) instead
+// (rbla_agg.cu's rbla_agg_group, paper Eq. 7): client c owns rank row rr of a
+// segment iff rr < ranks[c, mask_off], so a pair's ranks are one column.
 //
 // Each client's data is found either by a base pointer and a client stride (a
 // stacked cohort, or a packed (N, R, D) buffer), or through the segment's run
@@ -72,7 +75,8 @@ struct Entry {
 };
 
 struct Head {
-  const float* masks;     // (n, mask_cols) owner masks
+  const float* masks;     // (n, mask_cols) owner masks, or null: ranks
+  const int32_t* ranks;   // (n, mask_cols) ranks, or null: masks
   int64_t mask_cols;
   const float* weights;   // (n,)
   const Seg* segs;        // the device table, or null: the inline arrays
@@ -106,10 +110,6 @@ struct View {
         cdt(t.h.segs != nullptr ? t.h.cdt : t.cdt) {}
 };
 
-__host__ __device__ __forceinline__ int esize(int code) {
-  return code == kF32 ? 4 : code == kBF16 ? 2 : 1;
-}
-
 __device__ __forceinline__ int out_code(const SegIn& g) { return static_cast<int>(g.flags & 0xff); }
 
 // The segment that owns block `blk`: the last one whose first tile is at or
@@ -140,59 +140,6 @@ __device__ __forceinline__ Client client(const View& t, const SegIn& g, int n) {
   }
   const Entry& e = t.ents[g.entry + n];
   return {static_cast<const char*>(e.x), e.scale, code};
-}
-
-// K consecutive elements at p + f, moved in pieces of at most 16 bytes (each
-// piece aligned to its size when f is a multiple of K and p to 16 bytes).
-template <typename T, int K>
-__device__ __forceinline__ void load_k(const T* __restrict__ p, float (&v)[K]) {
-  constexpr int P = static_cast<int>(16 / sizeof(T)) < K ? static_cast<int>(16 / sizeof(T)) : K;
-#pragma unroll
-  for (int i = 0; i < K; i += P) {
-    float t[P];
-    load_vec<T, P>(p + i, t);
-#pragma unroll
-    for (int j = 0; j < P; ++j) v[i + j] = t[j];
-  }
-}
-
-template <typename T, int K>
-__device__ __forceinline__ void store_k(T* __restrict__ p, const float (&v)[K]) {
-  constexpr int P = static_cast<int>(16 / sizeof(T)) < K ? static_cast<int>(16 / sizeof(T)) : K;
-#pragma unroll
-  for (int i = 0; i < K; i += P) {
-    float t[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) t[j] = v[i + j];
-    store_vec<T, P>(p + i, t);
-  }
-}
-
-// Loads and stores in a dtype known only at run time (uniform per block).
-template <int K>
-__device__ __forceinline__ void load_any(const void* p, int code, int64_t f, float (&v)[K]) {
-  switch (code) {
-    case kF32: load_k<float, K>(static_cast<const float*>(p) + f, v); break;
-    case kBF16: load_k<__nv_bfloat16, K>(static_cast<const __nv_bfloat16*>(p) + f, v); break;
-    default: load_k<int8_t, K>(static_cast<const int8_t*>(p) + f, v); break;
-  }
-}
-
-__device__ __forceinline__ float load_one(const void* p, int code, int64_t f) {
-  float v[1];
-  load_any<1>(p, code, f, v);
-  return v[0];
-}
-
-template <int K>
-__device__ __forceinline__ void store_any(void* p, int code, int64_t f, const float (&v)[K]) {
-  if (code == kF32) store_k<float, K>(static_cast<float*>(p) + f, v);
-  else store_k<__nv_bfloat16, K>(static_cast<__nv_bfloat16*>(p) + f, v);
-}
-
-__device__ __forceinline__ void store_one(void* p, int code, int64_t f, float v) {
-  const float a[1] = {v};
-  store_any<1>(p, code, f, a);
 }
 
 // The rank row of element (row, col) and of its K - 1 neighbours along the

@@ -50,6 +50,64 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&in)[V
   *reinterpret_cast<Vec<T, VEC>*>(p) = t;
 }
 
+// bytes of one element of a dtype code
+__host__ __device__ __forceinline__ int esize(int code) {
+  return code == kF32 ? 4 : code == kBF16 ? 2 : 1;
+}
+
+// K consecutive elements at p + f, moved in pieces of at most 16 bytes (each
+// piece aligned to its size when f is a multiple of K and p to 16 bytes).
+template <typename T, int K>
+__device__ __forceinline__ void load_k(const T* __restrict__ p, float (&v)[K]) {
+  constexpr int P = static_cast<int>(16 / sizeof(T)) < K ? static_cast<int>(16 / sizeof(T)) : K;
+#pragma unroll
+  for (int i = 0; i < K; i += P) {
+    float t[P];
+    load_vec<T, P>(p + i, t);
+#pragma unroll
+    for (int j = 0; j < P; ++j) v[i + j] = t[j];
+  }
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void store_k(T* __restrict__ p, const float (&v)[K]) {
+  constexpr int P = static_cast<int>(16 / sizeof(T)) < K ? static_cast<int>(16 / sizeof(T)) : K;
+#pragma unroll
+  for (int i = 0; i < K; i += P) {
+    float t[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) t[j] = v[i + j];
+    store_vec<T, P>(p + i, t);
+  }
+}
+
+// Loads and stores in a dtype known only at run time (uniform per block).
+template <int K>
+__device__ __forceinline__ void load_any(const void* p, int code, int64_t f, float (&v)[K]) {
+  switch (code) {
+    case kF32: load_k<float, K>(static_cast<const float*>(p) + f, v); break;
+    case kBF16: load_k<__nv_bfloat16, K>(static_cast<const __nv_bfloat16*>(p) + f, v); break;
+    default: load_k<int8_t, K>(static_cast<const int8_t*>(p) + f, v); break;
+  }
+}
+
+__device__ __forceinline__ float load_one(const void* p, int code, int64_t f) {
+  float v[1];
+  load_any<1>(p, code, f, v);
+  return v[0];
+}
+
+template <int K>
+__device__ __forceinline__ void store_any(void* p, int code, int64_t f, const float (&v)[K]) {
+  if (code == kF32) store_k<float, K>(static_cast<float*>(p) + f, v);
+  else store_k<__nv_bfloat16, K>(static_cast<__nv_bfloat16*>(p) + f, v);
+}
+
+__device__ __forceinline__ void store_one(void* p, int code, int64_t f, float v) {
+  const float a[1] = {v};
+  store_any<1>(p, code, f, a);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -17,14 +17,19 @@
 //     one-segment case (the `packed_agg` wrapper).
 //   * rbla_agg_pallas (_kernel): the same mean with the owner mask derived
 //     in-kernel from a rank vector, [r < ranks[n]] (paper Eq. 7), one launch
-//     per (N, R, D) leaf (rank_mean_kernel below).
+//     per (N, R, D) leaf; the per-pair path (aggregate_tree_pallas) calls it
+//     twice a pair, B through a transposed copy.  Here rbla_agg_group runs
+//     the same mean body on the same segment table with the masks taken from
+//     an int32 rank matrix (one column a pair), so ONE launch takes every
+//     pair side of a per-pair round in its own layout, and the previous
+//     global is read in place where no client owns a rank row.
 //
 // What bounds them: bytes.  Every x element is read once and feeds one FMA,
 // so the least time is bytes / 3.35 TB/s (H100 SXM).  At the paper MLP's
 // round (10 clients, r_max 64) that is about 1.4 us, and what cost the time
-// was host work: three bucket launches, each wrapped in packing copies, and
-// the copies back out of B's transposes.  The grouped launch leaves one
-// launch a round and no copies.
+// was host work: three bucket launches (or six per-pair ones), each wrapped
+// in packing copies, and the copies back out of B's transposes.  The
+// grouped launch leaves one launch a round and no copies.
 //
 // The mean (stream_kernel): blocks map to (segment, tile); a row is served by
 // tpr threads, each moving 16-byte vectors of it (a scalar head and tail where
@@ -33,8 +38,11 @@
 // same fp32 operations as the bucket kernel it replaces (den = fma(w, m, den),
 // acc = fma(w * m, s * x, acc)), so the result does not depend on how the
 // cohort's leaves are grouped: a leaf aggregated alone, in a bucket or in a
-// round gives the same bits.  In column mode the VEC elements of a vector are
-// VEC rank rows, each with its own masks and scales.
+// round gives the same bits, and rank masks give the bits of the equal float
+// masks.  In column mode the VEC elements of a vector are VEC rank rows, each
+// with its own masks and scales.  Every client's value is loaded whether it
+// owns the element or not, as JAX's (w * m) * x does: a NaN in a rank row a
+// client does not own reaches the result.
 //
 // norm_restore (norm_kernel) needs whole-rank-row norms, and in B's layout a
 // rank row is a strided column.  One block takes one rank row of any segment,
@@ -73,26 +81,61 @@ __device__ __forceinline__ void load_client(const Client& c, int64_t f, float (&
   }
 }
 
-// The mean of K consecutive elements of segment s at (row, col).
-template <typename Tin, int K, bool COL>
+// Where a launch's owner masks come from: the head's (n, mask_cols) float
+// matrix (packed_agg_group), or its int32 rank matrix (rbla_agg_group, paper
+// Eq. 7: client n owns rank row rr iff rr < ranks[n, mask_off]).  m holds the
+// masks of rank rows rr .. rr + M - 1 for client n.
+struct FloatMasks {
+  template <int M>
+  __device__ __forceinline__ static void load(const Head& h, const SegIn& g, int n, int64_t rr,
+                                              float (&m)[M]) {
+    const float* __restrict__ p = h.masks + static_cast<int64_t>(n) * h.mask_cols + g.mask_off + rr;
+#pragma unroll
+    for (int k = 0; k < M; ++k) m[k] = p[k];
+  }
+};
+
+struct RankMasks {
+  template <int M>
+  __device__ __forceinline__ static void load(const Head& h, const SegIn& g, int n, int64_t rr,
+                                              float (&m)[M]) {
+    const int64_t r = h.ranks[static_cast<int64_t>(n) * h.mask_cols + g.mask_off];
+#pragma unroll
+    for (int k = 0; k < M; ++k) m[k] = rr + k < r ? 1.0f : 0.0f;
+  }
+};
+
+// The mean of K consecutive elements of segment s at (row, col).  The
+// previous global is kept where the owners' weight mass is not positive
+// (float masks: the plan's rule, as JAX's packed kernel), or where no client
+// owns the rank row whatever its weight (rank masks: the per-pair rule,
+// JAX's _retain_prev: r >= max(participant ranks)); a rank row some client owns
+// at weight 0 alone is 0 there, as JAX's rbla_agg kernel gives it.
+template <typename Tin, typename Mask, int K, bool COL>
 __device__ __forceinline__ void mean_group(const View& t, const SegIn& g, int64_t row, int64_t col,
                                            bool by_weight) {
+  constexpr bool kByRank = std::is_same<Mask, RankMasks>::value;
+  constexpr int M = COL ? K : 1;
   const int64_t f = row * g.width + col;
   const int64_t rr = rank_row(g, row, col);
-  const float* __restrict__ mcol = t.h.masks + g.mask_off + rr;
-  float acc[K], den[COL ? K : 1];
+  float acc[K], den[M];
+  bool own[M];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < (COL ? K : 1); ++k) den[k] = 0.0f;
+  for (int k = 0; k < M; ++k) {
+    den[k] = 0.0f;
+    own[k] = false;
+  }
   float wtot = 0.0f;
 #pragma unroll 4
   for (int n = 0; n < t.h.n; ++n) {
     const Client c = client(t, g, n);
     const float w = t.h.weights[n];
-    const float* __restrict__ m = mcol + static_cast<int64_t>(n) * t.h.mask_cols;
+    float m[M];
+    Mask::template load<M>(t.h, g, n, rr, m);
     float xv[K];
-    load_client<Tin, K>(c, f, xv);
+    load_client<Tin, K>(c, f, xv);   // every client's value, owned or not: 0 * NaN is NaN
     wtot = __fadd_rn(wtot, w);
     if constexpr (COL) {
 #pragma unroll
@@ -108,11 +151,18 @@ __device__ __forceinline__ void mean_group(const View& t, const SegIn& g, int64_
 #pragma unroll
       for (int k = 0; k < K; ++k) acc[k] = __fmaf_rn(wm, __fmul_rn(sc, xv[k]), acc[k]);
     }
+    if constexpr (kByRank) {
+#pragma unroll
+      for (int k = 0; k < M; ++k) own[k] |= m[k] > 0.0f;
+    }
   }
   const int oc = out_code(g);
-  bool need_prev = false;
+  bool keep[M], need_prev = false;
 #pragma unroll
-  for (int k = 0; k < K; ++k) need_prev |= !(den[COL ? k : 0] > 0.0f);
+  for (int k = 0; k < M; ++k) {
+    keep[k] = kByRank ? !own[k] : !(den[k] > 0.0f);
+    need_prev |= keep[k];
+  }
   float pv[K];
   if (!by_weight && need_prev && g.prev != nullptr) {
     load_any<K>(g.prev, oc, f, pv);
@@ -123,14 +173,17 @@ __device__ __forceinline__ void mean_group(const View& t, const SegIn& g, int64_
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const float d = den[COL ? k : 0];
-    acc[k] = by_weight ? __fdiv_rn(acc[k], wtot) : d > 0.0f ? __fdiv_rn(acc[k], d) : pv[k];
+    acc[k] = by_weight     ? __fdiv_rn(acc[k], wtot)
+             : d > 0.0f    ? __fdiv_rn(acc[k], d)
+             : keep[COL ? k : 0] ? pv[k]
+                                 : 0.0f;
   }
   store_any<K>(g.out, oc, f, acc);
 }
 
 // One block's tile of segment s: rows row_tile * (threads / tpr) + tid / tpr,
 // their vectors v = chunk * tpr + lane, stepping chunks * tpr.
-template <typename Tin, int VEC, bool COL>
+template <typename Tin, typename Mask, int VEC, bool COL>
 __device__ __forceinline__ void mean_tile(const View& t, const Seg& s, int64_t tile,
                                           bool by_weight) {
   const SegIn& g = s.in;
@@ -146,15 +199,16 @@ __device__ __forceinline__ void mean_tile(const View& t, const Seg& s, int64_t t
   const int64_t tail = head + n_vec * VEC;
   const int64_t step = static_cast<int64_t>(s.chunks) * tpr;
   for (int64_t v = static_cast<int64_t>(chunk) * tpr + lane; v < n_vec; v += step)
-    mean_group<Tin, VEC, COL>(t, g, row, head + v * VEC, by_weight);
+    mean_group<Tin, Mask, VEC, COL>(t, g, row, head + v * VEC, by_weight);
   if (VEC > 1 && chunk == 0) {
-    for (int64_t c = lane; c < head; c += tpr) mean_group<Tin, 1, COL>(t, g, row, c, by_weight);
+    for (int64_t c = lane; c < head; c += tpr)
+      mean_group<Tin, Mask, 1, COL>(t, g, row, c, by_weight);
     for (int64_t c = tail + lane; c < g.width; c += tpr)
-      mean_group<Tin, 1, COL>(t, g, row, c, by_weight);
+      mean_group<Tin, Mask, 1, COL>(t, g, row, c, by_weight);
   }
 }
 
-template <typename Tin>
+template <typename Tin, typename Mask>
 __global__ void __launch_bounds__(kStreamThreads) stream_kernel(const __grid_constant__ Table tab) {
   const View t(tab);
   const int64_t blk = blockIdx.x;
@@ -164,11 +218,11 @@ __global__ void __launch_bounds__(kStreamThreads) stream_kernel(const __grid_con
   constexpr int V = vec_of<Tin>();
   const bool vec = (s.in.flags >> 8) & 1;
   if (s.in.col_group != 0) {
-    if (vec) mean_tile<Tin, V, true>(t, s, tile, by_weight);
-    else mean_tile<Tin, 1, true>(t, s, tile, by_weight);
+    if (vec) mean_tile<Tin, Mask, V, true>(t, s, tile, by_weight);
+    else mean_tile<Tin, Mask, 1, true>(t, s, tile, by_weight);
   } else {
-    if (vec) mean_tile<Tin, V, false>(t, s, tile, by_weight);
-    else mean_tile<Tin, 1, false>(t, s, tile, by_weight);
+    if (vec) mean_tile<Tin, Mask, V, false>(t, s, tile, by_weight);
+    else mean_tile<Tin, Mask, 1, false>(t, s, tile, by_weight);
   }
 }
 
@@ -337,7 +391,7 @@ int64_t fill(const GroupArgs& a, Seg* segs, int vec) {
                                                            kStreamThreads);
 }
 
-template <typename Tin>
+template <typename Tin, typename Mask>
 cudaError_t run(const Launch& l) {
   const GroupArgs& a = l.a;
   constexpr int V = vec_of<Tin>();
@@ -371,34 +425,40 @@ cudaError_t run(const Launch& l) {
     if (a.head.dtype == kMixed) memcpy(t.cdt, a.cdt, a.head.n);
   }
   if (total == 0) return cudaSuccess;
-  if ((a.head.mode & kNormRestore) != 0) {
-    const size_t smem = ((4 + kNormThreads) * static_cast<size_t>(a.head.n) + 33) * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          norm_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
+  if constexpr (std::is_same<Mask, FloatMasks>::value) {
+    if ((a.head.mode & kNormRestore) != 0) {
+      const size_t smem = ((4 + kNormThreads) * static_cast<size_t>(a.head.n) + 33) * sizeof(float);
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            norm_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        if (e != cudaSuccess) return e;
+      }
+      norm_kernel<Tin><<<static_cast<unsigned>(total), kNormThreads, smem, l.stream>>>(t);
+      return cudaGetLastError();
     }
-    norm_kernel<Tin><<<static_cast<unsigned>(total), kNormThreads, smem, l.stream>>>(t);
-  } else {
-    stream_kernel<Tin><<<static_cast<unsigned>(total), kStreamThreads, 0, l.stream>>>(t);
   }
+  stream_kernel<Tin, Mask><<<static_cast<unsigned>(total), kStreamThreads, 0, l.stream>>>(t);
   return cudaGetLastError();
 }
 
+// A launch with rank masks takes the mean modes only (no norm_restore).
+template <typename Mask>
 cudaError_t dispatch(const Launch& l) {
   if (l.a.n_segs < 1 || l.a.head.n < 1) return cudaErrorInvalidValue;
+  if (std::is_same<Mask, RankMasks>::value && (l.a.head.mode & kNormRestore) != 0)
+    return cudaErrorInvalidValue;
   switch (l.a.head.dtype) {
-    case kF32: return run<float>(l);
-    case kBF16: return run<__nv_bfloat16>(l);
-    case kI8: return run<int8_t>(l);
-    case kMixed: return run<MixedIn>(l);
+    case kF32: return run<float, Mask>(l);
+    case kBF16: return run<__nv_bfloat16, Mask>(l);
+    case kI8: return run<int8_t, Mask>(l);
+    case kMixed: return run<MixedIn, Mask>(l);
     default: return cudaErrorInvalidValue;
   }
 }
 
 GroupArgs group_args(const void* segs, int n_segs, const void* ents, int n_ents,
-                     const uint8_t* cdt, const float* masks, int64_t mask_cols,
-                     const float* weights, int n, int dtype, int mode) {
+                     const uint8_t* cdt, const float* masks, const int32_t* ranks,
+                     int64_t mask_cols, const float* weights, int n, int dtype, int mode) {
   GroupArgs a{};
   a.segs = static_cast<const SegIn*>(segs);
   a.n_segs = n_segs;
@@ -406,6 +466,7 @@ GroupArgs group_args(const void* segs, int n_segs, const void* ents, int n_ents,
   a.n_ents = n_ents;
   a.cdt = cdt;
   a.head.masks = masks;
+  a.head.ranks = ranks;
   a.head.mask_cols = mask_cols;
   a.head.weights = weights;
   a.head.n = n;
@@ -413,81 +474,6 @@ GroupArgs group_args(const void* segs, int n_segs, const void* ents, int n_ents,
   a.head.dtype = dtype;
   a.head.mode = mode;
   return a;
-}
-
-// ------------------------------------------------------------- rbla_agg --
-constexpr int kMeanThreads = 256;
-
-// Per-row owner mask [row < ranks[n]] and weight of every client, in shared
-// memory; then each thread owns VEC consecutive columns of the row.
-// Grid: x = rows, y = column chunks.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kMeanThreads) rank_mean_kernel(
-    const T* __restrict__ x, const int* __restrict__ ranks, const float* __restrict__ weights,
-    T* __restrict__ out, int64_t n_clients, int64_t n_rows, int64_t width, int by_weight) {
-  extern __shared__ float smem[];
-  float* s_w = smem;
-  float* s_m = s_w + n_clients;
-  const int64_t row = blockIdx.x;
-  for (int64_t n = threadIdx.x; n < n_clients; n += blockDim.x) {
-    s_w[n] = weights[n];
-    s_m[n] = row < ranks[n] ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  float den = 0.0f, wtot = 0.0f;
-  for (int64_t n = 0; n < n_clients; ++n) {
-    den += s_w[n] * s_m[n];
-    wtot += s_w[n];
-  }
-  const int64_t step = static_cast<int64_t>(gridDim.y) * blockDim.x * VEC;
-  for (int64_t c = (static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x) * VEC;
-       c < width; c += step) {
-    float acc[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-    for (int64_t n = 0; n < n_clients; ++n) {
-      const float wm = s_w[n] * s_m[n];
-      float xv[VEC];
-      load_vec<T, VEC>(x + (n * n_rows + row) * width + c, xv);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] += wm * xv[k];
-    }
-#pragma unroll
-    for (int k = 0; k < VEC; ++k)
-      acc[k] = by_weight ? acc[k] / wtot : den > 0.0f ? acc[k] / den : 0.0f;
-    store_vec<T, VEC>(out + row * width + c, acc);
-  }
-}
-
-template <typename T, int VEC>
-cudaError_t launch_rank(const T* x, const int* ranks, const float* weights, T* out, int64_t n,
-                        int64_t r, int64_t d, int by_weight, cudaStream_t stream) {
-  // narrow rows get a narrow block: one warp per 32 column groups, <= 256 threads
-  const int64_t groups = (d + VEC - 1) / VEC;
-  const int threads = static_cast<int>(
-      groups >= kMeanThreads ? kMeanThreads : ((groups + 31) / 32) * 32);
-  int64_t chunks = (groups + threads - 1) / threads;
-  if (chunks > 65535) chunks = 65535;
-  const size_t smem = 2 * n * sizeof(float);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  rank_mean_kernel<T, VEC>
-      <<<dim3(static_cast<unsigned>(r), static_cast<unsigned>(chunks)), threads, smem, stream>>>(
-          x, ranks, weights, out, n, r, d, by_weight);
-  return cudaGetLastError();
-}
-
-// 16-byte loads need the width to be a multiple of the vector and both
-// pointers aligned; otherwise the scalar instantiation runs (same arithmetic).
-template <typename T>
-cudaError_t rank_agg(const void* x, const int* ranks, const float* weights, void* out, int64_t n,
-                     int64_t r, int64_t d, int by_weight, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  if (d % V == 0 && aligned(x, 16) && aligned(out, 16))
-    return launch_rank<T, V>(xt, ranks, weights, ot, n, r, d, by_weight, stream);
-  return launch_rank<T, 1>(xt, ranks, weights, ot, n, r, d, by_weight, stream);
 }
 
 }  // namespace
@@ -505,42 +491,60 @@ extern "C" {
 int packed_agg_group(const void* segs, int n_segs, const void* ents, int n_ents,
                      const uint8_t* cdt, const float* masks, int64_t mask_cols,
                      const float* weights, int n, int dtype, int mode, void* stream) {
-  const Launch l{group_args(segs, n_segs, ents, n_ents, cdt, masks, mask_cols, weights, n, dtype,
-                            mode),
+  const Launch l{group_args(segs, n_segs, ents, n_ents, cdt, masks, nullptr, mask_cols, weights,
+                            n, dtype, mode),
                  nullptr, nullptr, nullptr, static_cast<cudaStream_t>(stream)};
-  return dispatch(l);
+  return dispatch<FloatMasks>(l);
 }
 
 int packed_agg_layout(const void* segs, int n_segs, const void* ents, int n_ents,
                       const uint8_t* cdt, int n, int dtype, int mode, void* table,
                       int64_t* tiles) {
-  const Launch l{group_args(segs, n_segs, ents, n_ents, cdt, nullptr, 0, nullptr, n, dtype, mode),
+  const Launch l{group_args(segs, n_segs, ents, n_ents, cdt, nullptr, nullptr, 0, nullptr, n,
+                            dtype, mode),
                  static_cast<Seg*>(table), nullptr, tiles, nullptr};
-  return dispatch(l);
+  return dispatch<FloatMasks>(l);
 }
 
 int packed_agg_group_table(const void* dev_table, int n_segs, int n_ents, int64_t tiles,
                            const float* masks, int64_t mask_cols, const float* weights, int n,
                            int dtype, int mode, void* stream) {
   int64_t t = tiles;
-  const Launch l{group_args(nullptr, n_segs, nullptr, n_ents, nullptr, masks, mask_cols, weights,
-                            n, dtype, mode),
+  const Launch l{group_args(nullptr, n_segs, nullptr, n_ents, nullptr, masks, nullptr, mask_cols,
+                            weights, n, dtype, mode),
                  nullptr, dev_table, &t, static_cast<cudaStream_t>(stream)};
-  return dispatch(l);
+  return dispatch<FloatMasks>(l);
 }
 
-// rbla_agg: x (n, r, d) of dtype; ranks (n,) int32; weights (n,) f32; out
-// (r, d) of dtype.
-int rbla_rank_agg(const void* x, int dtype, const int* ranks, const float* weights, void* out,
-                  int64_t n, int64_t r, int64_t d, int by_weight, void* stream) {
-  if (r <= 0 || d <= 0) return cudaSuccess;
-  if (r > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return rank_agg<float>(x, ranks, weights, out, n, r, d, by_weight, s);
-    case kBF16: return rank_agg<__nv_bfloat16>(x, ranks, weights, out, n, r, d, by_weight, s);
-    default: return cudaErrorInvalidValue;
-  }
+// rbla_agg_group: the same segments and table, with the owner masks taken
+// from ranks (n, rank_cols) int32: client c owns rank row rr of a segment iff
+// rr < ranks[c, mask_off] (paper Eq. 7); rank rows no client owns keep the
+// segment's prev (mode bit 0: norm_by "weight", which keeps none).
+int rbla_agg_group(const void* segs, int n_segs, const void* ents, int n_ents, const uint8_t* cdt,
+                   const int32_t* ranks, int64_t rank_cols, const float* weights, int n, int dtype,
+                   int mode, void* stream) {
+  const Launch l{group_args(segs, n_segs, ents, n_ents, cdt, nullptr, ranks, rank_cols, weights,
+                            n, dtype, mode),
+                 nullptr, nullptr, nullptr, static_cast<cudaStream_t>(stream)};
+  return dispatch<RankMasks>(l);
+}
+
+int rbla_agg_layout(const void* segs, int n_segs, const void* ents, int n_ents,
+                    const uint8_t* cdt, int n, int dtype, int mode, void* table, int64_t* tiles) {
+  const Launch l{group_args(segs, n_segs, ents, n_ents, cdt, nullptr, nullptr, 0, nullptr, n,
+                            dtype, mode),
+                 static_cast<Seg*>(table), nullptr, tiles, nullptr};
+  return dispatch<RankMasks>(l);
+}
+
+int rbla_agg_group_table(const void* dev_table, int n_segs, int n_ents, int64_t tiles,
+                         const int32_t* ranks, int64_t rank_cols, const float* weights, int n,
+                         int dtype, int mode, void* stream) {
+  int64_t t = tiles;
+  const Launch l{group_args(nullptr, n_segs, nullptr, n_ents, nullptr, nullptr, ranks, rank_cols,
+                            weights, n, dtype, mode),
+                 nullptr, dev_table, &t, static_cast<cudaStream_t>(stream)};
+  return dispatch<RankMasks>(l);
 }
 
 }  // extern "C"

@@ -26,10 +26,11 @@ from .. import build, runtime
 from ..runtime import check_launch as _check_launch
 from ..runtime import stream_handle as _stream
 from .ref import (ROBUST_MODES, axpy_fold_group_ref, axpy_fold_ref,
-                  flora_stack_ref, group_key, leaf_shape,
+                  flora_stack_group_ref, flora_stack_ref, group_key,
+                  leaf_shape,
                   packed_agg_group_ref, packed_agg_ref,
                   packed_robust_group_ref, packed_robust_ref,
-                  packed_stack_ref, rbla_agg_ref)
+                  packed_stack_ref, rbla_agg_group_ref, rbla_agg_ref)
 
 #: legacy method names -> the kernels' two normalisation modes
 _NORM_BY = {"rbla": "mask", "zeropad": "weight"}
@@ -43,8 +44,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = build.load("rbla_agg")
     _bind_group(lib, "packed_agg", [])
-    lib.rbla_rank_agg.argtypes = [_P, _I, _P, _P, _P, _L, _L, _L, _I, _P]
-    lib.rbla_rank_agg.restype = _I
+    _bind_group(lib, "rbla_agg", [])
     return lib
 
 
@@ -58,7 +58,8 @@ def _robust_lib() -> ctypes.CDLL:
 def _bind_group(lib, name: str, knobs: list) -> None:
     """ctypes signatures of a grouped kernel's three C entry points and the
     table queries every grouped library carries (csrc/agg_group.cuh)."""
-    head = [_P, _L, _P, _I, _I, _I]     # masks, mask_cols, weights, n, dtype, mode
+    head = [_P, _L, _P, _I, _I, _I]     # masks (or ranks), mask_cols, weights,
+    #                                     n, dtype, mode
     getattr(lib, f"{name}_group").argtypes = [_P, _I, _P, _I, _P] + head \
         + knobs + [_P]
     getattr(lib, f"{name}_layout").argtypes = [_P, _I, _P, _I, _P, _I, _I,
@@ -180,16 +181,17 @@ def _group_args(name, xs, masks, weights, prevs, cols, scales, mask_offs,
     return prevs, cols, scales, tuple(offs), tuple(dts)
 
 
-def _f32(t, index: int, name: str):
-    """``t`` as a contiguous fp32 tensor on CUDA device ``index`` (copied
-    only where it is not one); a tensor elsewhere is refused."""
+def _f32(t, index: int, name: str, dtype=torch.float32):
+    """``t`` as a contiguous ``dtype`` (default fp32) tensor on CUDA device
+    ``index`` (copied only where it is not one); a tensor elsewhere is
+    refused."""
     if not isinstance(t, torch.Tensor):
-        return torch.as_tensor(t, dtype=torch.float32,
+        return torch.as_tensor(t, dtype=dtype,
                                device=f"cuda:{index}").contiguous()
     if t.get_device() != index:
         raise ValueError(f"{name} is on {t.device}, x on cuda:{index}")
-    if t.dtype != torch.float32 or not t.is_contiguous():
-        t = t.to(torch.float32).contiguous()
+    if t.dtype != dtype or not t.is_contiguous():
+        t = t.to(dtype).contiguous()
     return t
 
 
@@ -258,10 +260,14 @@ def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
                 mask_offs, out_dtypes, mode, knobs=()):
     """Run a checked grouped call on the card: one launch per client-dtype
     key (:func:`group_key`).  Returns the outputs in order, each a view of
-    one allocation per output dtype."""
+    one allocation per output dtype.  ``masks`` are the owner masks, or for
+    ``name`` "rbla_agg" the rank matrix (a segment's mask offset is then its
+    rank column)."""
     x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
     dev, index = x0.device, x0.get_device()
-    masks = _f32(masks, index, "masks")
+    # rbla_agg's owner masks are an int32 rank matrix (agg_group.cuh)
+    masks = _f32(masks, index, "masks",
+                 torch.int32 if name == "rbla_agg" else torch.float32)
     weights = _f32(weights, index, "weights")
     n = int(weights.shape[0])
     by_key: dict = {}
@@ -449,51 +455,104 @@ def packed_agg(x, masks, weights, prev=None, *, norm_by: str = "mask",
 packed_agg_inline = packed_agg
 
 
-def _rbla_agg_cuda(x, ranks, weights, norm_by):
-    n, r, d = x.shape
-    dev = x.device
-    if x.dtype not in _OUT_CODES:
-        raise TypeError(f"rbla_agg: x dtype {x.dtype} not in "
-                        f"{list(_OUT_CODES)}")
-    if not x.is_contiguous():
-        raise ValueError("rbla_agg: x must be contiguous (pass B's "
-                         "rank-leading view as a contiguous copy)")
-    by_weight = _norm_code(norm_by)
-    ranks = _on(ranks, dev, torch.int32, "ranks")
-    weights = _on(weights, dev, torch.float32, "weights")
-    if ranks.shape != (n,) or weights.shape != (n,):
-        raise ValueError(f"rbla_agg: ranks {tuple(ranks.shape)} / weights "
-                         f"{tuple(weights.shape)} != ({n},)")
-    out = torch.empty((r, d), dtype=x.dtype, device=dev)
-    if r * d == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = _lib().rbla_rank_agg(
-            x.data_ptr(), _OUT_CODES[x.dtype], ranks.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), n, r, d, by_weight,
-            _stream(dev))
-    _check_launch(err, "rbla_agg", _lib())
-    runtime.LAUNCHES["rbla_agg"] += 1
-    return out
-
-
-def rbla_agg(x, ranks, weights, *, method: str = "rbla",
-             backend: str = "auto"):
-    """Aggregate stacked client tensors (N, R, *dims) with rank-row masks
-    ``[r < ranks[n]]`` (paper Eq. 7).  ``method="rbla"`` divides by the
-    owners' weight mass, ``"zeropad"`` by the total mass."""
+def _rbla_args(xs, ranks, weights, prevs, cols, rank_cols, method):
+    """Check a :func:`rbla_agg_group` call; returns ``(prevs, cols,
+    rank_cols, out dtypes, norm_by)``."""
     try:
         norm_by = _NORM_BY[method]
     except KeyError:
         raise ValueError(f"unknown kernel method {method!r}; options: "
                          f"{sorted(_NORM_BY)}") from None
+    k = len(xs)
+    if not k:
+        raise ValueError("rbla_agg_group: no segments")
+    cols = (False,) * k if cols is None else tuple(bool(c) for c in cols)
+    rank_cols = (0,) * k if rank_cols is None else tuple(int(c)
+                                                         for c in rank_cols)
+    prevs = (None,) * k if prevs is None else tuple(prevs)
+    for key, v in (("cols", cols), ("rank_cols", rank_cols),
+                   ("prevs", prevs)):
+        if len(v) != k:
+            raise ValueError(f"rbla_agg_group: {k} segments, {len(v)} {key}")
+    if ranks.ndim != 2 or tuple(weights.shape) != (ranks.shape[0],):
+        raise ValueError(f"rbla_agg_group: ranks {tuple(ranks.shape)} and "
+                         f"weights {tuple(weights.shape)} must be (n, "
+                         "rank_cols) and (n,)")
+    if ranks.is_floating_point() or ranks.is_complex():
+        raise TypeError(f"rbla_agg_group: ranks must be integers, got "
+                        f"{ranks.dtype}")
+    n, dts = int(ranks.shape[0]), []
+    for i, (x, prev, c) in enumerate(zip(xs, prevs, rank_cols)):
+        if not isinstance(x, torch.Tensor) or x.ndim != 3 \
+                or x.shape[0] != n:
+            raise ValueError(f"rbla_agg_group: segment {i} must be one pair "
+                             f"side stacked over the {n} clients, (n, r, "
+                             f"fan_in) or (n, fan_out, r)")
+        if x.dtype not in _OUT_CODES:
+            raise TypeError(f"rbla_agg: x dtype {x.dtype} not in "
+                            f"{list(_OUT_CODES)}")
+        if not 0 <= c < ranks.shape[1]:
+            raise ValueError(f"rbla_agg_group: segment {i}'s rank column "
+                             f"{c} is outside the ranks' {ranks.shape[1]}")
+        if prev is not None and prev.shape != x.shape[1:]:
+            raise ValueError(f"rbla_agg_group: prev {tuple(prev.shape)} != "
+                             f"the leaf's {tuple(x.shape[1:])}")
+        dts.append(x.dtype)
+    return prevs, cols, rank_cols, tuple(dts), norm_by
+
+
+def rbla_agg_group(xs, ranks, weights, prevs=None, *, cols=None,
+                   rank_cols=None, method: str = "rbla",
+                   backend: str = "auto"):
+    """Paper Eq. 7 on every pair side of a per-pair round in one call.
+
+    ``xs[i]``: one pair side stacked over the n clients, an A ``(n, r,
+    fan_in)`` whose rank rows are its rows or (``cols[i]`` true) a B ``(n,
+    fan_out, r)`` whose rank rows are its columns, each read in its own
+    layout.  Client c owns rank row j of segment i iff ``j < ranks[c,
+    rank_cols[i]]`` (``ranks`` (n, rank_cols) integers: one column a pair,
+    or one for all); ``weights`` (n,).  ``method="rbla"`` divides by the
+    owners' weight mass, a rank row some client owns at weight 0 alone is
+    0, and rank rows no client owns keep ``prevs[i]`` (0 without);
+    ``"zeropad"`` divides by the total mass and keeps no prev.  Returns one
+    tensor per segment in the leaf's shape and dtype.  On the card every
+    segment of one client dtype runs in ONE launch
+    (``runtime.LAUNCHES["rbla_agg"]``); on the CPU the plain version
+    :func:`rbla_agg_group_ref` runs."""
+    prevs, cols, rank_cols, dts, norm_by = _rbla_args(
+        xs, ranks, weights, prevs, cols, rank_cols, method)
+    if runtime.use_kernel(backend, xs[0], "rbla_agg"):
+        return _group_cuda("rbla_agg", _lib(), xs, ranks, weights, prevs,
+                           cols, (None,) * len(xs), rank_cols, dts,
+                           _norm_code(norm_by))
+    return rbla_agg_group_ref(xs, ranks, torch.as_tensor(weights), prevs,
+                              cols=cols, rank_cols=rank_cols, norm_by=norm_by)
+
+
+def rbla_agg(x, ranks, weights, *, method: str = "rbla",
+             backend: str = "auto"):
+    """Aggregate stacked client tensors (N, R, *dims) with rank-row masks
+    ``[r < ranks[n]]`` (paper Eq. 7): the one-segment form of
+    :func:`rbla_agg_group`.  ``method="rbla"`` divides by the owners'
+    weight mass (rows no client owns are 0), ``"zeropad"`` by the total
+    mass."""
+    if method not in _NORM_BY:
+        raise ValueError(f"unknown kernel method {method!r}; options: "
+                         f"{sorted(_NORM_BY)}")
     x2, lead = _flat(x, "rbla_agg")
     r = x2.shape[1]
     if runtime.use_kernel(backend, x, "rbla_agg"):
-        out = _rbla_agg_cuda(x2, ranks, weights, norm_by)
+        ranks = _on(ranks, x.device, torch.int32, "ranks")
+        weights = _on(weights, x.device, torch.float32, "weights")
+        if ranks.shape != (x2.shape[0],):
+            raise ValueError(f"rbla_agg: ranks {tuple(ranks.shape)} != "
+                             f"({x2.shape[0]},)")
+        out = rbla_agg_group([x2], ranks[:, None], weights, method=method,
+                             backend=backend)[0]
     else:
         out = rbla_agg_ref(x2, torch.as_tensor(ranks),
-                           torch.as_tensor(weights), norm_by=norm_by)
+                           torch.as_tensor(weights),
+                           norm_by=_NORM_BY[method])
     return out.reshape((r,) + lead)
 
 
@@ -588,7 +647,15 @@ _FROM_PREV, _ZERO_ROW = -1, -2
 def _stack_lib() -> ctypes.CDLL:
     lib = build.load("flora_stack")
     lib.flora_stack_rows.argtypes = [_P, _I, _P, _P, _P, _P, _L, _L, _L, _P]
-    lib.flora_stack_rows.restype = _I
+    lib.flora_stack_group.argtypes = [_P, _I, _P, _I, _P, _I, _F, _F, _P]
+    lib.flora_stack_layout.argtypes = [_P, _I, _P, _I, _P, _P]
+    lib.flora_stack_group_table.argtypes = [_P, _I, _I, _I, _L, _P, _I, _F,
+                                            _F, _P]
+    lib.flora_stack_fits_inline.argtypes = [_I, _I]
+    lib.flora_stack_table_bytes.argtypes = [_I, _I]
+    lib.flora_stack_table_bytes.restype = _L
+    for fn in ("rows", "group", "layout", "group_table", "fits_inline"):
+        getattr(lib, f"flora_stack_{fn}").restype = _I
     return lib
 
 
@@ -598,8 +665,7 @@ class StackTable:
     ``(source, source row, scale index)`` int32 triple per output row,
     where the source is a client index, -1 (the previous global) or -2 (a
     zero row), plus the geometry it was checked against.  Build it with
-    :func:`stack_table` (or :func:`flora_table`); the device copy is made
-    once per device."""
+    :func:`stack_table`; the device copy is made once per device."""
     rows: np.ndarray                   # (out_rows, 3) int32
     n: int
     r_in: int
@@ -658,23 +724,6 @@ def _check_segs(segs, n: int, r: int, out_rows: int) -> tuple:
         raise ValueError(f"stacked rows {sum(segs)} exceed out_rows="
                          f"{out_rows}")
     return segs
-
-
-@functools.lru_cache(maxsize=256)
-def flora_table(segs: tuple, out_rows: int, r: int,
-                layers: int = 1) -> StackTable:
-    """The table of ``flora_stack``: in each of ``layers`` blocks of ``r``
-    input rows, contributor i's first ``segs[i]`` rows at the running
-    offset of that layer's ``out_rows`` output rows, scaled by
-    ``scales[i]``; the rest zero."""
-    copies = []
-    for layer in range(layers):
-        off = layer * out_rows
-        for i, s in enumerate(segs):
-            copies.append((i, layer * r, off, s, i))
-            off += s
-    return stack_table(copies, out_rows=layers * out_rows, n=len(segs),
-                       r_in=layers * r, n_scales=len(segs))
 
 
 def _stack_cuda(x, scales, prev, table: StackTable, name: str):
@@ -737,12 +786,245 @@ def packed_stack(x, scales, prev=None, *, copies_x=(), copies_prev=(),
                             copies_prev=copies_prev, out_rows=out_rows)
 
 
+#: a grouped stack segment's scale mode (``ScaleMode`` in csrc/flora_stack.cu)
+_UNIT, _GIVEN, _MASS = 0, 1, 2
+
+
+def _stack_args(xs, contribs, prevs, cols, cap, scales, weights):
+    """Check a :func:`flora_stack_group` call; returns per segment its
+    prev, column flag, cap and scale."""
+    k = len(xs)
+    if not k:
+        raise ValueError("flora_stack_group: no segments")
+    per = dict(contribs=contribs, prevs=prevs, cols=cols, scales=scales)
+    caps = (cap,) * k if isinstance(cap, int) else tuple(cap)
+    for key, v in dict(per, caps=caps).items():
+        if v is not None and len(v) != k:
+            raise ValueError(f"flora_stack_group: {k} segments, {len(v)} "
+                             f"{key}")
+    prevs = (None,) * k if prevs is None else tuple(prevs)
+    cols = (False,) * k if cols is None else tuple(bool(c) for c in cols)
+    scales = (None,) * k if scales is None else tuple(scales)
+    n = int(xs[0].shape[0])
+    if weights is not None and tuple(weights.shape) != (n,):
+        raise ValueError(f"flora_stack_group: weights "
+                         f"{tuple(weights.shape)} != ({n},)")
+    for i, (x, con, prev, col, c, sc) in enumerate(zip(
+            xs, contribs, prevs, cols, caps, scales)):
+        if x.ndim < 3 or x.shape[0] != n:
+            raise ValueError(f"flora_stack_group: segment {i} must be a "
+                             f"leaf (*lead, a, b) stacked over the {n} "
+                             f"clients, got {tuple(x.shape)}")
+        r_in = x.shape[-1] if col else x.shape[-2]
+        r_prev = 0
+        if prev is not None:
+            want = tuple(x.shape[1:-2]) + ((x.shape[-2],) if col
+                                           else (x.shape[-1],))
+            got = tuple(prev.shape[:-2]) + ((prev.shape[-2],) if col
+                                            else (prev.shape[-1],))
+            if prev.ndim != x.ndim - 1 or got != want:
+                raise ValueError(f"flora_stack_group: prev "
+                                 f"{tuple(prev.shape)} does not match the "
+                                 f"leaf {tuple(x.shape[1:])} but in its rank")
+            r_prev = prev.shape[-1] if col else prev.shape[-2]
+        for src, rows in con:
+            top = r_prev if src == -1 else r_in
+            if not (-1 <= src < n and (src != -1 or prev is not None)
+                    and 0 <= rows <= top):
+                raise ValueError(f"flora_stack_group: segment {i}: "
+                                 f"contributor {(src, rows)} outside the "
+                                 f"{n} clients' {r_in} and prev's {r_prev} "
+                                 "rank rows")
+        if sum(rows for _, rows in con) > c:
+            raise ValueError(f"flora_stack_group: segment {i} stacks "
+                             f"{sum(rows for _, rows in con)} rank rows, "
+                             f"its cap is {c}")
+        if isinstance(sc, str):
+            if sc != "mass" or weights is None:
+                raise ValueError("flora_stack_group: a scale is None, a "
+                                 "tensor or 'mass' (with weights)")
+        elif sc is not None and tuple(sc.shape) != (len(con),):
+            raise ValueError(f"flora_stack_group: segment {i}'s scales "
+                             f"{tuple(sc.shape)} != ({len(con)},)")
+    return prevs, cols, caps, scales
+
+
+def _stack_out_shape(x, col: bool, cap: int) -> tuple:
+    """A segment's output shape: the leaf's, at storage rank ``cap``."""
+    return tuple(x.shape[1:-2]) + ((x.shape[-2], cap) if col
+                                   else (cap, x.shape[-1]))
+
+
+@functools.lru_cache(maxsize=512)
+def _stack_layout(geo: tuple) -> tuple:
+    """The static part of a grouped stack: per segment its twelve words
+    with the pointers left 0 (``StackSegIn``), the contributor table (one
+    int32 pair each; segments with the same contributors share theirs),
+    the most contributors of one segment, and each output's offset in one
+    allocation per output dtype.  ``geo``: per segment ``(leaf shape, col,
+    cap, contributors, prev shape, x dtype, prev dtype, out dtype, scale
+    mode)``."""
+    words, table, firsts, sizes, offsets = array.array("q"), [], {}, {}, []
+    for shape, col, cap, con, pshape, xdt, pdt, odt, mode in geo:
+        lead = shape[:-2]
+        width, r_in = (shape[-2], shape[-1]) if col else (shape[-1],
+                                                          shape[-2])
+        r_prev = 0 if pshape is None else (pshape[-1] if col else pshape[-2])
+        if con not in firsts:
+            firsts[con] = len(table)
+            table.extend(con)
+        numel = math.prod(lead) * width * cap
+        at = sizes.get(odt, 0)
+        offsets.append(at)
+        sizes[odt] = at + -(-numel // 16) * 16      # 64-byte aligned outputs
+        flags = int(col) | _OUT_CODES[xdt] << 8 \
+            | (_OUT_CODES[pdt] if pdt is not None else 0) << 12 \
+            | _OUT_CODES[odt] << 16 | mode << 20
+        words.extend((0, math.prod(shape), 0, 0, 0, math.prod(lead), width,
+                      r_in, r_prev, cap, firsts[con] | len(con) << 32,
+                      flags))
+    pairs = array.array("i", [v for src_rows in table for v in src_rows])
+    return (words, pairs, len(table), max(len(g[3]) for g in geo),
+            tuple(offsets), sizes)
+
+
+def _stack_group_cuda(xs, contribs, prevs, cols, caps, scales, weights,
+                      prev_weight, eps, out_dtypes) -> list:
+    """Run a checked grouped stack on the card in one launch."""
+    x0 = xs[0]
+    dev, index = x0.device, x0.get_device()
+    modes = tuple(_UNIT if sc is None else _MASS if isinstance(sc, str)
+                  else _GIVEN for sc in scales)
+    for x, prev in zip(xs, prevs):
+        for t in (x, prev):
+            if t is None:
+                continue
+            if t.get_device() != index:
+                raise ValueError(f"flora_stack: a leaf is on {t.device}, "
+                                 f"the call on {dev}")
+            if t.dtype not in _OUT_CODES:
+                raise TypeError(f"flora_stack: dtype {t.dtype} not in "
+                                f"{list(_OUT_CODES)}")
+    for odt in out_dtypes:
+        if odt not in _OUT_CODES:
+            raise TypeError(f"flora_stack: out_dtype {odt} not in "
+                            f"{list(_OUT_CODES)}")
+    geo = tuple((tuple(x.shape[1:]), col, cap, tuple(map(tuple, con)),
+                 None if prev is None else tuple(prev.shape), x.dtype,
+                 None if prev is None else prev.dtype, odt, mode)
+                for x, con, prev, col, cap, odt, mode in zip(
+                    xs, contribs, prevs, cols, caps, out_dtypes, modes))
+    words, pairs, n_contrib, max_c, offsets, sizes = _stack_layout(geo)
+    words = array.array("q", words)
+    bufs = {dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
+            for dt, sz in sizes.items()}
+    outs, keep = [], []
+    w = None
+    if _MASS in modes:
+        w = _f32(weights, index, "weights")
+    for i, (x, prev, col, cap, sc, odt) in enumerate(zip(
+            xs, prevs, cols, caps, scales, out_dtypes)):
+        buf = bufs[odt]
+        shape = _stack_out_shape(x, col, cap)
+        out = buf.as_strided(shape, tuple(math.prod(shape[j + 1:])
+                                          for j in range(len(shape))),
+                             offsets[i])
+        outs.append(out)
+        if not x.is_contiguous():
+            x = x.contiguous()
+            keep.append(x)
+        if prev is not None and not prev.is_contiguous():
+            prev = prev.contiguous()
+            keep.append(prev)
+        at = 12 * i
+        words[at] = x.data_ptr()
+        words[at + 3] = out.data_ptr()
+        xvec = x.data_ptr() % 16 == 0 and words[at + 1] % 4 == 0
+        pvec = prev is None or prev.data_ptr() % 16 == 0
+        if prev is not None:
+            words[at + 2] = prev.data_ptr()
+        if modes[i] == _GIVEN:
+            sc = _f32(sc, index, "scales")
+            keep.append(sc)
+            words[at + 4] = sc.data_ptr()
+        width = words[at + 6]
+        ovec = out.data_ptr() % 16 == 0
+        vec = ovec and (cap % 4 == 0 if col
+                        else width % 4 == 0 and xvec and pvec)
+        words[at + 11] |= int(vec) << 1 | int(xvec) << 2 | int(
+            prev is not None and pvec) << 3
+    lib = _stack_lib()
+    addr, pair_addr = words.buffer_info()[0], pairs.buffer_info()[0]
+    knobs = (None if w is None else w.data_ptr(),
+             int(x0.shape[0]) if w is None else int(w.shape[0]),
+             float(prev_weight), float(eps))
+    with (torch.cuda.device(dev) if torch.cuda.current_device() != index
+          else contextlib.nullcontext()):
+        stream = _stream(dev)
+        if lib.flora_stack_fits_inline(len(xs), n_contrib):
+            err = lib.flora_stack_group(addr, len(xs), pair_addr, n_contrib,
+                                        *knobs, stream)
+        else:           # the table goes to the card by one async copy
+            host = torch.empty(lib.flora_stack_table_bytes(len(xs),
+                                                           n_contrib),
+                               dtype=torch.uint8, pin_memory=True)
+            tiles = ctypes.c_int64()
+            err = lib.flora_stack_layout(addr, len(xs), pair_addr, n_contrib,
+                                         host.data_ptr(), ctypes.byref(tiles))
+            _check_launch(err, "flora_stack", lib)
+            table = host.to(dev, non_blocking=True)
+            err = lib.flora_stack_group_table(
+                table.data_ptr(), len(xs), n_contrib, max_c, tiles.value,
+                *knobs, stream)
+    _check_launch(err, "flora_stack", lib)
+    runtime.LAUNCHES["flora_stack"] += 1
+    return outs
+
+
+def flora_stack_group(xs, contribs, prevs=None, *, cap, cols=None,
+                      scales=None, weights=None, prev_weight: float = 1.0,
+                      eps: float = 1e-12, backend: str = "auto"):
+    """FLoRA stacking of every pair side of a per-pair round in one call.
+
+    Segment i is one output pair side at storage rank ``cap`` (an int, or
+    one per segment): an A ``(*lead, cap, fan_in)`` by rank row or
+    (``cols[i]`` true) a B ``(*lead, fan_out, cap)`` by rank column.  Its
+    sources are ``xs[i]``, the pair side stacked over the n clients (``(n,
+    *lead, r, fan_in)`` or ``(n, *lead, fan_out, r)``, read where it lies)
+    and ``prevs[i]``, the previous global's side at its own storage rank.
+    ``contribs[i]`` lists ``(source, rows)``: a client index, or -1 for
+    prev, and how many of its leading rank rows it stacks; contributor k
+    lands at the running offset, every layer of ``lead`` stacked on its
+    own, and the rank rows beyond the total are zero.  ``scales[i]``: None
+    (the rows pass unscaled), a tensor of one fp32 scale per contributor,
+    or "mass": flora's B-column scales ``m_k / (sum m + eps) * total /
+    rows_k``, with a client's mass its weight in ``weights`` (n,) and
+    prev's ``prev_weight`` times their mean, summed in order.  Values are
+    multiplied in fp32 and rounded once to the leaf's dtype.  On the card
+    ONE launch (``runtime.LAUNCHES
+    ["flora_stack"]``); on the CPU the plain version
+    :func:`flora_stack_group_ref`."""
+    contribs = tuple(tuple((int(s), int(r)) for s, r in con)
+                     for con in contribs)
+    prevs, cols, caps, scales = _stack_args(xs, contribs, prevs, cols, cap,
+                                            scales, weights)
+    dts = tuple(x.dtype for x in xs)
+    if runtime.use_kernel(backend, xs[0], "flora_stack"):
+        return _stack_group_cuda(xs, contribs, prevs, cols, caps, scales,
+                                 weights, prev_weight, eps, dts)
+    return flora_stack_group_ref(xs, contribs, prevs, cols=cols, caps=caps,
+                                 scales=scales, weights=weights,
+                                 prev_weight=prev_weight, eps=eps,
+                                 out_dtypes=dts)
+
+
 def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,
                 backend: str = "auto"):
     """Stack contributors' leading rank rows (FLoRA aggregation):
     ``out[off_i : off_i + segs[i]] = scales[i] * x[i, :segs[i]]`` with
     ``off_i`` the running sum of ``segs``; the rows beyond are zero.
-    x: (N, R, *dims); trailing dims flatten into D and are restored.
+    x: (N, R, *dims); trailing dims flatten into D and are restored.  The
+    one-segment row-mode form of :func:`flora_stack_group`.
 
     ``layers`` > 1 stacks a layer-stacked pair in the same launch: x is
     (N, layers * R, *dims), each contributor's layers one after another,
@@ -756,9 +1038,10 @@ def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,
     r = rows // layers
     segs = _check_segs(segs, n, r, out_rows)
     if runtime.use_kernel(backend, x, "flora_stack"):
-        out = _stack_cuda(x2, scales, None,
-                          flora_table(segs, out_rows, r, layers),
-                          "flora_stack")
+        sc = _on(scales, x.device, torch.float32, "scales")
+        out = flora_stack_group(
+            [x2.reshape(n, layers, r, d)], [tuple(enumerate(segs))],
+            cap=out_rows, scales=[sc], backend=backend)[0]
     else:       # the layer axis rides as a trailing dim of the plain version
         xl = x2.reshape(n, layers, r, d).transpose(1, 2)
         out = flora_stack_ref(xl, scales, segs, out_rows).transpose(0, 1)
@@ -948,9 +1231,10 @@ def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
 
 
 __all__ = ["packed_agg", "packed_agg_group", "packed_agg_inline", "rbla_agg",
-           "packed_robust", "packed_robust_group", "packed_stack",
-           "flora_stack", "StackTable", "stack_table", "flora_table", "axpy_fold", "axpy_fold_group", "packed_agg_ref",
-           "rbla_agg_ref", "packed_robust_ref", "packed_agg_group_ref",
-           "packed_robust_group_ref", "packed_stack_ref",
-           "flora_stack_ref", "axpy_fold_ref", "axpy_fold_group_ref",
-           "MAX_ROBUST_CLIENTS"]
+           "rbla_agg_group", "packed_robust", "packed_robust_group",
+           "packed_stack", "flora_stack", "flora_stack_group", "StackTable",
+           "stack_table", "axpy_fold", "axpy_fold_group", "packed_agg_ref",
+           "rbla_agg_ref", "rbla_agg_group_ref", "packed_robust_ref",
+           "packed_agg_group_ref", "packed_robust_group_ref",
+           "packed_stack_ref", "flora_stack_ref", "flora_stack_group_ref",
+           "axpy_fold_ref", "axpy_fold_group_ref", "MAX_ROBUST_CLIENTS"]

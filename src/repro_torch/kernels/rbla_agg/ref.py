@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import runtime
@@ -73,6 +74,97 @@ def rbla_agg_ref(x, ranks, weights, *, norm_by: str = "mask"):
     num = (wm[:, :, None] * x.float()).sum(0)
     return _finish(num, wm.sum(0)[:, None], w.sum(), norm_by,
                    None).to(x.dtype)
+
+
+def rbla_agg_group_ref(xs, ranks, weights, prevs, *, cols, rank_cols,
+                       norm_by: str = "mask"):
+    """The per-pair round's plain version: :func:`rbla_agg_ref`'s Eq. 7 on
+    every segment.  ``xs[i]`` one pair side stacked over the n clients,
+    ``(n, r, fan_in)`` or (``cols[i]``) ``(n, fan_out, r)``; client c owns
+    rank row j iff ``j < ranks[c, rank_cols[i]]``; a rank row some client
+    owns at weight 0 alone is 0, and one no client owns keeps ``prevs[i]``
+    (0 without); ``norm_by="weight"`` divides by the total mass.  Each
+    result in the leaf's shape and dtype.  Counts one plain call per launch
+    the kernel would make (:func:`group_launches`)."""
+    runtime.PLAIN_CALLS["rbla_agg"] += group_launches(xs)
+    w = weights.float()
+    outs = []
+    for x, prev, col, c in zip(xs, prevs, cols, rank_cols):
+        xf = leaf_rank_rows(x.float(), col)                  # (n, R, E)
+        rows = torch.arange(xf.shape[1], device=xf.device)
+        m = (rows[None, :] < ranks[:, c].to(xf.device)[:, None]).float()
+        wm = w[:, None] * m
+        num = (wm[:, :, None] * xf).sum(0)
+        if norm_by == "weight":
+            out = num / w.sum()
+        else:
+            den = wm.sum(0)[:, None]
+            unowned = (m.sum(0) == 0)[:, None]
+            fb = (leaf_rank_rows(prev[None], col)[0].float()
+                  if prev is not None else torch.zeros_like(num))
+            out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                              torch.where(unowned, fb, 0.0))
+        outs.append(leaf_from_rank_rows(out, tuple(x.shape[1:]), col)
+                    .to(x.dtype).contiguous())
+    return outs
+
+
+def flora_mass_scales(weights, contribs, prev_weight: float, eps: float):
+    """flora's B-column scales of one segment, as ``flora_stack_group``'s
+    kernel computes them: each contributor's mass (a client's weight, the
+    previous global's ``prev_weight`` times the mean weight), ``m_k / (sum m
+    + eps) * total / rows_k``, in fp32 with every sum taken in order.
+    -> a host list of fp32 scalars."""
+    w = [np.float32(v) for v in weights.detach().float().cpu().tolist()]
+    f32 = np.float32
+    mean = f32(0.0)
+    if any(src < 0 for src, _ in contribs):
+        total = f32(0.0)
+        for v in w:
+            total = f32(total + v)
+        mean = f32(total / f32(len(w)))
+    masses = [f32(f32(prev_weight) * mean) if src < 0 else w[src]
+              for src, _ in contribs]
+    msum = f32(0.0)
+    for m in masses:
+        msum = f32(msum + m)
+    den = f32(msum + f32(eps))
+    r_total = f32(sum(rows for _, rows in contribs))
+    return [f32(f32(m / den) * f32(r_total / f32(rows)))
+            for m, (_, rows) in zip(masses, contribs)]
+
+
+def flora_stack_group_ref(xs, contribs, prevs, *, cols, caps, scales,
+                          weights=None, prev_weight: float = 1.0,
+                          eps: float = 1e-12, out_dtypes):
+    """The plain version of ``flora_stack_group``: per segment, contributor
+    k's leading ``rows`` rank rows (of client ``src``'s leaf, or of prev for
+    -1), scaled in fp32 and rounded once to the output dtype, at the
+    running offset of a zero leaf of storage rank ``caps[i]`` (rank rows by
+    row, or by column where ``cols[i]``).  ``scales[i]``: None (1), a
+    tensor (one a contributor) or "mass" (:func:`flora_mass_scales`)."""
+    runtime.PLAIN_CALLS["flora_stack"] += 1
+    outs = []
+    for x, con, prev, col, cap, sc, odt in zip(xs, contribs, prevs, cols,
+                                               caps, scales, out_dtypes):
+        lead = tuple(x.shape[1:-2])
+        width = x.shape[-2] if col else x.shape[-1]
+        out = torch.zeros(lead + (cap, width), dtype=odt, device=x.device)
+        if isinstance(sc, str):
+            sc = flora_mass_scales(weights, con, prev_weight, eps)
+        elif sc is not None:
+            sc = [np.float32(v) for v in sc.detach().float().cpu().tolist()]
+        off = 0
+        for k, (src, rows) in enumerate(con):
+            part = prev if src < 0 else x[src]
+            part = part.transpose(-1, -2) if col else part
+            v = part[..., :rows, :].float()
+            if sc is not None:
+                v = v * float(sc[k])
+            out[..., off:off + rows, :] = v.to(odt)
+            off += rows
+        outs.append(out.transpose(-1, -2).contiguous() if col else out)
+    return outs
 
 
 def _fold(y, x, a, out_dtype=None):

@@ -31,7 +31,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import strategy as ts
 from repro_torch.fl import FLConfig, run_simulation
 from repro_torch.kernels import runtime
-from repro_torch.kernels.rbla_agg import (flora_stack, flora_table,
+from repro_torch.kernels.rbla_agg import (flora_stack, flora_stack_group,
                                           packed_stack, packed_stack_ref,
                                           stack_table)
 
@@ -65,9 +65,10 @@ def test_flora_stack_plain_matches_jax(segs, out_rows):
     kern = jops.flora_stack(jnp.asarray(x), jnp.asarray(sc), segs=segs,
                             out_rows=out_rows, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(kern))
-    np.testing.assert_array_equal(
-        _apply_table(flora_table(segs, out_rows, 6).rows, x, None, sc),
-        got.numpy())
+    grouped = flora_stack_group([torch.as_tensor(x)[:, None]],
+                                [tuple(enumerate(segs))], cap=out_rows,
+                                scales=[torch.as_tensor(sc)])[0]
+    np.testing.assert_array_equal(grouped[0].numpy(), got.numpy())
 
 
 def test_flora_stack_trailing_dims_and_bf16():
@@ -119,9 +120,11 @@ def test_flora_stack_layers_match_jax_per_layer(layers):
             segs, out_rows)
         np.testing.assert_array_equal(
             got[layer * out_rows:(layer + 1) * out_rows], np.asarray(want))
-    np.testing.assert_array_equal(
-        _apply_table(flora_table(segs, out_rows, r, layers).rows, x, None,
-                     sc), got)
+    grouped = flora_stack_group(
+        [torch.as_tensor(x).reshape(4, layers, r, 7)],
+        [tuple(enumerate(segs))], cap=out_rows,
+        scales=[torch.as_tensor(sc)])[0]
+    np.testing.assert_array_equal(grouped.reshape(-1, 7).numpy(), got)
     with pytest.raises(ValueError, match="do not split"):
         flora_stack(torch.as_tensor(x), torch.as_tensor(sc), segs=segs,
                     out_rows=out_rows, layers=layers + 4)
@@ -289,8 +292,8 @@ def _layered_cohort(seed, n=4, layers=3, prev_rank=0):
 def test_per_pair_path_stacks_layer_stacked_pairs(monkeypatch, cap,
                                                   prev_rank):
     """``aggregate_tree_kernel`` on a layer-stacked cohort: within the cap
-    the layer axis folds into the rank axis and one ``flora_stack`` call
-    per side stacks every layer (run here on the plain version, which the
+    one ``flora_stack_group`` call takes every pair side and stacks each
+    layer on its own (run here on the plain version, which the
     wrapper takes for CPU tensors); over the cap the pair is re-projected.
     Within the cap the factors match the JAX strategy to fp32 tolerance
     (one multiply per element on both sides); over it, in product space."""
@@ -301,10 +304,10 @@ def test_per_pair_path_stacks_layer_stacked_pairs(monkeypatch, cap,
             prev_global=prev, backend="ref")
     calls = []
 
-    def plain_stack(*a, **k):
-        calls.append(k["layers"])
-        return flora_stack(*a, **dict(k, backend="ref"))
-    monkeypatch.setattr(ts, "flora_stack", plain_stack)
+    def plain_stack(xs, *a, **k):
+        calls.append([x.shape[1] for x in xs])
+        return flora_stack_group(xs, *a, **dict(k, backend="ref"))
+    monkeypatch.setattr(ts, "flora_stack_group", plain_stack)
     got = ts.get_strategy("flora").with_options(
         stack_r_cap=cap).aggregate_tree_kernel(
             ts.stack_trees([port_tree(a) for a in adapters]),
@@ -313,7 +316,7 @@ def test_per_pair_path_stacks_layer_stacked_pairs(monkeypatch, cap,
             None if prev is None else port_tree(prev), r_max=R_MAX)
     total = int(np.sum(ranks)) + prev_rank
     if total <= cap:
-        assert calls == [3] * 2 * len(SPECS)
+        assert calls == [[3] * 2 * len(SPECS)]
         assert_trees_close(got, want, msg=f"cap={cap} prev={prev_rank}")
         return
     assert calls == []

@@ -19,7 +19,10 @@ Phases, each printing JSON lines:
   card, at the paper MLP's bucket shapes and one large shape, with its time,
   the plain version's time and the HBM bound; packed_agg and packed_robust
   also as one grouped call of a main-path round (the unit of their rows:
-  rbla's mean, and each robust mode), rbla_agg and flora_stack as one
+  rbla's mean, and each robust mode), packed_stack as one grouped call of
+  a flora plan's stacking round (the real plan's 6 segments, fp32 and
+  bf16, and one large call; its copy-list form on the same round's three
+  buckets and one large bucket beside it), rbla_agg and flora_stack as one
   grouped call of a per-pair round (6 segments; their one-segment forms
   per pair side too, the unit of their rows before) and at one large
   shape each, back to back, the device's time alone and the device
@@ -30,10 +33,12 @@ Phases, each printing JSON lines:
   segment;
 * agg_rounds -- ``CompiledRound.__call__`` on the main-path cohort (the
   MLP's three pairs, 10 staircase clients, r_max 64, fp32, with prev) for
-  rbla, fedavg, rbla_norm, rbla_clipped, rbla_trimmed, rbla_median and an
-  int8 and a mixed-codec rbla cohort: wall, back-to-back and graph ms and
-  the device kernels of one call (one grouped launch and nothing else,
-  enforced), each against the plain round;
+  rbla, fedavg, rbla_norm, rbla_clipped, rbla_trimmed, rbla_median, an
+  int8 and a mixed-codec rbla cohort and flora's stacking round at
+  ``stack_r_cap=512`` (a global at storage 512, live rank 64): wall,
+  back-to-back and graph ms and the device kernels of one call (one
+  grouped launch and nothing else, enforced), each against the plain
+  round; runs on an older port too (``--src``);
 * per_pair_rounds -- ``aggregate_tree_kernel``, the per-pair round (the
   mean family's fallback without a plan, flora's per-pair stacking), on
   the same cohort for rbla, zeropad and rbla_ranked and on a flora cohort
@@ -54,9 +59,11 @@ Phases, each printing JSON lines:
 * one_round -- one round each of rbla_norm (the norm_restore path) and
   zeropad;
 * flora -- three flora rounds at ``stack_r_cap=512``: rounds 1 and 3 stack
-  (one packed_stack launch per bucket), round 2 re-projects every pair by
-  SVD; the same rounds with the plain versions on the card must agree, and
-  one round at the default cap (2 r_max) re-projects and stacks nothing;
+  (one grouped packed_stack launch a round; the last stacking round's
+  profile holds that one kernel and nothing else, enforced), round 2
+  re-projects every pair by SVD; the same rounds with the plain versions
+  on the card must agree, and one round at the default cap (2 r_max)
+  re-projects and stacks nothing;
 * robust -- one round each of rbla_clipped, rbla_trimmed and rbla_median
   (one grouped packed_robust launch a round), each against its plain round;
   then rbla_clipped's cohort again at a clip that fires on half its rows;
@@ -92,9 +99,10 @@ Phases, each printing JSON lines:
   back-to-back time, the device's time alone (a CUDA graph), the plain
   version's time, the bound at the fp32 SIMT rate and at the tensor
   cores' (TF32 for fp32), the base product's ``torch.matmul`` time beside
-  it, and at the serve and large shapes the device kernels of one call
-  (``torch.profiler``: at the serve shape the kernel's two and nothing
-  else);
+  it, and the device kernels of one call (``torch.profiler``) for every
+  lora_matmul case and batched_lora_matmul's serve and large ones (the
+  serve call's two kernels and lora_matmul's down_gemm and gemm, once
+  each and nothing else, enforced);
 * serve_main -- bench_serve's full case through the port's AdapterStore and
   ServingEngine (128 tenants, width 512, batches of 512, 8 mixed batches):
   parity with merged_reference, requests/s, then 4 aggregate -> publish ->
@@ -691,41 +699,29 @@ def _flora_round_kw(gen, r_max=64, cap=512, dtype=None):
                 prev_weight=1.0)
 
 
-def _flora_group_bytes(kw):
-    """Bytes flora_stack_group must move: the stacked rank rows of each
+def _stack_group_bytes(xs, contribs, cols, caps, n_weights):
+    """Bytes a grouped stack must move: the stacked rank rows of each
     source read once, each output written once, the weights."""
-    b = kw["weights"].numel() * 4
-    for x, con, col in zip(kw["xs"], kw["contribs"], kw["cols"]):
+    b = n_weights * 4
+    for x, con, col, cap in zip(xs, contribs, cols, caps):
         width = x.shape[-2] if col else x.shape[-1]
         layers = math.prod(x.shape[1:-2])
         rows = sum(r for _, r in con)
-        b += layers * width * (rows + kw["cap"]) * x.element_size()
+        b += layers * width * (rows + cap) * x.element_size()
     return b
 
 
-def check_flora_group_case(label, kw):
-    """One grouped flora_stack call (``flora_stack_group``) on the card
-    against its plain twin (bit for bit: one fp32 multiply per element,
+def _check_stack_group(kernel, label, call, plain, xs, contribs, cols, caps,
+                       n_weights, extra):
+    """A grouped stack call on the card (``kernel`` names its launch count)
+    against its plain twin, bit for bit (one fp32 multiply per element,
     the mass scales summed in the same order), with its times, the device
     kernels of one call (one and nothing else, enforced) and the bound."""
     import torch
     from repro_torch.kernels import runtime
-    from repro_torch.kernels.rbla_agg import (flora_stack_group,
-                                              flora_stack_group_ref)
-
-    def call():
-        return flora_stack_group(**kw)
-
-    def plain():
-        k = len(kw["xs"])
-        return flora_stack_group_ref(
-            kw["xs"], kw["contribs"], kw["prevs"], cols=kw["cols"],
-            caps=[kw["cap"]] * k, scales=kw["scales"], weights=kw["weights"],
-            prev_weight=kw["prev_weight"], out_dtypes=[
-                x.dtype for x in kw["xs"]])
-    before = runtime.LAUNCHES["flora_stack"]
+    before = runtime.LAUNCHES[kernel]
     got = call()
-    launches = runtime.LAUNCHES["flora_stack"] - before
+    launches = runtime.LAUNCHES[kernel] - before
     want = plain()
     torch.cuda.synchronize()
     err = max(float((g.float() - w.float()).abs().max())
@@ -734,13 +730,13 @@ def check_flora_group_case(label, kw):
     copied = sum(math.prod(x.shape[1:-2]) * (x.shape[-2] if c else
                                              x.shape[-1])
                  * sum(r for _, r in con)
-                 for x, con, c in zip(kw["xs"], kw["contribs"], kw["cols"]))
-    bms, by = bound(_flora_group_bytes(kw), copied)
+                 for x, con, c in zip(xs, contribs, cols))
+    bms, by = bound(_stack_group_bytes(xs, contribs, cols, caps, n_weights),
+                    copied)
     kernels, copies = _device_events(call)
-    case = {"kernel": "flora_stack", "case": label,
-            "segments": len(kw["xs"]),
-            "shapes": [list(x.shape) for x in kw["xs"]], "cap": kw["cap"],
-            "x_dtype": _dtype_name(kw["xs"][0].dtype), "launches": launches,
+    case = {"kernel": kernel, "case": label, "segments": len(xs),
+            "shapes": [list(x.shape) for x in xs], **extra,
+            "x_dtype": _dtype_name(xs[0].dtype), "launches": launches,
             "max_abs_err": err, "tol": 0.0, "ms": time_ms(call),
             "plain_ms": time_ms(plain),
             "back_to_back_ms": time_ms_back_to_back(call),
@@ -751,12 +747,51 @@ def check_flora_group_case(label, kw):
                                      if case["device_ms"] else None)
     emit(case)
     if not exact or launches != 1:
-        raise AssertionError(f"flora_stack_group disagrees with its plain "
-                             f"twin or launched {launches} times: {case}")
+        raise AssertionError(f"{kernel}: a grouped call disagrees with its "
+                             f"plain twin or launched {launches} times: "
+                             f"{case}")
     if sum(c for c, _ in kernels.values()) != 1 or copies:
-        raise AssertionError(f"flora_stack_group: one call ran {kernels}, "
+        raise AssertionError(f"{kernel}: one grouped call ran {kernels}, "
                              f"{copies}")
     return case
+
+
+def check_flora_group_case(label, kw):
+    """One grouped flora_stack call (``flora_stack_group``) on the card
+    against its plain twin."""
+    from repro_torch.kernels.rbla_agg import (flora_stack_group,
+                                              flora_stack_group_ref)
+    k = len(kw["xs"])
+
+    def call():
+        return flora_stack_group(**kw)
+
+    def plain():
+        return flora_stack_group_ref(
+            kw["xs"], kw["contribs"], kw["prevs"], cols=kw["cols"],
+            caps=[kw["cap"]] * k, scales=kw["scales"], weights=kw["weights"],
+            prev_weight=kw["prev_weight"], out_dtypes=[
+                x.dtype for x in kw["xs"]])
+    return _check_stack_group(
+        "flora_stack", label, call, plain, kw["xs"], kw["contribs"],
+        kw["cols"], [kw["cap"]] * k, kw["weights"].numel(),
+        {"cap": kw["cap"]})
+
+
+def check_stack_group_case(label, plan, xs, prevs, w):
+    """One packed_stack_group call -- the unit of row 5: a flora plan's
+    stacking round -- on the card against its plain twin."""
+    from repro_torch.kernels.rbla_agg import (packed_stack_group,
+                                              packed_stack_group_ref)
+
+    def call():
+        return packed_stack_group(plan, xs, prevs, w)
+
+    def plain():
+        return packed_stack_group_ref(plan, xs, prevs, w)
+    return _check_stack_group(
+        "packed_stack", label, call, plain, xs, plan.contribs, plan.cols,
+        plan.caps, w.numel(), {"caps": sorted(set(plan.caps))})
 
 
 def _stack_bytes(table, x):
@@ -991,39 +1026,66 @@ def check_axpy_group_case(label, segs):
     return case
 
 
-def _flora_plan_layouts(r_max=64, cap=512):
-    """The packed_stack buckets of a main-path flora round (the staircase
-    cohort at r_max storage, a global of live rank r_max at cap storage):
-    the real plan's copy lists and tables, with inputs of its shapes."""
+def _flora_plan(r_max=64, cap=512):
+    """The stacking round of a main-path flora plan (the staircase cohort
+    at r_max storage, a global of live rank r_max at cap storage): the
+    real plan's ``StackPlan`` and its inputs on the card, fp32."""
     import torch
     from repro_torch.core import plan as tplan
     from repro_torch.core.strategy import get_strategy, stack_trees
-    from repro_torch.models.paper_nets import PAPER_MODELS
-    ranks = (6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
-    specs = PAPER_MODELS["mlp"]().lora_specs
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def pair(fo, fi, storage, rank):
         return {"A": torch.randn(storage, fi, generator=gen, device="cuda"),
                 "B": torch.randn(fo, storage, generator=gen, device="cuda"),
                 "rank": torch.tensor(rank, dtype=torch.int32, device="cuda")}
-    clients = [{k: pair(fo, fi, r_max, r) for k, (fo, fi) in specs.items()}
-               for r in ranks]
-    prev = {k: pair(fo, fi, cap, r_max) for k, (fo, fi) in specs.items()}
+    clients = [{k: pair(fo, fi, r_max, r) for k, fo, fi in MLP_PAIRS}
+               for r in STAIRCASE]
+    prev = {k: pair(fo, fi, cap, r_max) for k, fo, fi in MLP_PAIRS}
+    stacked = stack_trees(clients)
     round_ = get_strategy("flora").with_options(stack_r_cap=cap).plan(
-        None, tplan.build_cohort_spec(stack_trees(clients), kind="kernel",
-                                      r_max=r_max, prev_tree=prev))
-    return round_.stack_layouts
+        None, tplan.build_cohort_spec(stacked, kind="kernel", r_max=r_max,
+                                      prev_tree=prev))
+    xs = [stacked[k][side] for k, side in
+          ((MLP_PAIRS[pi][0], side) for pi, side in round_.stack_sides)]
+    prevs = [prev[MLP_PAIRS[pi][0]][side] for pi, side in round_.stack_sides]
+    w = torch.rand(len(STAIRCASE), generator=gen, device="cuda") + 0.5
+    return round_.stack_plan, xs, prevs, w
 
 
-def _stack_inputs(lay, n, gen):
-    import torch
-    n_scales = lay["table"].n_scales
-    d = lay["width"]
-    x = torch.randn(n, lay["r_in"], d, generator=gen, device="cuda")
-    prev = torch.randn(lay["r_prev"], d, generator=gen, device="cuda")
-    scales = torch.rand(n_scales, generator=gen, device="cuda") + 0.5
-    return x, scales, prev
+def _bucket_copies(plan):
+    """``packed_stack``'s copy-list form of a stack plan's round: segments
+    of one row width share a bucket, their rank rows (B's columns) one
+    after another; scale 0 is 1 (A rows), then one a B contributor.
+    Returns the buckets (width, copy lists, rows) and the scale count."""
+    buckets, n_scales = {}, 1
+    for i, (shape, col, cap, con) in enumerate(zip(
+            plan.shapes, plan.cols, plan.caps, plan.contribs)):
+        width, r_in = (shape[-2], shape[-1]) if col else (shape[-1],
+                                                          shape[-2])
+        pshape = plan.prev_shapes[i]
+        r_prev = 0 if pshape is None else (pshape[-1] if col else pshape[-2])
+        b = buckets.setdefault(width, dict(width=width, copies_x=[],
+                                           copies_prev=[], r_in=0, r_prev=0,
+                                           out_rows=0))
+        layers = math.prod(shape[1:-2])
+        first = n_scales
+        n_scales += len(con) if col else 0
+        for layer in range(layers):
+            dst = b["out_rows"] + layer * cap
+            for k, (src, rows) in enumerate(con):
+                si = first + k if col else 0
+                if src < 0:
+                    b["copies_prev"].append((b["r_prev"] + layer * r_prev,
+                                             dst, rows, si))
+                else:
+                    b["copies_x"].append((src, b["r_in"] + layer * r_in, dst,
+                                          rows, si))
+                dst += rows
+        b["out_rows"] += layers * cap
+        b["r_in"] += layers * r_in
+        b["r_prev"] += layers * r_prev
+    return list(buckets.values()), n_scales
 
 
 def phase_kernels() -> dict:
@@ -1092,14 +1154,46 @@ def phase_kernels() -> dict:
     robust_rounds = [check_group_round("packed_robust", round_kw, m)
                      for m in ROBUST_MODES]
 
-    from repro_torch.kernels.rbla_agg import stack_table
+    from repro_torch.kernels.rbla_agg import stack_plan, stack_table
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    # the unit of row 5: one grouped call of a flora plan's stacking round
+    # (6 segments), fp32 and bf16; and 10 contributors x 200 rank rows into
+    # a 2048-row cap at width 4096, an A by rank row and a B by rank column
+    plan, xs, prevs, w = _flora_plan()
+    stack_rounds = [check_stack_group_case("plan round, one grouped call",
+                                           plan, xs, prevs, w)]
+    bf = [x.to(bf16) for x in xs]
+    stack_rounds.append(check_stack_group_case(
+        "plan round, bf16", stack_plan(
+            plan.shapes, plan.contribs, cap=plan.caps, dtypes=[bf16] * 6,
+            cols=plan.cols, prev_shapes=plan.prev_shapes,
+            prev_dtypes=[bf16] * 6, scales=plan.scales, eps=plan.eps),
+        bf, [p.to(bf16) for p in prevs], w))
+    con = tuple((i, 200) for i in range(N_CLIENTS))
+    big = [torch.randn(N_CLIENTS, 256, 4096, generator=gen, device="cuda"),
+           torch.randn(N_CLIENTS, 4096, 256, generator=gen, device="cuda")]
+    stack_large = check_stack_group_case("large", stack_plan(
+        [tuple(x.shape) for x in big], [con] * 2, cap=2048,
+        dtypes=[f32] * 2, cols=[False, True], scales=[None, "mass"]),
+        big, None, w)
+    del big
+    # the copy-list form: the same round as three bucket calls (the plan's
+    # round before PR 22), then one large bucket
+    buckets, n_scales = _bucket_copies(plan)
     stack = []
-    for lay in _flora_plan_layouts():
-        x, scales, prev = _stack_inputs(lay, N_CLIENTS, gen)
+    for b in buckets:
+        x = torch.randn(N_CLIENTS, b["r_in"], b["width"], generator=gen,
+                        device="cuda")
+        prev = torch.randn(b["r_prev"], b["width"], generator=gen,
+                           device="cuda")
+        scales = torch.rand(n_scales, generator=gen, device="cuda") + 0.5
+        table = stack_table(b["copies_x"], b["copies_prev"],
+                            out_rows=b["out_rows"], n=N_CLIENTS,
+                            r_in=b["r_in"], r_prev=b["r_prev"],
+                            n_scales=n_scales)
         stack.append(check_stack_case(
-            f"plan bucket {lay['width']}", x, scales, prev, lay["copies_x"],
-            lay["copies_prev"], lay["out_rows"], lay["table"]))
+            f"plan bucket {b['width']}", x, scales, prev, b["copies_x"],
+            b["copies_prev"], b["out_rows"], table))
     # large: a prev block, then 200 rows of each client; the tail is zero
     big_x = [(i, 0, 1024 + 200 * i, 200, 1 + i) for i in range(N_CLIENTS)]
     big_prev = [(0, 0, 1024, 0)]
@@ -1197,8 +1291,10 @@ def phase_kernels() -> dict:
     # one round of each robust method: one grouped call each
     rb = main_path_sum(robust_rounds, lambda c, key: c["mode"] == key,
                        {m: 1 for m in ROBUST_MODES})
-    # one stacking round: the plan's three buckets
-    st = main_path_sum(stack, lambda c, key: c["case"] == key,
+    # one stacking round: one grouped call (fp32); in its copy-list form,
+    # three bucket calls (the unit of this row before PR 22)
+    st = main_path_sum(stack_rounds[:1], lambda c, key: True, {"round": 1})
+    sb = main_path_sum(stack, lambda c, key: c["case"] == key,
                        {f"plan bucket {w}": 1 for w in (784, 200, 10)})
     # one per-pair flora round through the one-segment form: every A and
     # transposed B side, fp32 (the parent's unit of this row)
@@ -1217,7 +1313,8 @@ def phase_kernels() -> dict:
                              ("rbla_agg", rbla + pair_rounds + [rbla_large],
                               prk),
                              ("packed_robust", robust + robust_rounds, rb),
-                             ("packed_stack", stack, st),
+                             ("packed_stack", stack_rounds + [stack_large]
+                              + stack, st),
                              ("flora_stack", flora + flora_rounds
                               + flora_large, pfl),
                              ("axpy_fold", axpy + group, ax)):
@@ -1231,6 +1328,17 @@ def phase_kernels() -> dict:
     summary["packed_agg"].update(
         per="one grouped call of a main-path rbla round (6 segments)",
         back_to_back_ms=pk["back_to_back_ms"], graph_ms=pk["graph_ms"])
+    summary["packed_stack"].update(
+        per="one grouped call of a flora plan's stacking round (6 segments)",
+        back_to_back_ms=st["back_to_back_ms"], graph_ms=st["graph_ms"],
+        device_ms=stack_rounds[0]["device_ms"],
+        copy_list={"per": "the same round as three copy-list bucket calls",
+                   "ms": sb["ms"], "plain_ms": sb["plain_ms"],
+                   "bound_ms": sb["bound_ms"]},
+        large_fp32={"device_ms": stack_large["device_ms"],
+                    "bound_ms": stack_large["bound_ms"],
+                    "device_share_of_bound":
+                        stack_large["device_share_of_bound"]})
     for name, row, side_sum, large in (
             ("rbla_agg", prk, rk, [rbla_large]),
             ("flora_stack", pfl, fl, flora_large)):
@@ -1293,10 +1401,12 @@ def phase_robust_large() -> list:
 
 
 # -------------------------------------------------------------- agg rounds --
-#: the rounds agg_rounds times: strategy, then the cohort's upload codec
+#: the rounds agg_rounds times: strategy, then the cohort's upload codec;
+#: flora stacks at cap 512 under a global at storage 512 and live rank 64
 AGG_ROUNDS = (("rbla", None), ("fedavg", None), ("rbla_norm", None),
               ("rbla_clipped", None), ("rbla_trimmed", None),
-              ("rbla_median", None), ("rbla", "int8"), ("rbla", "mixed"))
+              ("rbla_median", None), ("rbla", "int8"), ("rbla", "mixed"),
+              ("flora", None))
 
 
 def _mlp_cohort(seed):
@@ -1319,6 +1429,21 @@ def _mlp_cohort(seed):
                                      device="cuda") + 0.5
 
 
+def _flora_prev(prev, cap=512):
+    """``prev`` as a flora global: each pair at storage ``cap``, its live
+    rank unchanged (zero rank rows beyond)."""
+    import torch
+
+    def widen(pair):
+        extra = cap - pair["A"].shape[0]
+        return {"A": torch.cat([pair["A"], torch.zeros(
+                    extra, pair["A"].shape[1], device="cuda")]),
+                "B": torch.cat([pair["B"], torch.zeros(
+                    pair["B"].shape[0], extra, device="cuda")], 1),
+                "rank": pair["rank"]}
+    return {k: widen(p) for k, p in prev.items()}
+
+
 def phase_agg_rounds() -> list:
     """``CompiledRound.__call__`` on the main-path cohort for each of
     AGG_ROUNDS: wall ms, back-to-back ms, graph ms where the round can be
@@ -1329,12 +1454,15 @@ def phase_agg_rounds() -> list:
     import torch
     from repro_torch.core import codec, plan, strategy
     from repro_torch.kernels import runtime
-    clients, prev, w = _mlp_cohort(11)
+    clients, mlp_prev, w = _mlp_cohort(11)
     ranks = torch.tensor(STAIRCASE, dtype=torch.int32, device="cuda")
     stacked = strategy.stack_trees(clients)
     rows = []
     for name, wire in AGG_ROUNDS:
-        strat = strategy.get_strategy(name).with_options()
+        flora = name == "flora"
+        strat = strategy.get_strategy(name).with_options(
+            **(dict(stack_r_cap=512) if flora else {}))
+        prev = _flora_prev(mlp_prev) if flora else mlp_prev
         if wire is None:
             cohort, codecs = stacked, None
         else:
@@ -1575,21 +1703,43 @@ def _against_plain(cfg_kw, hist, last, phase):
 FLORA_CFG = dict(MAIN_CFG, method="flora", stack_r_cap=512, rounds=3)
 
 
+def _stack_round_events(rec) -> tuple[dict, dict]:
+    """The device kernels and copies of one planned stacking round: the
+    recorded last flora round's cohort through its ``CompiledRound``."""
+    import torch
+    from repro_torch.core import plan as tplan
+    from repro_torch.core.strategy import stack_trees
+    prev_state, updates, _ = rec.last
+    stacked = stack_trees([u.adapters for u in updates])
+    w = torch.tensor([float(u.n_examples) for u in updates], device="cuda")
+    round_ = rec.strategy.plan(None, tplan.build_cohort_spec(
+        stacked, kind="kernel", r_max=MAIN_CFG["r_max"],
+        prev_tree=prev_state.adapters))
+    return _device_events(lambda: round_(stacked, w, prev_state.adapters))
+
+
 def phase_flora():
     hist, launches, plain, last, secs, rec = drive(FLORA_CFG)
     per_round = [(r["launches"].get("packed_stack", 0), r["fallback_pairs"])
                  for r in rec.rounds]
     live = sorted({int(p["rank"]) for p in last[2].adapters.values()})
+    # round 3 stacks: one planned stacking round's device events
+    kernels, copies = _stack_round_events(rec)
     emit({"phase": "flora", "config": FLORA_CFG, "test_acc": hist.test_acc,
           "round_time_s": hist.round_time_s, "seconds": secs,
           "launches": launches, "plain_calls": plain,
-          "rounds": rec.rounds, "live_rank": live})
-    if per_round != [(3, 0), (0, 3), (3, 0)]:
+          "rounds": rec.rounds, "live_rank": live,
+          "stack_round_kernels": kernels, "stack_round_copies": copies})
+    if per_round != [(1, 0), (0, 3), (1, 0)]:
         raise AssertionError(f"flora rounds (packed_stack launches, "
                              f"re-projected pairs): {per_round}")
-    if launches["packed_stack"] != 6 or any(plain.values()) or live != [416]:
+    if launches["packed_stack"] != 2 or any(plain.values()) or live != [416]:
         raise AssertionError(f"flora: launches {launches}, plain {plain}, "
                              f"live rank {live}")
+    if sum(c for c, _ in kernels.values()) != 1 or copies:
+        raise AssertionError(f"flora: a stacking round ran {kernels}, "
+                             f"{copies}: one grouped kernel and nothing "
+                             "else expected")
     _leaves_on_card(last[2].adapters)
     _against_plain(FLORA_CFG, hist, last, "flora")
 
@@ -1691,10 +1841,10 @@ COPIES = ("DtoH", "HtoD", "DtoD", "HtoH", "Memset")
 def _device_events(fn, tries: int = 3) -> tuple[dict, dict]:
     """``_device_kernels`` of ``fn`` split into kernels and memory copies,
     profiled again (up to ``tries`` times) where the profiler lost records
-    (a count a call that is not whole)."""
+    (no event at all, or a count a call that is not whole)."""
     for _ in range(tries):
         events = _device_kernels(fn)
-        if all(float(c).is_integer() for c, _ in events.values()):
+        if events and all(float(c).is_integer() for c, _ in events.values()):
             break
     copies = {k: v for k, v in events.items() if k in COPIES}
     return {k: v for k, v in events.items() if k not in copies}, copies
@@ -1767,14 +1917,7 @@ def phase_per_pair_rounds() -> list:
     clients, prev, w = _mlp_cohort(12)
     ranks = torch.tensor(STAIRCASE, dtype=torch.int32, device="cuda")
     stacked = strategy.stack_trees(clients)
-
-    def widen(pair):        # a flora global: storage 512, live rank 64
-        return {"A": torch.cat([pair["A"], torch.zeros(
-                    448, pair["A"].shape[1], device="cuda")]),
-                "B": torch.cat([pair["B"], torch.zeros(
-                    pair["B"].shape[0], 448, device="cuda")], 1),
-                "rank": pair["rank"]}
-    flora_prev = {k: widen(p) for k, p in prev.items()}
+    flora_prev = _flora_prev(prev)
     rows = []
     for name, opts in PER_PAIR_ROUNDS:
         strat = strategy.get_strategy(name).with_options(**opts)
@@ -2180,7 +2323,8 @@ def _lora_times(kernel, plain, x, w, split=False) -> dict:
              "back_to_back_ms": time_ms_back_to_back(kernel),
              "graph_ms": time_ms_graph(kernel)}
     if split:
-        times["device_kernels"] = _device_kernels(kernel)
+        kernels, copies = _device_events(kernel)
+        times["device_kernels"] = {**kernels, **copies}
     return times
 
 
@@ -2230,7 +2374,8 @@ def check_batched_case(label, m, k, n, slots, r_max, dtype, seed,
 
 
 def check_single_case(label, m, k, n, r, dtype, seed):
-    """lora_matmul on the card against lora_matmul_ref."""
+    """lora_matmul on the card against lora_matmul_ref, with the device
+    kernels of one call (``torch.profiler``)."""
     import torch
     from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2248,7 +2393,13 @@ def check_single_case(label, m, k, n, r, dtype, seed):
         return lora_matmul_ref(x, w, a, b, scale)
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    times = _lora_times(kernel, plain, x, w)
+    times = _lora_times(kernel, plain, x, w, split=True)
+    dk = times["device_kernels"]
+    if ENFORCE_DESIGN and dk and (
+            set(dk) != {"down_gemm_kernel", "gemm_kernel"}
+            or any(v[0] != 1 for v in dk.values())):
+        raise AssertionError(f"lora_matmul {label} runs {dk}, not its two "
+                             "kernels once each")
     s = x.element_size()
     bytes_moved = (m * k + k * n + r * k + n * r + m * n) * s + 4
     flops = 2 * m * n * k + 2 * m * r * (k + n)
@@ -3128,6 +3279,8 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "ok": True})
     rounds = phase_agg_rounds()
     summary["packed_agg"]["round_ms"] = rounds[0]["ms"]
+    summary["packed_stack"]["round_ms"] = next(
+        r["ms"] for r in rounds if r["strategy"] == "flora")
     emit({"phase": "agg_rounds", "ok": True})
     pair_rounds = {r["strategy"]: r for r in phase_per_pair_rounds()}
     summary["rbla_agg"]["round_ms"] = pair_rounds["rbla"]["ms"]

@@ -18,11 +18,12 @@ turns a round into
    on the ``ref`` backend.  Nothing is packed,
    transposed, stacked or cast around it.  Encoded (int8/bf16) cohorts
    hand each client's wire-dtype leaves and int8 scales to the same call,
-   which dequantises on the load.  flora's stack plan still packs
-   ``(n_clients, rows, width)`` buffers bucketed by (row width, dtype),
-   one ``packed_stack`` launch per bucket; svd buckets pairs by their full
-   geometry and runs one batched factored SVD per bucket
-   (``repro_torch.core.lowrank``).
+   which dequantises on the load.  flora's stack plan is one
+   ``packed_stack_group`` call over the same segments (every pair side
+   within the cap, prev first and the live clients at host-known
+   offsets), each output written at its cap in its final layout and
+   dtype; svd buckets pairs by their full geometry and runs one batched
+   factored SVD per bucket (``repro_torch.core.lowrank``).
 3. **Cache.**  Plans are cached on the strategy instance keyed by the
    :class:`CohortSpec` (tree structure, shapes, dtypes, rank multiset,
    codec mix, backend, device) and the strategy's ``plan_knobs`` in a
@@ -43,8 +44,8 @@ import torch
 
 from repro_torch.kernels.rbla_agg import (packed_agg_group_ref,
                                           packed_robust_group_ref,
-                                          packed_stack, packed_stack_ref,
-                                          stack_table)
+                                          packed_stack_group,
+                                          packed_stack_group_ref, stack_plan)
 from repro_torch.kernels.rbla_agg.ops import grouped_launch
 
 from .aggregation import _EPS
@@ -105,6 +106,8 @@ class PairMeta:
     prev_b_shape: tuple | None = None
     prev_rank_shape: tuple | None = None
     prev_ranks: tuple | None = None
+    prev_a_dtype: torch.dtype | None = None
+    prev_b_dtype: torch.dtype | None = None
 
     def rank_values(self) -> np.ndarray:
         return np.asarray(self.ranks, np.int64).reshape(self.rank_shape)
@@ -161,7 +164,9 @@ def build_cohort_spec(stacked_tree: PyTree, *, kind: str,
             meta.update(prev_a_shape=tuple(pp["A"].shape),
                         prev_b_shape=tuple(pp["B"].shape),
                         prev_rank_shape=tuple(prk.shape),
-                        prev_ranks=tuple(int(v) for v in prk.ravel()))
+                        prev_ranks=tuple(int(v) for v in prk.ravel()),
+                        prev_a_dtype=pp["A"].dtype,
+                        prev_b_dtype=pp["B"].dtype)
         pairs.append(PairMeta(**meta))
     if not pairs:
         raise PlanUnavailable("no LoRA pairs in the cohort tree")
@@ -224,7 +229,9 @@ def build_encoded_cohort_spec(client_trees: Sequence, codecs, *, kind: str,
             meta.update(prev_a_shape=tuple(pp["A"].shape),
                         prev_b_shape=tuple(pp["B"].shape),
                         prev_rank_shape=tuple(prk.shape),
-                        prev_ranks=tuple(int(v) for v in prk.ravel()))
+                        prev_ranks=tuple(int(v) for v in prk.ravel()),
+                        prev_a_dtype=pp["A"].dtype,
+                        prev_b_dtype=pp["B"].dtype)
         pairs.append(PairMeta(**meta))
     if not pairs:
         raise PlanUnavailable("no LoRA pairs in the cohort trees")
@@ -240,8 +247,7 @@ def build_encoded_cohort_spec(client_trees: Sequence, codecs, *, kind: str,
 @dataclasses.dataclass
 class Slot:
     """One pair side's home in a round: its rank rows start at column
-    ``offset`` of the owner masks (mean plans) or of its stack bucket's
-    output (flora's stack plan)."""
+    ``offset`` of the owner masks."""
     pair_idx: int
     side: str                  # "A" | "B"
     lead: tuple                # leading (layer/expert) dims
@@ -250,15 +256,6 @@ class Slot:
     width: int
     dtype: torch.dtype
     offset: int = 0            # its first rank row in the round or bucket
-
-
-@dataclasses.dataclass
-class Bucket:
-    """flora's stack plan: all slots sharing (row width, dtype), one
-    ``packed_stack`` launch per round."""
-    width: int
-    dtype: torch.dtype
-    slots: list
 
 
 def _side_geometry(meta: PairMeta, side: str):
@@ -292,23 +289,6 @@ def pair_side_rows(x: torch.Tensor, side: str) -> torch.Tensor:
     passes through, B ``(..., fan_out, r)`` rides transposed to
     ``(..., r, fan_out)``.  Applying it twice restores the leaf layout."""
     return x.transpose(-1, -2) if side == "B" else x
-
-
-def _pack_side(x: torch.Tensor, slot: Slot) -> torch.Tensor:
-    """(n, *lead, ...) leaf -> (n, rows, width) f32, rank axis leading."""
-    return pair_side_rows(x, slot.side).reshape(
-        x.shape[0], slot.rows, slot.width).float()
-
-
-def _pack_prev_side(x: torch.Tensor, slot: Slot) -> torch.Tensor:
-    """Like :func:`_pack_side` for an unstacked (server-state) leaf."""
-    return pair_side_rows(x, slot.side).reshape(slot.rows, slot.width).float()
-
-
-def _gather(parts: list, dim: int) -> torch.Tensor:
-    """One contiguous buffer of ``parts`` joined along ``dim``."""
-    return torch.cat(parts, dim=dim) if len(parts) > 1 else \
-        parts[0].contiguous()
 
 
 # ------------------------------------------------------- tree (re)building --
@@ -347,6 +327,18 @@ def _ab_list(tree) -> list:
     return [{"A": p["A"], "B": p["B"]} for _, p in _walk_pairs(tree)]
 
 
+def _pairs_at(tree, paths) -> list:
+    """The pairs of ``tree`` at ``paths``, in that order: a plan walks the
+    first tree it sees once (its cache key fixes the structure)."""
+    out = []
+    for path in paths:
+        node = tree
+        for k in path:
+            node = node[k]
+        out.append(node)
+    return out
+
+
 # ------------------------------------------------------------ the product --
 class CompiledRound:
     """One aggregation round for a fixed :class:`CohortSpec`.
@@ -354,8 +346,9 @@ class CompiledRound:
     ``__call__(stacked_tree, weights, prev_tree=None)`` runs the round.
     ``kind`` is "packed" (a planned round) or "eager" (the per-leaf path);
     ``n_kernel_launches`` is the packed plan's device computations per
-    round (1 for the mean and robust families; #buckets for the stack and
-    svd plans, plus one per pair re-projected by SVD);
+    round (1 for the mean and robust families; for the stack plan 1 if
+    any pair stacks, plus one per pair re-projected by SVD; #buckets for
+    the svd plan);
     ``n_fallback_pairs`` counts the pairs a packed plan still routes
     through reference pair math (flora's over-cap re-projection).
     """
@@ -454,15 +447,7 @@ def _build_mean_round(strategy, spec: CohortSpec,
     rebuild, paths = [None], [None]
 
     def pairs_of(tree) -> list:
-        """The tree's pairs in walk order, by the paths of the first tree
-        this plan saw (the cache key fixes the structure)."""
-        out = []
-        for path in paths[0]:
-            node = tree
-            for k in path:
-                node = node[k]
-            out.append(node)
-        return out
+        return _pairs_at(tree, paths[0])
 
     def execute(cohort, w, prev_tree):
         if rebuild[0] is None:
@@ -496,11 +481,17 @@ def _build_mean_round(strategy, spec: CohortSpec,
 
 # ------------------------------------------------------ packed stack plans --
 def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
-    """flora's packed plan: the stacking round is copies and scales at
-    host-known offsets, one ``packed_stack`` launch per (width, dtype)
-    bucket (the plain version on the ``ref`` backend).  Pairs whose
-    stacked rank exceeds the cap are re-projected by SVD through the
-    strategy's pair math in the same round."""
+    """flora's packed plan: every pair side within the cap is one segment
+    of one ``packed_stack_group`` call, the cohort leaf and prev read where
+    they lie and the output written at the cap in its final layout and
+    dtype (A by rank row, B by rank column with flora's mass scales
+    computed in the kernel): one launch a round on the card, the plain
+    twin on the ``ref`` backend.  Contributors (prev first, then the live
+    clients by index) and their offsets come from the host-known ranks,
+    so the segments are fixed here and a call fills in only the pointers
+    and reads no rank.  Pairs whose stacked rank exceeds the cap are
+    re-projected by SVD through the strategy's pair math in the same
+    round."""
     n = spec.n_clients
 
     # ---- static per-pair stacking geometry ------------------------------
@@ -518,18 +509,16 @@ def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
         _, r_st_a, _, _, _ = _side_geometry(meta, "A")
         cap = strategy.resolve_cap(spec.r_max, r_storage=r_st_a)
         strategy._validate_cap(cap, ranks, spec.r_max)
-        prev_rank = prev_r_st = 0
+        prev_rank = 0
         if spec.has_prev and meta.prev_ranks is not None:
             prev_rank = int(np.max(meta.prev_rank_values()))
-            prev_r_st = int(meta.prev_a_shape[-2])
-        live = [i for i in range(n) if int(ranks[i]) > 0]
-        seg_ranks = ([prev_rank] if prev_rank else []) \
-            + [int(ranks[i]) for i in live]
-        r_total = int(sum(seg_ranks))
+        con = ((((-1, prev_rank),) if prev_rank else ())
+               + tuple((i, int(r)) for i, r in enumerate(ranks) if r > 0))
+        if not con:
+            raise PlanUnavailable("flora: empty cohort (all ranks are zero)")
+        r_total = sum(r for _, r in con)
         plans.append(dict(ranks=ranks, cap=cap, prev_rank=prev_rank,
-                          prev_r_st=prev_r_st, live=live,
-                          seg_ranks=seg_ranks, r_total=r_total,
-                          packable=r_total <= cap))
+                          con=con, r_total=r_total, packable=r_total <= cap))
 
     def capped_r_out(p, meta):        # _stack_pair's over-cap branch
         base = spec.r_max if spec.r_max is not None else meta.a_shape[-2]
@@ -539,123 +528,63 @@ def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
         spec, [p["r_total"] if p["packable"] else capped_r_out(p, m)
                for p, m in zip(plans, spec.pairs)])
 
-    # ---- bucket the packable pairs; out layout = lead x cap per slot ----
-    by_key: dict = {}
-    for pi, meta in enumerate(spec.pairs):
-        if not plans[pi]["packable"]:
+    # ---- the round's segments: each packable pair's A, then its B -------
+    sides, seg = [], {k: [] for k in ("shapes", "contribs", "prev_shapes",
+                                      "prev_dtypes", "cols", "caps",
+                                      "dtypes", "scales")}
+    for pi, (meta, p) in enumerate(zip(spec.pairs, plans)):
+        if not p["packable"]:
             continue
         for side in ("A", "B"):
-            lead, r_st, rows, width, dtype = _side_geometry(meta, side)
-            b = by_key.setdefault((width, dtype),
-                                  Bucket(width=width, dtype=dtype, slots=[]))
-            b.slots.append(Slot(pair_idx=pi, side=side, lead=lead,
-                                r_st=r_st, rows=rows, width=width,
-                                dtype=dtype))
-    buckets = list(by_key.values())
-
-    # scale vector: entry 0 is 1.0 (A rows pass verbatim), then one entry
-    # per (packable pair, segment) for the B columns
-    scale_slots = [(pi, j) for pi, p in enumerate(plans) if p["packable"]
-                   for j in range(len(p["seg_ranks"]))]
-    scale_index = {ps: 1 + k for k, ps in enumerate(scale_slots)}
-    n_scales = 1 + len(scale_slots)
-
-    layouts = []
-    for b in buckets:
-        in_off = prev_off = out_off = 0
-        copies_x: list = []
-        copies_prev: list = []
-        for s in b.slots:
-            p = plans[s.pair_idx]
-            nlayers = int(np.prod(s.lead, dtype=np.int64)) if s.lead else 1
-            for layer in range(nlayers):
-                dst = out_off + layer * p["cap"]
-                seg = 0
-                if p["prev_rank"]:
-                    si = scale_index[(s.pair_idx, seg)] if s.side == "B" \
-                        else 0
-                    copies_prev.append((prev_off + layer * p["prev_r_st"],
-                                        dst, p["prev_rank"], si))
-                    dst += p["prev_rank"]
-                    seg += 1
-                for i in p["live"]:
-                    r_i = int(p["ranks"][i])
-                    si = scale_index[(s.pair_idx, seg)] if s.side == "B" \
-                        else 0
-                    copies_x.append((i, in_off + layer * s.r_st, dst, r_i,
-                                     si))
-                    dst += r_i
-                    seg += 1
-            s.offset = out_off
-            out_off += nlayers * p["cap"]
-            in_off += s.rows
-            prev_off += nlayers * p["prev_r_st"]
-        table = None
-        if spec.kind == "kernel":
-            table = stack_table(copies_x, copies_prev, out_rows=out_off,
-                                n=n, r_in=in_off, r_prev=prev_off,
-                                n_scales=n_scales)
-        layouts.append(dict(width=b.width, out_rows=out_off,
-                            copies_x=tuple(copies_x),
-                            copies_prev=tuple(copies_prev), r_in=in_off,
-                            r_prev=prev_off, table=table))
-
+            a = side == "A"
+            sides.append((pi, side))
+            seg["shapes"].append(meta.a_shape if a else meta.b_shape)
+            seg["dtypes"].append(meta.a_dtype if a else meta.b_dtype)
+            seg["contribs"].append(p["con"])
+            seg["cols"].append(not a)
+            seg["caps"].append(p["cap"])
+            seg["scales"].append(None if a else "mass")
+            with_prev = bool(p["prev_rank"])
+            seg["prev_shapes"].append(
+                (meta.prev_a_shape if a else meta.prev_b_shape)
+                if with_prev else None)
+            seg["prev_dtypes"].append(
+                (meta.prev_a_dtype if a else meta.prev_b_dtype)
+                if with_prev else None)
+    stack = None
+    if sides:
+        try:            # the geometry is checked here, once
+            stack = stack_plan(
+                seg["shapes"], seg["contribs"], cap=seg["caps"],
+                dtypes=seg["dtypes"], cols=seg["cols"],
+                prev_shapes=seg["prev_shapes"],
+                prev_dtypes=seg["prev_dtypes"], scales=seg["scales"],
+                prev_weight=float(strategy.prev_weight), eps=_EPS)
+        except (ValueError, TypeError) as e:
+            raise PlanUnavailable(str(e)) from e
+    combine = (functools.partial(packed_stack_group, backend="kernel")
+               if spec.kind == "kernel" else packed_stack_group_ref)
     fallback = [pi for pi, p in enumerate(plans) if not p["packable"]]
-    seg_ranks = [torch.tensor(p["seg_ranks"], dtype=torch.float32,
-                              device=spec.device) if p["packable"] else None
-                 for p in plans]
-    rebuild = [None]
+    rebuild, paths = [None], [None]
 
     def execute(stacked_tree, w, prev_tree):
         if rebuild[0] is None:
             rebuild[0] = _make_rebuilder(stacked_tree)
-        ab = _ab_list(stacked_tree)
-        prev_ab = _ab_list(prev_tree) if spec.has_prev else None
-        # per-(pair, segment) B-column scales: mhat_j * r_out / r_j
-        mean_w = w.mean()
-        scales = [torch.ones(1, device=w.device)]
-        for pi, p in enumerate(plans):
-            if not p["packable"]:
-                continue
-            masses = ([strategy.prev_weight * mean_w] if p["prev_rank"]
-                      else []) + [w[i] for i in p["live"]]
-            m = torch.stack(masses)
-            mhat = m / (m.sum() + _EPS)
-            scales.append(mhat * float(p["r_total"]) / seg_ranks[pi])
-        scales = torch.cat(scales)
-
+            paths[0] = [p for p, _ in _walk_pairs(stacked_tree)]
+        ab = _pairs_at(stacked_tree, paths[0])
+        prev_ab = _pairs_at(prev_tree, paths[0]) if spec.has_prev else None
         results: dict = {}
-        for b, lay in zip(buckets, layouts):
-            x = _gather([_pack_side(ab[s.pair_idx][s.side], s)
-                         for s in b.slots], dim=1)
-            prev = None
-            if lay["copies_prev"]:
-                prev = _gather([
-                    _pack_prev_side(prev_ab[s.pair_idx][s.side],
-                                    dataclasses.replace(
-                                        s, r_st=plans[s.pair_idx]["prev_r_st"],
-                                        rows=(s.rows // s.r_st)
-                                        * plans[s.pair_idx]["prev_r_st"]))
-                    for s in b.slots if plans[s.pair_idx]["prev_r_st"]],
-                    dim=0)
-            kw = dict(copies_x=lay["copies_x"],
-                      copies_prev=lay["copies_prev"],
-                      out_rows=lay["out_rows"])
-            if spec.kind == "kernel":
-                out = packed_stack(x, scales, prev, table=lay["table"],
-                                   backend="kernel", **kw)
-            else:
-                out = packed_stack_ref(x, scales, prev, **kw)
-            for s in b.slots:
-                cap = plans[s.pair_idx]["cap"]
-                y = out[s.offset:s.offset + (s.rows // s.r_st) * cap]
-                y = pair_side_rows(y.reshape(s.lead + (cap, s.width)),
-                                   s.side)
-                results[(s.pair_idx, s.side)] = y.to(s.dtype).contiguous()
+        if stack is not None:
+            outs = combine(stack, [ab[pi][side] for pi, side in sides],
+                           [None if ps is None else prev_ab[pi][side]
+                            for (pi, side), ps in zip(sides,
+                                                      stack.prev_shapes)],
+                           w)
+            results.update(zip(sides, outs))
         for pi in fallback:          # over the cap: SVD re-projection
             p = plans[pi]
             pA = pB = None
-            if spec.has_prev and p["prev_rank"]:
+            if p["prev_rank"]:
                 pA, pB = prev_ab[pi]["A"], prev_ab[pi]["B"]
             A_out, B_out, _ = strategy._stack_pair(
                 ab[pi]["A"], ab[pi]["B"], p["ranks"], w, pA, pB,
@@ -667,9 +596,11 @@ def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
                            for pi in range(len(spec.pairs))])
 
     round_ = CompiledRound(strategy, spec, "packed", execute,
-                           n_kernel_launches=len(buckets) + len(fallback),
+                           n_kernel_launches=int(stack is not None)
+                           + len(fallback),
                            n_fallback_pairs=len(fallback))
-    round_.stack_layouts = layouts   # per bucket: copies, out_rows, table
+    round_.stack_plan = stack           # the segments, or None
+    round_.stack_sides = tuple(sides)   # each segment's (pair, side)
     return round_
 
 

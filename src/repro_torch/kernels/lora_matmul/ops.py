@@ -43,6 +43,8 @@ def _lib() -> ctypes.CDLL:
     lib.lora_matmul_single.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _L,
                                        _L, _L, _L, _P]
     lib.lora_matmul_single.restype = _I
+    lib.lora_matmul_single_scratch.argtypes = [_L, _L, _L, _L]
+    lib.lora_matmul_single_scratch.restype = _L
     return lib
 
 
@@ -78,15 +80,26 @@ def _check_shapes(name, k, w, a, b, b_rows_lead: bool) -> None:
 
 
 # -------------------------------------------------------------- single --
+@functools.lru_cache(maxsize=1024)
+def _scratch(index: int, m: int, k: int, n: int, r: int) -> int:
+    """The fp32 elements of the single kernel's scratch u on card
+    ``index`` (partial u's, one a split of K, each row padded to the
+    tail's rank chunk), asked of the library once per shape."""
+    with _on_device(index):
+        return int(_lib().lora_matmul_single_scratch(m, k, n, r))
+
+
 def _scale_on(scale, dev) -> torch.Tensor:
-    """``scale`` as one fp32 value on ``dev``; a device tensor stays there
-    (no host read)."""
+    """``scale`` as one fp32 value on ``dev``: a 0-d or one-element fp32
+    tensor there is passed as it is (no copy, no host read); another
+    device tensor is cast there, a number or a tensor elsewhere copied."""
     if isinstance(scale, torch.Tensor):
         if scale.numel() != 1:
             raise ValueError(f"lora_matmul: scale must be one value, got "
                              f"shape {tuple(scale.shape)}")
         if scale.device == dev:
-            return scale.reshape(1).to(torch.float32)
+            return (scale if scale.dtype == torch.float32
+                    else scale.to(torch.float32))
         scale = float(scale)
     return torch.full((1,), float(scale), dtype=torch.float32, device=dev)
 
@@ -104,13 +117,15 @@ def _lora_cuda(x, x2, w, a, b, scale):
     dev = x.device
     _check_operands("lora_matmul", x, w=w, a=a, b=b)
     s = _scale_on(scale, dev)
-    u = torch.empty((m, max(r, 1)), dtype=torch.float32, device=dev)
+    index = x.get_device()
+    u = (torch.empty(_scratch(index, m, k, n, r), dtype=torch.float32,
+                     device=dev) if r else None)
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    with _on_device(x.get_device()):
+    with _on_device(index):
         err = _lib().lora_matmul_single(
             x2.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-            s.data_ptr(), u.data_ptr(), y.data_ptr(), _CODES[x.dtype], m, k,
-            n, r, runtime.stream_handle(dev))
+            s.data_ptr(), None if u is None else u.data_ptr(), y.data_ptr(),
+            _CODES[x.dtype], m, k, n, r, runtime.stream_handle(dev))
     runtime.check_launch(err, "lora_matmul", _lib())
     runtime.LAUNCHES["lora_matmul"] += 1
     return y
@@ -121,7 +136,9 @@ def lora_matmul(x, w, a, b, scale, *, backend: str = "auto"):
 
     a: (r, K), b: (N, r), scale a scalar (a Python number or a one-element
     tensor; on the card a tensor on x's device is read there, never on
-    the host).  The result has x's dtype."""
+    the host).  The result has x's dtype.  On the card two launches: u =
+    scale x a^T, then x w with u b^T as more depth of the same
+    accumulators (csrc/lora_matmul.cu)."""
     k = x.shape[-1]
     _check_shapes("lora_matmul", k, w, a, b, b_rows_lead=False)
     lead, n = tuple(x.shape[:-1]), w.shape[-1]
@@ -134,9 +151,10 @@ def lora_matmul(x, w, a, b, scale, *, backend: str = "auto"):
 
 
 # ------------------------------------------------------- batched multi-adapter
-def resolve_impl(impl: str | None, device="cpu") -> str:
-    """The batched entry's ``impl`` for tensors on ``device``: ``"kernel"``
-    or ``"xla"`` (the plain segment lowering).  ``"auto"`` (or None) picks
+def resolve_impl(impl: str | None, device="cuda") -> str:
+    """The batched entry's ``impl`` for tensors on ``device`` (by default
+    the card, as every entry point of the port): ``"kernel"`` or
+    ``"xla"`` (the plain segment lowering).  ``"auto"`` (or None) picks
     the kernel on a CUDA device and the segment lowering on the CPU;
     ``"pallas"`` is an alias of ``"kernel"``."""
     kind = runtime.resolve_backend(_impl_backend(impl), device)
@@ -248,9 +266,9 @@ def lora_dense_apply(p, x, pair, alpha: float = 16.0,
                      backend: str = "auto"):
     """A dense layer with a LoRA pair through the fused kernel: ``p["w"]``
     is (fan_in, fan_out) as in the JAX package's ``models.common.dense``,
-    ``p["b"]`` an optional bias; the scale ``alpha / max(rank, 1)`` stays
-    on the pair's device."""
-    scale = alpha / pair["rank"].float().clamp(min=1.0)
+    ``p["b"]`` an optional bias; the scale ``alpha / max(rank, 1)`` is one
+    fp32 value made on the pair's device and read there by the kernel."""
+    scale = alpha / pair["rank"].clamp(min=1)
     y = lora_matmul(x, p["w"], pair["A"], pair["B"], scale, backend=backend)
     if "b" in p:
         y = y + p["b"]

@@ -30,7 +30,8 @@ from .ref import (ROBUST_MODES, axpy_fold_group_ref, axpy_fold_ref,
                   leaf_shape,
                   packed_agg_group_ref, packed_agg_ref,
                   packed_robust_group_ref, packed_robust_ref,
-                  packed_stack_ref, rbla_agg_group_ref, rbla_agg_ref)
+                  packed_stack_group_ref, packed_stack_ref,
+                  rbla_agg_group_ref, rbla_agg_ref)
 
 #: legacy method names -> the kernels' two normalisation modes
 _NORM_BY = {"rbla": "mask", "zeropad": "weight"}
@@ -757,7 +758,11 @@ def _stack_cuda(x, scales, prev, table: StackTable, name: str):
 def packed_stack(x, scales, prev=None, *, copies_x=(), copies_prev=(),
                  out_rows: int, table: StackTable | None = None,
                  backend: str = "auto"):
-    """Fused FLoRA stacking over a packed bucket (the flora plan's op).
+    """Fused FLoRA stacking over a packed bucket: the TPU kernel's own
+    copy-list interface (``packed_stack_pallas``), on the per-row table
+    kernel ``flora_stack_rows``.  The flora plan no longer calls it: its
+    round is one :func:`packed_stack_group` call on the leaves where they
+    lie.
 
     ``x``: (N, R_in, D); ``scales``: (S,); ``prev``: (R_prev, D) or None;
     ``copies_x`` entries ``(client, src_row, dst_row, rows, scale_idx)``
@@ -790,82 +795,107 @@ def packed_stack(x, scales, prev=None, *, copies_x=(), copies_prev=(),
 _UNIT, _GIVEN, _MASS = 0, 1, 2
 
 
-def _stack_args(xs, contribs, prevs, cols, cap, scales, weights):
-    """Check a :func:`flora_stack_group` call; returns per segment its
-    prev, column flag, cap and scale."""
-    k = len(xs)
+def _stack_args(name, shapes, contribs, prev_shapes, cols, cap, scales):
+    """Check a grouped stack from the shapes of its cohort leaves ``(n,
+    *lead, a, b)`` and of its prevs (None where a segment has none);
+    returns the client count and per segment its prev shape, column flag,
+    cap and scale (None, a tensor or "mass")."""
+    k = len(shapes)
     if not k:
-        raise ValueError("flora_stack_group: no segments")
-    per = dict(contribs=contribs, prevs=prevs, cols=cols, scales=scales)
+        raise ValueError(f"{name}: no segments")
     caps = (cap,) * k if isinstance(cap, int) else tuple(cap)
-    for key, v in dict(per, caps=caps).items():
+    per = dict(contribs=contribs, prevs=prev_shapes, cols=cols,
+               scales=scales, caps=caps)
+    for key, v in per.items():
         if v is not None and len(v) != k:
-            raise ValueError(f"flora_stack_group: {k} segments, {len(v)} "
-                             f"{key}")
-    prevs = (None,) * k if prevs is None else tuple(prevs)
+            raise ValueError(f"{name}: {k} segments, {len(v)} {key}")
+    prev_shapes = (None,) * k if prev_shapes is None else tuple(prev_shapes)
     cols = (False,) * k if cols is None else tuple(bool(c) for c in cols)
     scales = (None,) * k if scales is None else tuple(scales)
-    n = int(xs[0].shape[0])
-    if weights is not None and tuple(weights.shape) != (n,):
-        raise ValueError(f"flora_stack_group: weights "
-                         f"{tuple(weights.shape)} != ({n},)")
-    for i, (x, con, prev, col, c, sc) in enumerate(zip(
-            xs, contribs, prevs, cols, caps, scales)):
-        if x.ndim < 3 or x.shape[0] != n:
-            raise ValueError(f"flora_stack_group: segment {i} must be a "
-                             f"leaf (*lead, a, b) stacked over the {n} "
-                             f"clients, got {tuple(x.shape)}")
-        r_in = x.shape[-1] if col else x.shape[-2]
+    n = int(shapes[0][0]) if len(shapes[0]) else 0
+    for i, (shape, con, pshape, col, c, sc) in enumerate(zip(
+            shapes, contribs, prev_shapes, cols, caps, scales)):
+        if len(shape) < 3 or shape[0] != n:
+            raise ValueError(f"{name}: segment {i} must be a leaf (*lead, "
+                             f"a, b) stacked over the {n} clients, got "
+                             f"{tuple(shape)}")
+        r_in = shape[-1] if col else shape[-2]
         r_prev = 0
-        if prev is not None:
-            want = tuple(x.shape[1:-2]) + ((x.shape[-2],) if col
-                                           else (x.shape[-1],))
-            got = tuple(prev.shape[:-2]) + ((prev.shape[-2],) if col
-                                            else (prev.shape[-1],))
-            if prev.ndim != x.ndim - 1 or got != want:
-                raise ValueError(f"flora_stack_group: prev "
-                                 f"{tuple(prev.shape)} does not match the "
-                                 f"leaf {tuple(x.shape[1:])} but in its rank")
-            r_prev = prev.shape[-1] if col else prev.shape[-2]
+        if pshape is not None:
+            want = tuple(shape[1:-2]) + ((shape[-2],) if col
+                                         else (shape[-1],))
+            got = tuple(pshape[:-2]) + ((pshape[-2],) if col
+                                        else (pshape[-1],))
+            if len(pshape) != len(shape) - 1 or got != want:
+                raise ValueError(f"{name}: prev {tuple(pshape)} does not "
+                                 f"match the leaf {tuple(shape[1:])} but in "
+                                 "its rank")
+            r_prev = pshape[-1] if col else pshape[-2]
         for src, rows in con:
             top = r_prev if src == -1 else r_in
-            if not (-1 <= src < n and (src != -1 or prev is not None)
+            if not (-1 <= src < n and (src != -1 or pshape is not None)
                     and 0 <= rows <= top):
-                raise ValueError(f"flora_stack_group: segment {i}: "
-                                 f"contributor {(src, rows)} outside the "
-                                 f"{n} clients' {r_in} and prev's {r_prev} "
-                                 "rank rows")
+                raise ValueError(f"{name}: segment {i}: contributor "
+                                 f"{(src, rows)} outside the {n} clients' "
+                                 f"{r_in} and prev's {r_prev} rank rows")
         if sum(rows for _, rows in con) > c:
-            raise ValueError(f"flora_stack_group: segment {i} stacks "
+            raise ValueError(f"{name}: segment {i} stacks "
                              f"{sum(rows for _, rows in con)} rank rows, "
                              f"its cap is {c}")
         if isinstance(sc, str):
-            if sc != "mass" or weights is None:
-                raise ValueError("flora_stack_group: a scale is None, a "
-                                 "tensor or 'mass' (with weights)")
+            if sc != "mass":
+                raise ValueError(f"{name}: a scale is None, a tensor or "
+                                 "'mass' (with weights)")
         elif sc is not None and tuple(sc.shape) != (len(con),):
-            raise ValueError(f"flora_stack_group: segment {i}'s scales "
+            raise ValueError(f"{name}: segment {i}'s scales "
                              f"{tuple(sc.shape)} != ({len(con)},)")
-    return prevs, cols, caps, scales
+    return n, prev_shapes, cols, caps, scales
 
 
-def _stack_out_shape(x, col: bool, cap: int) -> tuple:
-    """A segment's output shape: the leaf's, at storage rank ``cap``."""
-    return tuple(x.shape[1:-2]) + ((x.shape[-2], cap) if col
-                                   else (cap, x.shape[-1]))
+def _stack_weights(name, weights, n: int, scales) -> None:
+    if weights is None and any(isinstance(sc, str) for sc in scales):
+        raise ValueError(f"{name}: a scale is None, a tensor or 'mass' "
+                         "(with weights)")
+    if weights is not None and tuple(weights.shape) != (n,):
+        raise ValueError(f"{name}: weights {tuple(weights.shape)} != "
+                         f"({n},)")
+
+
+def _contribs(contribs) -> tuple:
+    return tuple(tuple((int(s), int(r)) for s, r in con) for con in contribs)
+
+
+@dataclasses.dataclass(eq=False)
+class _StackLayout:
+    """The static part of a grouped stack launch: each segment's twelve
+    words with the pointers left 0 (``StackSegIn``), the contributor table
+    (one int32 pair each; segments with the same contributors share
+    theirs), and each output's shape and place in one allocation per
+    output dtype."""
+    words: array.array
+    pairs: array.array
+    n_contrib: int
+    max_contrib: int
+    shapes: tuple
+    strides: tuple
+    offsets: tuple
+    sizes: dict
+    out_dtypes: tuple
+    modes: tuple
 
 
 @functools.lru_cache(maxsize=512)
-def _stack_layout(geo: tuple) -> tuple:
-    """The static part of a grouped stack: per segment its twelve words
-    with the pointers left 0 (``StackSegIn``), the contributor table (one
-    int32 pair each; segments with the same contributors share theirs),
-    the most contributors of one segment, and each output's offset in one
-    allocation per output dtype.  ``geo``: per segment ``(leaf shape, col,
+def _stack_layout(geo: tuple) -> _StackLayout:
+    """``geo``: per segment ``(leaf shape without the client axis, col,
     cap, contributors, prev shape, x dtype, prev dtype, out dtype, scale
     mode)``."""
-    words, table, firsts, sizes, offsets = array.array("q"), [], {}, {}, []
+    words, table, firsts, sizes = array.array("q"), [], {}, {}
+    offsets, shapes, strides = [], [], []
     for shape, col, cap, con, pshape, xdt, pdt, odt, mode in geo:
+        for dt in (xdt, pdt, odt):
+            if dt is not None and dt not in _OUT_CODES:
+                raise TypeError(f"flora_stack: dtype {dt} not in "
+                                f"{list(_OUT_CODES)}")
         lead = shape[:-2]
         width, r_in = (shape[-2], shape[-1]) if col else (shape[-1],
                                                           shape[-2])
@@ -873,7 +903,10 @@ def _stack_layout(geo: tuple) -> tuple:
         if con not in firsts:
             firsts[con] = len(table)
             table.extend(con)
-        numel = math.prod(lead) * width * cap
+        out = tuple(lead) + ((shape[-2], cap) if col else (cap, shape[-1]))
+        shapes.append(out)
+        strides.append(tuple(math.prod(out[j + 1:]) for j in range(len(out))))
+        numel = math.prod(out)
         at = sizes.get(odt, 0)
         offsets.append(at)
         sizes[odt] = at + -(-numel // 16) * 16      # 64-byte aligned outputs
@@ -884,51 +917,33 @@ def _stack_layout(geo: tuple) -> tuple:
                       r_in, r_prev, cap, firsts[con] | len(con) << 32,
                       flags))
     pairs = array.array("i", [v for src_rows in table for v in src_rows])
-    return (words, pairs, len(table), max(len(g[3]) for g in geo),
-            tuple(offsets), sizes)
+    return _StackLayout(words, pairs, len(table),
+                        max(len(g[3]) for g in geo), tuple(shapes),
+                        tuple(strides), tuple(offsets), sizes,
+                        tuple(g[7] for g in geo), tuple(g[8] for g in geo))
 
 
-def _stack_group_cuda(xs, contribs, prevs, cols, caps, scales, weights,
-                      prev_weight, eps, out_dtypes) -> list:
-    """Run a checked grouped stack on the card in one launch."""
+def _stack_group_cuda(lay: _StackLayout, xs, prevs, scales, weights,
+                      prev_weight, eps, name: str) -> list:
+    """Run a checked grouped stack on the card in one launch: its static
+    layout ``lay`` is built, a call fills in the pointers and the vector
+    flags.  Counts the launch as ``runtime.LAUNCHES[name]``."""
     x0 = xs[0]
     dev, index = x0.device, x0.get_device()
-    modes = tuple(_UNIT if sc is None else _MASS if isinstance(sc, str)
-                  else _GIVEN for sc in scales)
-    for x, prev in zip(xs, prevs):
-        for t in (x, prev):
-            if t is None:
-                continue
-            if t.get_device() != index:
-                raise ValueError(f"flora_stack: a leaf is on {t.device}, "
-                                 f"the call on {dev}")
-            if t.dtype not in _OUT_CODES:
-                raise TypeError(f"flora_stack: dtype {t.dtype} not in "
-                                f"{list(_OUT_CODES)}")
-    for odt in out_dtypes:
-        if odt not in _OUT_CODES:
-            raise TypeError(f"flora_stack: out_dtype {odt} not in "
-                            f"{list(_OUT_CODES)}")
-    geo = tuple((tuple(x.shape[1:]), col, cap, tuple(map(tuple, con)),
-                 None if prev is None else tuple(prev.shape), x.dtype,
-                 None if prev is None else prev.dtype, odt, mode)
-                for x, con, prev, col, cap, odt, mode in zip(
-                    xs, contribs, prevs, cols, caps, out_dtypes, modes))
-    words, pairs, n_contrib, max_c, offsets, sizes = _stack_layout(geo)
-    words = array.array("q", words)
+    words = array.array("q", lay.words)
     bufs = {dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
-            for dt, sz in sizes.items()}
+            for dt, sz in lay.sizes.items()}
     outs, keep = [], []
     w = None
-    if _MASS in modes:
+    if _MASS in lay.modes:
         w = _f32(weights, index, "weights")
-    for i, (x, prev, col, cap, sc, odt) in enumerate(zip(
-            xs, prevs, cols, caps, scales, out_dtypes)):
-        buf = bufs[odt]
-        shape = _stack_out_shape(x, col, cap)
-        out = buf.as_strided(shape, tuple(math.prod(shape[j + 1:])
-                                          for j in range(len(shape))),
-                             offsets[i])
+    for i, (x, prev) in enumerate(zip(xs, prevs)):
+        for t in (x, prev):
+            if t is not None and t.get_device() != index:
+                raise ValueError(f"{name}: a leaf is on {t.device}, the "
+                                 f"call on {dev}")
+        out = bufs[lay.out_dtypes[i]].as_strided(
+            lay.shapes[i], lay.strides[i], lay.offsets[i])
         outs.append(out)
         if not x.is_contiguous():
             x = x.contiguous()
@@ -943,41 +958,42 @@ def _stack_group_cuda(xs, contribs, prevs, cols, caps, scales, weights,
         pvec = prev is None or prev.data_ptr() % 16 == 0
         if prev is not None:
             words[at + 2] = prev.data_ptr()
-        if modes[i] == _GIVEN:
-            sc = _f32(sc, index, "scales")
+        if lay.modes[i] == _GIVEN:
+            sc = _f32(scales[i], index, "scales")
             keep.append(sc)
             words[at + 4] = sc.data_ptr()
-        width = words[at + 6]
+        width, cap = words[at + 6], words[at + 9]
         ovec = out.data_ptr() % 16 == 0
-        vec = ovec and (cap % 4 == 0 if col
+        vec = ovec and (cap % 4 == 0 if words[at + 11] & 1
                         else width % 4 == 0 and xvec and pvec)
         words[at + 11] |= int(vec) << 1 | int(xvec) << 2 | int(
             prev is not None and pvec) << 3
     lib = _stack_lib()
-    addr, pair_addr = words.buffer_info()[0], pairs.buffer_info()[0]
+    addr, pair_addr = words.buffer_info()[0], lay.pairs.buffer_info()[0]
     knobs = (None if w is None else w.data_ptr(),
              int(x0.shape[0]) if w is None else int(w.shape[0]),
              float(prev_weight), float(eps))
     with (torch.cuda.device(dev) if torch.cuda.current_device() != index
           else contextlib.nullcontext()):
         stream = _stream(dev)
-        if lib.flora_stack_fits_inline(len(xs), n_contrib):
-            err = lib.flora_stack_group(addr, len(xs), pair_addr, n_contrib,
+        n_segs, n_contrib = len(xs), lay.n_contrib
+        if lib.flora_stack_fits_inline(n_segs, n_contrib):
+            err = lib.flora_stack_group(addr, n_segs, pair_addr, n_contrib,
                                         *knobs, stream)
         else:           # the table goes to the card by one async copy
-            host = torch.empty(lib.flora_stack_table_bytes(len(xs),
+            host = torch.empty(lib.flora_stack_table_bytes(n_segs,
                                                            n_contrib),
                                dtype=torch.uint8, pin_memory=True)
             tiles = ctypes.c_int64()
-            err = lib.flora_stack_layout(addr, len(xs), pair_addr, n_contrib,
+            err = lib.flora_stack_layout(addr, n_segs, pair_addr, n_contrib,
                                          host.data_ptr(), ctypes.byref(tiles))
-            _check_launch(err, "flora_stack", lib)
+            _check_launch(err, name, lib)
             table = host.to(dev, non_blocking=True)
             err = lib.flora_stack_group_table(
-                table.data_ptr(), len(xs), n_contrib, max_c, tiles.value,
-                *knobs, stream)
-    _check_launch(err, "flora_stack", lib)
-    runtime.LAUNCHES["flora_stack"] += 1
+                table.data_ptr(), n_segs, n_contrib, lay.max_contrib,
+                tiles.value, *knobs, stream)
+    _check_launch(err, name, lib)
+    runtime.LAUNCHES[name] += 1
     return outs
 
 
@@ -1003,19 +1019,131 @@ def flora_stack_group(xs, contribs, prevs=None, *, cap, cols=None,
     multiplied in fp32 and rounded once to the leaf's dtype.  On the card
     ONE launch (``runtime.LAUNCHES
     ["flora_stack"]``); on the CPU the plain version
-    :func:`flora_stack_group_ref`."""
-    contribs = tuple(tuple((int(s), int(r)) for s, r in con)
-                     for con in contribs)
-    prevs, cols, caps, scales = _stack_args(xs, contribs, prevs, cols, cap,
-                                            scales, weights)
+    :func:`flora_stack_group_ref`.  :func:`packed_stack_group` runs the
+    same kernel on segments fixed once (the flora plan's round)."""
+    name = "flora_stack_group"
+    contribs = _contribs(contribs)
+    shapes = tuple(tuple(x.shape) for x in xs)
+    pshapes = None if prevs is None else tuple(
+        None if p is None else tuple(p.shape) for p in prevs)
+    n, _, cols, caps, scales = _stack_args(name, shapes, contribs, pshapes,
+                                           cols, cap, scales)
+    _stack_weights(name, weights, n, scales)
+    prevs = (None,) * len(xs) if prevs is None else tuple(prevs)
     dts = tuple(x.dtype for x in xs)
     if runtime.use_kernel(backend, xs[0], "flora_stack"):
-        return _stack_group_cuda(xs, contribs, prevs, cols, caps, scales,
-                                 weights, prev_weight, eps, dts)
+        modes = tuple(_UNIT if sc is None else _MASS if isinstance(sc, str)
+                      else _GIVEN for sc in scales)
+        lay = _stack_layout(tuple(
+            (shape[1:], col, c, con, None if p is None else tuple(p.shape),
+             x.dtype, None if p is None else p.dtype, x.dtype, mode)
+            for shape, col, c, con, p, x, mode in zip(
+                shapes, cols, caps, contribs, prevs, xs, modes)))
+        return _stack_group_cuda(lay, xs, prevs, scales, weights,
+                                 prev_weight, eps, "flora_stack")
     return flora_stack_group_ref(xs, contribs, prevs, cols=cols, caps=caps,
                                  scales=scales, weights=weights,
                                  prev_weight=prev_weight, eps=eps,
                                  out_dtypes=dts)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StackPlan:
+    """A grouped stack whose segments are fixed: the flora plan's stacking
+    round, built once by :func:`stack_plan` and run by
+    :func:`packed_stack_group`, which fills in only the data pointers and
+    the weights.  One entry a segment, as :func:`flora_stack_group` takes
+    them: ``shapes`` the cohort leaves' (client axis first),
+    ``prev_shapes`` prev's (None: no prev), ``cols``, ``caps``,
+    ``contribs``, ``scales`` (None or "mass"), the leaves' ``dtypes`` (the
+    outputs' too) and ``prev_dtypes``."""
+    shapes: tuple
+    contribs: tuple
+    prev_shapes: tuple
+    cols: tuple
+    caps: tuple
+    scales: tuple
+    dtypes: tuple
+    prev_dtypes: tuple
+    prev_weight: float
+    eps: float
+    layout: _StackLayout
+
+    @property
+    def n(self) -> int:
+        """The clients each cohort leaf stacks."""
+        return int(self.shapes[0][0])
+
+
+def stack_plan(shapes, contribs, *, cap, dtypes, cols=None,
+               prev_shapes=None, prev_dtypes=None, scales=None,
+               prev_weight: float = 1.0, eps: float = 1e-12) -> StackPlan:
+    """Check a grouped stack's segments once and build its launch layout
+    (arguments as :func:`flora_stack_group`'s, with shapes and dtypes in
+    the place of the tensors; a scale is None or "mass").  Raises
+    ``ValueError``/``TypeError`` on segments the kernel does not take."""
+    name = "packed_stack_group"
+    contribs = _contribs(contribs)
+    shapes = tuple(tuple(int(v) for v in s) for s in shapes)
+    k = len(shapes)
+    if prev_shapes is not None:
+        prev_shapes = tuple(None if p is None else tuple(int(v) for v in p)
+                            for p in prev_shapes)
+    n, prev_shapes, cols, caps, scales = _stack_args(
+        name, shapes, contribs, prev_shapes, cols, cap, scales)
+    if any(sc is not None and not isinstance(sc, str) for sc in scales):
+        raise ValueError(f"{name}: a planned scale is None or 'mass'")
+    dtypes = tuple(dtypes)
+    prev_dtypes = (None,) * k if prev_dtypes is None else tuple(prev_dtypes)
+    if len(dtypes) != k or len(prev_dtypes) != k or any(
+            (p is None) != (d is None)
+            for p, d in zip(prev_shapes, prev_dtypes)):
+        raise ValueError(f"{name}: one dtype a segment, and one prev dtype "
+                         "for each prev")
+    modes = tuple(_UNIT if sc is None else _MASS for sc in scales)
+    lay = _stack_layout(tuple(
+        (shape[1:], col, c, con, p, dt, pdt, dt, mode)
+        for shape, col, c, con, p, dt, pdt, mode in zip(
+            shapes, cols, caps, contribs, prev_shapes, dtypes, prev_dtypes,
+            modes)))
+    return StackPlan(shapes, contribs, prev_shapes, cols, caps, scales,
+                     dtypes, prev_dtypes, float(prev_weight), float(eps),
+                     lay)
+
+
+def packed_stack_group(plan: StackPlan, xs, prevs=None, weights=None, *,
+                       backend: str = "auto"):
+    """The flora plan's stacking round in one call: segment i of ``plan``
+    (:func:`stack_plan`) from the cohort leaf ``xs[i]`` and prev
+    ``prevs[i]``, each read where it lies, into a new leaf at its cap in
+    its own layout and dtype, as :func:`flora_stack_group` computes it
+    (``weights`` (n,) feed the "mass" scales).  On the card ONE launch of
+    the grouped stack kernel, counted as ``runtime.LAUNCHES
+    ["packed_stack"]``; on the CPU the plain twin
+    :func:`packed_stack_group_ref`."""
+    name = "packed_stack_group"
+    k = len(plan.shapes)
+    prevs = (None,) * k if prevs is None else tuple(prevs)
+    if len(xs) != k or len(prevs) != k:
+        raise ValueError(f"{name}: the plan has {k} segments, got "
+                         f"{len(xs)} leaves and {len(prevs)} prevs")
+    for i, (x, p) in enumerate(zip(xs, prevs)):
+        if tuple(x.shape) != plan.shapes[i] or x.dtype != plan.dtypes[i]:
+            raise ValueError(f"{name}: segment {i} is {tuple(x.shape)} "
+                             f"{x.dtype}, the plan's {plan.shapes[i]} "
+                             f"{plan.dtypes[i]}")
+        if (p is None) != (plan.prev_shapes[i] is None) or p is not None and (
+                tuple(p.shape) != plan.prev_shapes[i]
+                or p.dtype != plan.prev_dtypes[i]):
+            raise ValueError(f"{name}: segment {i}'s prev is "
+                             f"{None if p is None else tuple(p.shape)}, the "
+                             f"plan's {plan.prev_shapes[i]}")
+    _stack_weights(name, weights, plan.n, plan.scales)
+    if runtime.use_kernel(backend, xs[0], "packed_stack"):
+        return _stack_group_cuda(plan.layout, xs, prevs, plan.scales,
+                                 weights, plan.prev_weight, plan.eps,
+                                 "packed_stack")
+    return packed_stack_group_ref(plan, xs, prevs, weights)
 
 
 def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,
@@ -1232,9 +1360,11 @@ def axpy_fold(y, x, alpha, *, generator: torch.Generator | None = None,
 
 __all__ = ["packed_agg", "packed_agg_group", "packed_agg_inline", "rbla_agg",
            "rbla_agg_group", "packed_robust", "packed_robust_group",
-           "packed_stack", "flora_stack", "flora_stack_group", "StackTable",
+           "packed_stack", "packed_stack_group", "StackPlan", "stack_plan",
+           "flora_stack", "flora_stack_group", "StackTable",
            "stack_table", "axpy_fold", "axpy_fold_group", "packed_agg_ref",
            "rbla_agg_ref", "rbla_agg_group_ref", "packed_robust_ref",
            "packed_agg_group_ref", "packed_robust_group_ref",
-           "packed_stack_ref", "flora_stack_ref", "flora_stack_group_ref",
+           "packed_stack_ref", "packed_stack_group_ref", "flora_stack_ref",
+           "flora_stack_group_ref",
            "axpy_fold_ref", "axpy_fold_group_ref", "MAX_ROBUST_CLIENTS"]

@@ -144,6 +144,23 @@ def flora_stack_group_ref(xs, contribs, prevs, *, cols, caps, scales,
     row, or by column where ``cols[i]``).  ``scales[i]``: None (1), a
     tensor (one a contributor) or "mass" (:func:`flora_mass_scales`)."""
     runtime.PLAIN_CALLS["flora_stack"] += 1
+    return _stack_group(xs, contribs, prevs, cols, caps, scales, weights,
+                        prev_weight, eps, out_dtypes)
+
+
+def packed_stack_group_ref(plan, xs, prevs=None, weights=None):
+    """The plain twin of ``packed_stack_group``: the segments of ``plan``
+    (a ``StackPlan``) through :func:`flora_stack_group_ref`'s arithmetic,
+    the outputs in the leaves' dtypes; one plain ``packed_stack`` call."""
+    runtime.PLAIN_CALLS["packed_stack"] += 1
+    prevs = (None,) * len(xs) if prevs is None else prevs
+    return _stack_group(xs, plan.contribs, prevs, plan.cols, plan.caps,
+                        plan.scales, weights, plan.prev_weight, plan.eps,
+                        plan.dtypes)
+
+
+def _stack_group(xs, contribs, prevs, cols, caps, scales, weights,
+                 prev_weight, eps, out_dtypes) -> list:
     outs = []
     for x, con, prev, col, cap, sc, odt in zip(xs, contribs, prevs, cols,
                                                caps, scales, out_dtypes):

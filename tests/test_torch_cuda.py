@@ -790,6 +790,97 @@ def test_packed_stack_kernel_matches_plain(d, misaligned):
     assert torch.equal(got, want)
 
 
+#: the main path's pairs (fan_out, fan_in) and its staircase cohort's ranks
+MLP_PAIRS = ((200, 784), (200, 200), (10, 200))
+STAIRCASE = (6, 13, 19, 26, 32, 38, 45, 51, 58, 64)
+
+
+def _stack_group_case(case, dtype, seed):
+    """A grouped stack round's plan and its inputs on the card.  "mlp": the
+    flora plan's round on the main path (the MLP's pairs at storage 64,
+    the staircase cohort, a global at storage 512 and live rank 64 first,
+    cap 512); "large": 10 contributors x 200 rank rows into a 2048-row cap
+    at width 4096, an A by rank row and a B by rank column, no prev."""
+    from repro_torch.kernels.rbla_agg import stack_plan
+    rng = np.random.default_rng(seed)
+    if case == "mlp":
+        con = ((-1, 64),) + tuple(enumerate(STAIRCASE))
+        shapes, prev_shapes = [], []
+        for fo, fi in MLP_PAIRS:
+            shapes += [(10, 64, fi), (10, fo, 64)]
+            prev_shapes += [(512, fi), (fo, 512)]
+        cap = 512
+    else:
+        con = tuple((i, 200) for i in range(10))
+        shapes, prev_shapes, cap = [(10, 256, 4096), (10, 4096, 256)], None, 2048
+    k = len(shapes)
+    plan = stack_plan(shapes, [con] * k, cap=cap, dtypes=[dtype] * k,
+                      cols=[False, True] * (k // 2), prev_shapes=prev_shapes,
+                      prev_dtypes=None if prev_shapes is None else [dtype] * k,
+                      scales=[None, "mass"] * (k // 2))
+    make = lambda shape: torch.as_tensor(rng.normal(size=shape).astype(
+        np.float32)).to(dtype).cuda()                             # noqa: E731
+    xs = [make(sh) for sh in shapes]
+    prevs = None if prev_shapes is None else [make(sh) for sh in prev_shapes]
+    w = torch.as_tensor(rng.uniform(0.5, 2.0, 10).astype(np.float32)).cuda()
+    return plan, xs, prevs, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mlp", "large"])
+def test_packed_stack_group_kernel_matches_plain_bit_for_bit(case, dtype):
+    """The flora plan's round as one grouped stack launch, counted as
+    packed_stack: the plain twin's bits in every segment, each output in
+    its leaf's layout and dtype."""
+    from repro_torch.kernels.rbla_agg import (packed_stack_group,
+                                              packed_stack_group_ref)
+    need_cuda()
+    plan, xs, prevs, w = _stack_group_case(case, dtype, 70)
+    runtime.reset_counts()
+    got = packed_stack_group(plan, xs, prevs, w)
+    assert runtime.LAUNCHES["packed_stack"] == 1
+    assert not any(runtime.PLAIN_CALLS.values())
+    want = packed_stack_group_ref(plan, xs, prevs, w)
+    torch.cuda.synchronize()
+    for i, (g, wt) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and g.shape == wt.shape
+        assert torch.equal(g, wt), f"segment {i}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flora_plan_round_on_the_card_is_one_kernel(dtype):
+    """A planned flora round (``CompiledRound``) on the card: one
+    ``stack_group_kernel`` and no other device event (no packing, cast,
+    concatenation, rank read or copy), and the bits of the same round on
+    the plain twin."""
+    from repro_torch.core import plan as tplan
+    need_cuda()
+    clients, ranks, weights, prev = _cohort(5)
+    cuda = lambda t: t.to(dtype).cuda() if t.is_floating_point() \
+        else t.cuda()                                         # noqa: E731
+    stacked = ts.stack_trees([tree_map(cuda, c) for c in clients])
+    cprev, w = tree_map(cuda, prev), weights.cuda()
+    strat = ts.get_strategy("flora").with_options(stack_r_cap=64)
+
+    def round_for(kind):
+        return strat.plan(None, tplan.build_cohort_spec(
+            stacked, kind=kind, r_max=8, prev_tree=cprev))
+    round_ = round_for("kernel")
+    assert round_.n_kernel_launches == 1
+    runtime.reset_counts()
+    got = round_(stacked, w, cprev)
+    assert runtime.LAUNCHES["packed_stack"] == 1
+    assert not any(runtime.PLAIN_CALLS.values())
+    want = round_for("ref")(stacked, w, cprev)
+    torch.cuda.synchronize()
+    for k in got:
+        for side in ("A", "B", "rank"):
+            assert torch.equal(got[k][side], want[k][side]), (k, side)
+    kernels, copies = _kernels_and_copies(lambda: round_(stacked, w, cprev))
+    assert len(kernels) == 1 and "stack_group_kernel" in kernels[0], kernels
+    assert not copies, copies
+
+
 # ------------------------------------------- strategies of the later slice --
 def _products(tree):
     return {k: (p["B"].float() @ p["A"].float(), int(p["rank"]))
@@ -829,7 +920,7 @@ def test_later_strategy_kernel_paths_match_ref(name, options):
     kernel = {"rbla_clipped": "packed_robust", "rbla_trimmed":
               "packed_robust", "rbla_median": "packed_robust"}.get(name)
     if name == "flora" and options["stack_r_cap"] == 64:
-        assert runtime.LAUNCHES["packed_stack"] == 3
+        assert runtime.LAUNCHES["packed_stack"] == 1     # the planned round
         assert runtime.LAUNCHES["flora_stack"] == 1     # the per-pair round
     if kernel:      # the plan's one grouped launch, then one per pair
         assert runtime.LAUNCHES[kernel] == 1 + len(want)
@@ -1428,6 +1519,81 @@ def test_lora_matmul_kernel_on_the_tensor_core_body(m, k, n, r, dtype):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert_close(got, want, BF16_TOL if dtype == "bf16" else F32_TOL)
+
+
+def _off_by_one_element(t):
+    """``t``'s values in a contiguous view one element into a larger
+    buffer: for fp32 and bf16, an address off 16-byte alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+    out = flat[1:].view(t.shape).copy_(t)
+    assert out.is_contiguous() and (out.data_ptr() % 16 or not t.numel())
+    return out
+
+
+@pytest.mark.parametrize("k", [520, 37])
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [10, 200, 1544])
+@pytest.mark.parametrize("r", [0, 1, 7, 64])
+def test_lora_matmul_single_kernel_at_ranks_and_widths(r, n, dtype,
+                                                       misaligned, k):
+    """The single-adapter kernel (u = s x A^T on the tensor cores, K split
+    where its tiles leave SMs idle, then u B^T as more depth of the GEMM)
+    at rank 0 (no down launch, no tail), ragged rank chunks (1, 7) and two
+    chunks (64), N of neither tile, K = 520 (not a multiple of 16) and 37
+    (odd: x's element-wise loads in bf16), and B one element off alignment
+    (its scalar staging path), against lora_matmul_ref within 2e-5 (fp32)
+    and 2e-2 (bf16) of max|y|; one launch counted."""
+    from repro_torch.kernels.lora_matmul import lora_matmul, lora_matmul_ref
+    need_cuda()
+    rng = np.random.default_rng(r * 7 + n + k)
+    td = DTYPES[dtype]
+    x, w, a, b = (torch.as_tensor(v.astype(np.float32)).to(td).cuda()
+                  for v in (rng.normal(size=(300, k)),
+                            rng.normal(size=(k, n)) / np.sqrt(k),
+                            rng.normal(size=(r, k)), rng.normal(size=(n, r))))
+    if misaligned:
+        b = _off_by_one_element(b)
+    scale = torch.tensor(16.0 / max(r, 1), device="cuda")
+    runtime.reset_counts()
+    got = lora_matmul(x, w, a, b, scale)
+    assert runtime.LAUNCHES["lora_matmul"] == 1
+    assert not any(runtime.PLAIN_CALLS.values())
+    want = lora_matmul_ref(x, w, a, b, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and torch.isfinite(got.float()).all()
+    assert_close(got, want, BF16_TOL if dtype == "bf16" else F32_TOL,
+                 f"r={r} n={n}")
+
+
+def test_lora_matmul_card_path_makes_only_its_outputs():
+    """With a 0-d fp32 scale on the card the wrapper makes no small kernel:
+    the only PyTorch operations of a call are its two allocations (the
+    scratch u and y) and views."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels.lora_matmul import lora_matmul
+    need_cuda()
+    rng = np.random.default_rng(5)
+    x, w, a, b = (torch.as_tensor(v.astype(np.float32)).cuda()
+                  for v in (rng.normal(size=(4, 16, 200)),
+                            rng.normal(size=(200, 10)),
+                            rng.normal(size=(8, 200)),
+                            rng.normal(size=(10, 8))))
+    scale = torch.tensor(2.0, device="cuda")
+    lora_matmul(x, w, a, b, scale)                  # build and load first
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    with Ops() as ops:
+        lora_matmul(x, w, a, b, scale)
+    assert ops.names.count("empty") == 2, ops.names
+    assert set(ops.names) <= {"empty", "view", "_unsafe_view"}, ops.names
 
 
 def test_batched_lora_matmul_card_path_makes_only_its_outputs():

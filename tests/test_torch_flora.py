@@ -1,7 +1,9 @@
 """The port's flora slice: ``flora_stack`` and ``packed_stack`` (plain
 versions and the stack kernel's per-row table) against the JAX package,
-``FloraStrategy`` and its packed plan against the JAX strategy within and
-over the cap, and three synchronous rounds against
+the plan's segments through ``packed_stack_group``'s plain twin against
+JAX's stacking oracle, ``FloraStrategy`` and its packed plan against the
+JAX strategy within and over the cap (and against the per-pair round, bit
+for bit), and three synchronous rounds against
 ``repro.fl.run_simulation``.
 
 Stacking is copies and one fp32 multiply per element, so the plain
@@ -32,8 +34,10 @@ from repro_torch.core import strategy as ts
 from repro_torch.fl import FLConfig, run_simulation
 from repro_torch.kernels import runtime
 from repro_torch.kernels.rbla_agg import (flora_stack, flora_stack_group,
-                                          packed_stack, packed_stack_ref,
-                                          stack_table)
+                                          packed_stack,
+                                          packed_stack_group_ref,
+                                          packed_stack_ref, stack_table)
+from repro_torch.kernels.rbla_agg.ref import flora_mass_scales
 
 R_MAX = 8
 
@@ -244,6 +248,14 @@ def test_flora_over_the_cap_matches_reference_in_product_space(prev_rank,
         assert got[k]["A"].shape == (2 * R_MAX, SPECS[k][1])
 
 
+def _port_launches(jround) -> int:
+    """The port's launches for a round the JAX plan makes in one launch
+    per (width, dtype) bucket plus one per re-projected pair: one grouped
+    stack launch if any pair stacks, plus the same re-projections."""
+    stacks = jround.n_kernel_launches > jround.n_fallback_pairs
+    return int(stacks) + jround.n_fallback_pairs
+
+
 @pytest.mark.parametrize("cap,prev_rank", [(4 * R_MAX, 5), (2 * R_MAX, 5),
                                            (4 * R_MAX, 0)])
 def test_flora_plan_counts_match_reference(cap, prev_rank):
@@ -260,8 +272,8 @@ def test_flora_plan_counts_match_reference(cap, prev_rank):
             r_max=R_MAX, client_ranks=torch.as_tensor(np.array(ranks)),
             prev_tree=None if prev is None else port_tree(prev)))
     assert tround.kind == jround.kind == "packed"
-    assert tround.n_kernel_launches == jround.n_kernel_launches
     assert tround.n_fallback_pairs == jround.n_fallback_pairs
+    assert tround.n_kernel_launches == _port_launches(jround)
 
 
 
@@ -330,33 +342,133 @@ def test_per_pair_path_stacks_layer_stacked_pairs(monkeypatch, cap,
                          @ np.asarray(want[k]["A"][layer], np.float64),
                          msg=f"{k}/{layer}")
 
+def _segment_copies(plan, i):
+    """Segment i of a stack plan as ``packed_stack``'s copy lists over its
+    rank-row view: the cohort leaf as (n, layers * r_in, width), prev as
+    (layers * r_prev, width), the output (layers * cap, width); scale 0 is
+    1 (A rows), scale 1 + k contributor k's."""
+    shape, col, cap = plan.shapes[i], plan.cols[i], plan.caps[i]
+    layers = int(np.prod(shape[1:-2], dtype=np.int64))
+    r_in = shape[-1] if col else shape[-2]
+    pshape = plan.prev_shapes[i]
+    r_prev = 0 if pshape is None else (pshape[-1] if col else pshape[-2])
+    copies_x, copies_prev = [], []
+    for layer in range(layers):
+        off = layer * cap
+        for k, (src, rows) in enumerate(plan.contribs[i]):
+            si = 1 + k if plan.scales[i] == "mass" else 0
+            if src < 0:
+                copies_prev.append((layer * r_prev, off, rows, si))
+            else:
+                copies_x.append((src, layer * r_in, off, rows, si))
+            off += rows
+    return copies_x, copies_prev, layers * cap, r_in * layers, r_prev * layers
+
+
+def _rows(a, col, lead_dims):
+    """A leaf's rank-row view, its layers one after another: (..., rows,
+    width), B transposed."""
+    a = np.swapaxes(a, -1, -2) if col else a
+    return a.reshape(a.shape[:lead_dims] + (-1, a.shape[-1]))
+
+
 def test_flora_plan_tables_reproduce_the_plain_stack():
-    """Copy lists taken from a real plan: the JAX stacking oracle, the
-    port's plain version and the kernel's per-row table agree."""
+    """A real plan's segments: ``packed_stack_group``'s plain twin on each
+    cohort leaf and prev where they lie equals the JAX stacking oracle
+    (``packed_stack_ref``) on the same rows placed by the segment's copy
+    lists, with the same fp32 scales; the kernel's per-row table of those
+    copy lists reproduces it."""
     adapters, ranks, weights, prev = _cohort(1, 5)
     tround = ts.get_strategy("flora").with_options(stack_r_cap=4 * R_MAX).plan(
         None, tplan.build_cohort_spec(
             ts.stack_trees([port_tree(a) for a in adapters]), kind="ref",
             r_max=R_MAX, client_ranks=torch.as_tensor(np.array(ranks)),
             prev_tree=port_tree(prev)))
+    plan = tround.stack_plan
+    assert tround.n_kernel_launches == 1 and not tround.n_fallback_pairs
+    assert len(plan.shapes) == 2 * len(SPECS)
     rng = np.random.default_rng(3)
-    assert len(tround.stack_layouts) == 3
-    for lay in tround.stack_layouts:
-        n_scales = 1 + max(c[-1] for c in lay["copies_x"])
-        x = rng.normal(size=(5, lay["r_in"], 4)).astype(np.float32)
-        prev_rows = rng.normal(size=(lay["r_prev"], 4)).astype(np.float32)
-        sc = rng.uniform(0.1, 2.0, n_scales).astype(np.float32)
-        kw = dict(copies_x=lay["copies_x"], copies_prev=lay["copies_prev"],
-                  out_rows=lay["out_rows"])
-        got = packed_stack_ref(torch.as_tensor(x), torch.as_tensor(sc),
-                               torch.as_tensor(prev_rows), **kw).numpy()
-        np.testing.assert_array_equal(got, np.asarray(jref.packed_stack_ref(
-            jnp.asarray(x), jnp.asarray(sc), jnp.asarray(prev_rows), **kw)))
-        table = stack_table(lay["copies_x"], lay["copies_prev"],
-                            out_rows=lay["out_rows"], n=5, r_in=lay["r_in"],
-                            r_prev=lay["r_prev"], n_scales=n_scales)
-        np.testing.assert_array_equal(
-            _apply_table(table.rows, x, prev_rows, sc), got)
+    xs = [rng.normal(size=s).astype(np.float32) for s in plan.shapes]
+    prevs = [rng.normal(size=s).astype(np.float32) for s in plan.prev_shapes]
+    w = rng.uniform(0.5, 2.0, plan.n).astype(np.float32)
+    runtime.reset_counts()
+    got = packed_stack_group_ref(plan, [torch.as_tensor(x) for x in xs],
+                                 [torch.as_tensor(p) for p in prevs],
+                                 torch.as_tensor(w))
+    assert runtime.PLAIN_CALLS["packed_stack"] == 1
+    for i, (x, p, g) in enumerate(zip(xs, prevs, got)):
+        col = plan.cols[i]
+        copies_x, copies_prev, out_rows, r_in, r_prev = _segment_copies(
+            plan, i)
+        mass = flora_mass_scales(torch.as_tensor(w), plan.contribs[i],
+                                 plan.prev_weight, plan.eps)
+        sc = np.asarray([1.0] + [float(v) for v in mass], np.float32)
+        xr, pr = _rows(x, col, 1), _rows(p, col, 0)
+        kw = dict(copies_x=tuple(copies_x), copies_prev=tuple(copies_prev),
+                  out_rows=out_rows)
+        want = np.asarray(jref.packed_stack_ref(
+            jnp.asarray(xr), jnp.asarray(sc), jnp.asarray(pr), **kw))
+        np.testing.assert_array_equal(_rows(g.numpy(), col, 0), want)
+        np.testing.assert_array_equal(want, packed_stack_ref(
+            torch.as_tensor(xr), torch.as_tensor(sc), torch.as_tensor(pr),
+            **kw).numpy())
+        table = stack_table(copies_x, copies_prev, out_rows=out_rows,
+                            n=plan.n, r_in=r_in, r_prev=r_prev,
+                            n_scales=len(sc))
+        np.testing.assert_array_equal(_apply_table(table.rows, xr, pr, sc),
+                                      want)
+
+
+def _planned_and_per_pair(monkeypatch, adapters, weights, prev, cap):
+    """One flora round through the port's plan (``ref`` backend: the plain
+    twin) and through the per-pair round (``aggregate_tree_kernel``, its
+    grouped call on the plain twin) on the same torch inputs."""
+    stacked = ts.stack_trees([port_tree(a) for a in adapters])
+    tprev = port_tree(prev)
+    w = torch.as_tensor(np.asarray(weights, np.float32))
+    strat = ts.get_strategy("flora").with_options(stack_r_cap=cap)
+    round_ = strat.plan(None, tplan.build_cohort_spec(
+        stacked, kind="ref", r_max=R_MAX, prev_tree=tprev))
+    assert round_.kind == "packed" and round_.n_kernel_launches == 1
+    runtime.reset_counts()
+    planned = round_(stacked, w, tprev)
+    assert runtime.PLAIN_CALLS["packed_stack"] == 1
+    monkeypatch.setattr(ts, "flora_stack_group", lambda *a, **k: (
+        flora_stack_group(*a, **dict(k, backend="ref"))))
+    per_pair = strat.aggregate_tree_kernel(stacked, w, None, tprev,
+                                           r_max=R_MAX)
+    return planned, per_pair
+
+
+@pytest.mark.parametrize("case", ["prev, one weight 0", "layer-stacked",
+                                  "bf16"])
+def test_planned_flora_round_is_the_per_pair_round_bit_for_bit(monkeypatch,
+                                                               case):
+    """The planned round (one ``packed_stack_group`` call) and the per-pair
+    round (one ``flora_stack_group`` call) stack the same contributors
+    with the same in-order fp32 scales: the same bits, ranks and dtypes,
+    with a prev, a client of weight 0, a layer-stacked pair of uniform
+    ranks and a bf16 cohort."""
+    if case == "layer-stacked":
+        adapters, _, weights, prev = _layered_cohort(4, prev_rank=5)
+    else:
+        adapters, _, weights, prev = _cohort(2, 5)
+    weights = np.array(weights, np.float32)
+    weights[1] = 0.0
+    if case == "bf16":
+        cast = lambda t: jax.tree.map(                         # noqa: E731
+            lambda x: x.astype(jnp.bfloat16) if x.dtype == jnp.float32
+            else x, t)
+        adapters, prev = [cast(a) for a in adapters], cast(prev)
+    planned, per_pair = _planned_and_per_pair(monkeypatch, adapters,
+                                              weights, prev, 4 * R_MAX)
+    for k in SPECS:
+        for side in ("A", "B", "rank"):
+            g, w = planned[k][side], per_pair[k][side]
+            assert g.dtype == w.dtype and g.shape == w.shape, (k, side)
+            assert torch.equal(g, w), (case, k, side)
+    if case == "bf16":
+        assert planned["fc1"]["A"].dtype == torch.bfloat16
 
 
 def test_default_cap_never_stacks_the_quickstart_cohort():
@@ -387,13 +499,13 @@ def test_default_cap_never_stacks_the_quickstart_cohort():
             None, tplan.build_cohort_spec(
                 ts.stack_trees([port_tree(c) for c in clients]), kind="ref",
                 r_max=64, prev_tree=port_tree(prev)))
-        got = (len(tround.stack_layouts), tround.n_fallback_pairs)
-        assert tround.n_kernel_launches == jround.n_kernel_launches
+        got = (tround.n_kernel_launches, tround.n_fallback_pairs)
+        assert tround.n_kernel_launches == _port_launches(jround)
         assert tround.n_fallback_pairs == jround.n_fallback_pairs
         return got
-    assert counts(None, 64) == (0, 2)
-    assert counts(512, 64) == (3, 0)     # 64 + 352 = 416 <= 512: stacks
-    assert counts(512, 416) == (0, 2)    # 416 + 352 = 768 > 512
+    assert counts(None, 64) == (2, 2)
+    assert counts(512, 64) == (1, 0)     # 64 + 352 = 416 <= 512: stacks
+    assert counts(512, 416) == (2, 2)    # 416 + 352 = 768 > 512
 
 
 def test_flora_rank_plumbing():

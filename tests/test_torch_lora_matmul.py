@@ -121,6 +121,34 @@ def test_lora_dense_apply_matches_jax(with_bias):
     assert_close(got, want, F32_TOL, "lora_dense_apply")
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rank", [0, 1, 7, 64])
+def test_lora_dense_apply_matches_jax_at_ranks(rank, dtype):
+    """``lora_dense_apply`` against the JAX package's at the ranks the
+    kernel treats apart (0: an adapter whose one stored rank row is zero;
+    1 and 7: one ragged rank chunk; 64: two), with a bias, K not a
+    multiple of 16 and N of neither tile, in fp32 and bf16; the scale is
+    ``alpha / max(rank, 1)``."""
+    rng = np.random.default_rng(40 + rank)
+    k, n, r_st = 37, 10, max(rank, 1)
+    x = rng.normal(size=(2, 9, k)).astype(np.float32)
+    p = {"w": (rng.normal(size=(k, n)) * 0.3).astype(np.float32),
+         "b": rng.normal(size=(n,)).astype(np.float32)}
+    a = rng.normal(size=(r_st, k)).astype(np.float32)
+    b = rng.normal(size=(n, r_st)).astype(np.float32)
+    a[rank:], b[:, rank:] = 0.0, 0.0
+    jp = {key: _both(v, dtype)[0] for key, v in p.items()}
+    tp = {key: _both(v, dtype)[1] for key, v in p.items()}
+    want = j_dense(jp, _both(x, dtype)[0],
+                   {"A": _both(a, dtype)[0], "B": _both(b, dtype)[0],
+                    "rank": jnp.int32(rank)}, interpret=True)
+    got = lora_dense_apply(tp, _both(x, dtype)[1],
+                           {"A": _both(a, dtype)[1], "B": _both(b, dtype)[1],
+                            "rank": torch.tensor(rank, dtype=torch.int32)})
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (2, 9, n)
+    assert_close(got, want, DTYPES[dtype][2], f"rank {rank}")
+
+
 # ---------------------------------------------------------------- batched --
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("jax_impl", ["pallas", "xla"])
@@ -212,7 +240,7 @@ def test_batched_keeps_leading_dims_and_counts_plain_calls():
 
 
 def test_resolve_impl():
-    assert resolve_impl("auto") == "xla"
+    assert resolve_impl("auto", "cpu") == "xla"
     assert resolve_impl(None, "cpu") == "xla"
     assert resolve_impl("auto", "cuda") == "kernel"
     assert resolve_impl("xla") == "xla"

@@ -90,6 +90,21 @@ Phases, each printing JSON lines:
   and rbla_norm (replay);
 * per_pair_fold -- one rbla fold with the fold plan declined (rates built
   pair by pair, still one launch), equal to the planned fold bit for bit;
+* async_durable -- the durable service (write-ahead log and checkpoints
+  every 16 accepted uploads in a temporary directory) at the same width
+  under a chaos plan (drops and retries, duplicates, reordering,
+  corrupt and truncated uploads, stale pulls), each case against the same
+  plan without crashes: (a) the streaming fold with crash-restarts after
+  13, 29 and 47 received uploads, bit for bit, the replays launching
+  axpy_fold and no plain version, and the same plan without a WAL (what
+  the journal costs: checkpoint ms and bytes, restore + replay ms and
+  records, WAL bytes and journal ms per record, beside the card's name
+  and power limit); (b) a buffer of 5, the replays' flushes launching
+  packed_agg, bit for bit; (c) bf16 accumulators stochastically rounded
+  from the card's generator, bit for bit; (d) (a) with the plain versions
+  on the card, within 2e-5 of max|want| of (a); (e) rbla_median over 10
+  uploads with one crash, replayed from the anchor through packed_robust,
+  within 2e-5 of max|want|;
 * lora_kernels -- batched_lora_matmul and lora_matmul against their plain
   versions at the MLP's three serving paths (500 test rows, 11 slots x
   r_max 64), at bench_serve's full case (512 x 512 x 512, 128 tenants x
@@ -164,7 +179,8 @@ SRC = ROOT / "src"
 ENFORCE_DESIGN = True
 #: the phases ``--phases`` may pick: the others need the main path's run
 SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
-              "lora_kernels", "serve_main", "serve_streams", "ssd_kernels")
+              "lora_kernels", "serve_main", "serve_streams", "ssd_kernels",
+              "async_durable")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -2232,6 +2248,239 @@ def phase_per_pair_fold(rec):
                              "reproduce the planned fold")
 
 
+# ------------------------------------------------------ durable service --
+#: the durable service's chaos plan at ASYNC_CFG's full width: every
+#: transport fault; the crash points (received uploads, none a multiple of
+#: the buffer of 5) are given per run
+DURABLE_PLAN = dict(seed=1, p_drop=0.1, p_duplicate=0.1, p_reorder=0.1,
+                    p_corrupt=0.05, p_truncate=0.05, p_stale_pull=0.1)
+DURABLE_CRASHES = (13, 29, 47)
+DURABLE_EVERY = 16
+
+
+class DurableRecorder:
+    """Wraps ``DurableAggregator``'s construction, journal, checkpoint and
+    recovery for one run: every service built, each WAL append's seconds,
+    each checkpoint's seconds and bytes, and each restart's recovery: the
+    records it replayed, its milliseconds and kernel launches (the
+    replay's own counts)."""
+
+    def __init__(self):
+        import os
+        import torch
+        from repro_torch.fl import DurableAggregator, WriteAheadLog
+        from repro_torch.kernels import runtime
+        self.aggs, self.journal_s, self.ckpt_s, self.ckpt_bytes = \
+            [], [], [], []
+        self.recoveries = []
+        self._undo = []
+
+        def patch(cls, name, wrap):
+            orig = getattr(cls, name)
+            setattr(cls, name, wrap(orig))
+            self._undo.append((cls, name, orig))
+
+        def init(orig):
+            def f(agg, *a, **k):
+                self.aggs.append(agg)
+                orig(agg, *a, **k)
+            return f
+
+        def append(orig):
+            def f(wal, *a, **k):
+                t0 = time.perf_counter()
+                seq = orig(wal, *a, **k)
+                self.journal_s.append(time.perf_counter() - t0)
+                return seq
+            return f
+
+        def checkpoint(orig):
+            def f(agg):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = orig(agg)
+                self.ckpt_s.append(time.perf_counter() - t0)
+                self.ckpt_bytes.append(os.path.getsize(path))
+                return path
+            return f
+
+        def recover(orig):
+            def f(agg):
+                torch.cuda.synchronize()
+                launches = dict(runtime.LAUNCHES)
+                plain = dict(runtime.PLAIN_CALLS)
+                t0 = time.perf_counter()
+                n = orig(agg)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                # the first service of a run finds an empty directory
+                if len(self.aggs) > 1:
+                    self.recoveries.append({
+                        "records": n, "ms": ms,
+                        "launches": {k: v - launches.get(k, 0) for k, v in
+                                     runtime.LAUNCHES.items()
+                                     if v - launches.get(k, 0)},
+                        "plain_calls": sum(runtime.PLAIN_CALLS.values())
+                        - sum(plain.values())})
+                return n
+            return f
+        patch(DurableAggregator, "__init__", init)
+        patch(WriteAheadLog, "append", append)
+        patch(DurableAggregator, "checkpoint", checkpoint)
+        patch(DurableAggregator, "recover", recover)
+
+    def close(self):
+        for cls, name, orig in reversed(self._undo):
+            setattr(cls, name, orig)
+
+
+def drive_durable(cfg_kw: dict, crash_at=None):
+    """One ``run_async_simulation`` on the card under ``DURABLE_PLAN``:
+    with a WAL and checkpoints in a temporary directory and crash-restarts
+    at ``crash_at``, or without a WAL (``crash_at=None``).  Returns the
+    history, the run's launch and plain-call counts, the final service,
+    the recorder and the seconds."""
+    import tempfile
+    import torch
+    from repro_torch.fl import AsyncFLConfig, FaultPlan, run_async_simulation
+    from repro_torch.kernels import runtime
+    plan = FaultPlan(**DURABLE_PLAN, crash_at=crash_at or ())
+    rec, last = DurableRecorder(), AsyncRecorder()    # last: the final one
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            cfg = AsyncFLConfig(**cfg_kw)
+            if crash_at is not None:
+                cfg = AsyncFLConfig(**cfg_kw, wal_dir=d,
+                                    checkpoint_every=DURABLE_EVERY)
+            runtime.reset_counts()
+            t0 = time.perf_counter()
+            hist = run_async_simulation(cfg, fault_plan=plan, device="cuda")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    finally:
+        last.close()
+        rec.close()
+    return hist, launches, plain, last.agg, rec, seconds
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    from repro_torch.tree import tree_leaves
+    la = tree_leaves((a.state.adapters, a.state.base_trainable))
+    lb = tree_leaves((b.state.adapters, b.state.base_trainable))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _durable_case(label, cfg_kw, crash_at, replay_kernel, want=None):
+    """The crashed run and its uncrashed twin (same plan, a fresh WAL):
+    bit-identical unless ``want`` is given (then it is held to ``want``'s
+    final state within 2e-5 of max|want|); the replays launch
+    ``replay_kernel`` and no plain version."""
+    hist, launches, plain, agg, rec, secs = drive_durable(cfg_kw, crash_at)
+    ref = want or drive_durable(cfg_kw, ())
+    ref_hist, ref_agg = ref[0], ref[3]
+    replay = {}
+    for r in rec.recoveries:
+        for k, v in r["launches"].items():
+            replay[k] = replay.get(k, 0) + v
+    replay_plain = sum(r["plain_calls"] for r in rec.recoveries)
+    bits = _same_bits(agg, ref_agg)
+    err, scale = _rel_err(agg.state.adapters, ref_agg.state.adapters)
+    line = {"phase": "async_durable", "case": label,
+            "crash_at": list(crash_at), "seconds": secs,
+            # the restarts that recovered, and the service's own counter,
+            # which carries what the last checkpoint saw (a restart that
+            # found no checkpoint starts it again from 0)
+            "recovered_restarts": len(rec.recoveries),
+            "n_recoveries": agg.n_recoveries, "services": len(rec.aggs),
+            "n_replayed": agg.n_replayed, "n_checkpoints": len(rec.ckpt_s),
+            "recoveries": rec.recoveries, "replay_launches": replay,
+            "replay_plain_calls": replay_plain,
+            "launches": {k: v for k, v in launches.items() if v},
+            "plain_calls": {k: v for k, v in plain.items() if v},
+            "test_acc": hist.test_acc, "ref_test_acc": ref_hist.test_acc,
+            "mean_staleness": hist.mean_staleness,
+            "n_received": agg.n_received, "version": agg.version,
+            "bit_identical": bits, "max_abs_err": err, "tol": 2e-5 * scale}
+    emit(line)
+    if len(rec.recoveries) != len(crash_at) or len(rec.aggs) != \
+            len(crash_at) + 1:
+        raise AssertionError(f"async_durable {label}: {rec.recoveries} "
+                             f"recoveries over {len(rec.aggs)} services")
+    if replay_kernel is None:          # the plain versions on the card
+        if any(launches.values()) or not replay_plain:
+            raise AssertionError(f"async_durable {label}: launches "
+                                 f"{launches}, replay plain {replay_plain}")
+    elif (replay.get(replay_kernel, 0) < 1 or replay_plain
+          or any(plain.values())):
+        raise AssertionError(f"async_durable {label}: the replays launched "
+                             f"{replay} and {replay_plain} plain calls, "
+                             f"the run plain {plain}")
+    if want is None:
+        if not (bits and hist.test_acc == ref_hist.test_acc
+                and hist.mean_staleness == ref_hist.mean_staleness):
+            raise AssertionError(f"async_durable {label}: the recovered run "
+                                 "is not the uninterrupted one bit for bit")
+    elif not err <= 2e-5 * scale:
+        raise AssertionError(f"async_durable {label}: {err} from its twin")
+    _leaves_on_card(agg.state.adapters)
+    _leaves_on_card(agg.state.base_trainable)
+    return hist, launches, plain, agg, rec, secs, ref
+
+
+def phase_async_durable(smi: str) -> dict:
+    """The durable service at ASYNC_CFG's full width under DURABLE_PLAN:
+    (a) the streaming fold with three crash-restarts against the same plan
+    uncrashed, and the same plan without a WAL (the journal's cost);
+    (b) a buffer of 5; (c) bf16 accumulators; (d) (a) with the plain
+    versions on the card against (a); (e) rbla_median over 10 uploads with
+    one crash, replayed from the anchor.  Returns the replays' launches."""
+    import statistics as stats
+    a = _durable_case("a_streaming", ASYNC_CFG, DURABLE_CRASHES, "axpy_fold")
+    hist, launches, plain, agg, rec, secs, ref = a
+    nowal = drive_durable(ASYNC_CFG, None)
+    if not (_same_bits(nowal[3], ref[3]) and nowal[0].test_acc
+            == ref[0].test_acc):
+        raise AssertionError("async_durable: journaling changed the run")
+    uploads = len(rec.journal_s)
+    wal_bytes = sum(s.wal.bytes_written for s in rec.aggs)
+    emit({"phase": "async_durable", "case": "figures", "card": smi,
+          "checkpoint_ms": [1e3 * t for t in rec.ckpt_s],
+          "checkpoint_ms_median": 1e3 * stats.median(rec.ckpt_s),
+          "checkpoint_bytes": rec.ckpt_bytes,
+          "restore_replay_ms": [r["ms"] for r in rec.recoveries],
+          "records_replayed": [r["records"] for r in rec.recoveries],
+          "wal_records": uploads, "wal_bytes": wal_bytes,
+          "wal_bytes_per_record": wal_bytes / max(uploads, 1),
+          "journal_ms_per_record": 1e3 * stats.mean(rec.journal_s),
+          "journal_ms_median": 1e3 * stats.median(rec.journal_s),
+          "run_s_crashed": secs, "run_s_wal": ref[5],
+          "run_s_no_wal": nowal[5],
+          "wal_over_no_wal": ref[5] / nowal[5]})
+    replays = {"axpy_fold": sum(r["launches"].get("axpy_fold", 0)
+                                for r in rec.recoveries)}
+    b = _durable_case("b_buffered", dict(ASYNC_CFG, buffer_size=5),
+                      DURABLE_CRASHES, "packed_agg")
+    replays["packed_agg"] = sum(r["launches"].get("packed_agg", 0)
+                                for r in b[4].recoveries)
+    c = _durable_case("c_bf16_accum", dict(ASYNC_CFG,
+                                           accum_dtype="bfloat16"),
+                      DURABLE_CRASHES, "axpy_fold")
+    if str(c[3].state.adapters["fc1"]["A"].dtype) != "torch.bfloat16":
+        raise AssertionError("async_durable: the accumulators are not bf16")
+    _durable_case("d_plain_twin", dict(ASYNC_CFG, agg_backend="ref"),
+                  DURABLE_CRASHES, None, want=ref)
+    median = dict(ASYNC_CFG, method="rbla_median", total_updates=10,
+                  eval_every=10)
+    e = _durable_case("e_median_anchor", median, (5,), "packed_robust",
+                      want=drive_durable(median, ()))
+    replays["packed_robust"] = sum(r["launches"].get("packed_robust", 0)
+                                   for r in e[4].recoveries)
+    return replays
+
+
 # ------------------------------------------------------------ serving slice --
 #: the MLP's serving paths (name, fan_in, fan_out) at full width
 MLP_LAYERS = (("fc1", 784, 200), ("fc2", 200, 200), ("out", 200, 10))
@@ -3204,7 +3453,7 @@ def _args(argv):
     return args
 
 
-def run_selected(names) -> dict:
+def run_selected(names, smi: str) -> dict:
     """The independent phases in ``names``, in that order; returns their
     kernels' summary rows."""
     summary = {}
@@ -3225,6 +3474,8 @@ def run_selected(names) -> dict:
             phase_serve_streams()
         elif name == "ssd_kernels":
             summary["ssd_scan"] = phase_ssd_kernels()
+        elif name == "async_durable":
+            phase_async_durable(smi)
         emit({"phase": name, "ok": True})
     return summary
 
@@ -3266,7 +3517,7 @@ def main(argv=None) -> int:
           "per_source_s": per_source, "src": str(src)})
 
     if args.phases is not None:
-        summary = run_selected(args.phases)
+        summary = run_selected(args.phases, smi)
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         emit({"kernels": list(summary.values())})
         print(smi, flush=True)
@@ -3318,6 +3569,8 @@ def main(argv=None) -> int:
     phase_async_methods()
     phase_per_pair_fold(async_rec)
     summary["axpy_fold"]["launches"] = async_launches["axpy_fold"]
+    durable = phase_async_durable(smi)
+    emit({"phase": "async_durable", "ok": True, "replay_launches": durable})
 
     summary.update(phase_lora_kernels())
     emit({"phase": "lora_kernels", "ok": True})

@@ -45,6 +45,8 @@ Three service modes:
 The service runs on the device of the state it is given; no fold writes
 into a tensor of the state, so the anchor, the replay window, a state
 handed to ``on_publish`` and the snapshots clients pulled all stay valid.
+:meth:`AsyncAggregator.state_dict` / :meth:`~AsyncAggregator.load_state_dict`
+carry the whole service across a crash (:mod:`repro_torch.fl.durability`).
 See ``docs/async.md`` for formulas and mode trade-offs.
 """
 from __future__ import annotations
@@ -55,6 +57,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.checkpoint import GeneratorState, host_copy
 from repro_torch.core.codec import (CODECS, UploadValidationError,
                                     codec_of_pair, decode_update,
                                     stochastic_round_tree, tree_codec,
@@ -62,7 +65,8 @@ from repro_torch.core.codec import (CODECS, UploadValidationError,
 from repro_torch.core.codec import _iter_pairs as _iter_adapter_pairs
 from repro_torch.core.strategy import (ClientUpdate, FoldState, ServerState,
                                        _state_device, get_strategy)
-from repro_torch.fl.comm import DedupWindow, UpdateBuffer, tree_bytes
+from repro_torch.fl.comm import (BufferedUpdate, DedupWindow, UpdateBuffer,
+                                 tree_bytes)
 from repro_torch.obs import STALENESS_BUCKETS, get_registry, span
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -81,6 +85,13 @@ STALENESS_SCHEDULES = {
     "hinge": lambda a, b: lambda tau: (
         1.0 if tau <= b else 1.0 / (a * (tau - b) + 1.0)),
 }
+
+
+def to_device(tree, device: torch.device):
+    """``tree`` with every tensor on ``device`` (a tensor already there is
+    kept, none is written in place); other leaves pass through."""
+    return tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                    else t, tree)
 
 
 def make_staleness_fn(schedule: "str | Callable[[float], float]"
@@ -240,6 +251,8 @@ class AsyncAggregator:
         self.device = _state_device(state)
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        self._stream = None         # the card stream the service runs on
+        self._note_stream()
         self.strategy = get_strategy(strategy)
         if server_momentum > 0.0 and self.strategy.rank_contract != "fixed":
             raise ValueError(
@@ -402,6 +415,7 @@ class AsyncAggregator:
         if update_id is not None and update_id in self.dedup:
             self._reject("duplicate")
             return False
+        self._note_stream()
         with span("submit", registry=self.obs_registry):
             used = self._validate_update(update)
             if update_id is not None:
@@ -465,6 +479,7 @@ class AsyncAggregator:
         batch = self.buffer.pop()
         if not batch:
             return self.state
+        self._note_stream()
         with span("flush", registry=self.obs_registry) as sp_flush:
             self.n_flushes += 1
             self._m_flushes.inc()
@@ -598,17 +613,114 @@ class AsyncAggregator:
                 up, self._fold_state.momentum)
 
     # ------------------------------------------------ durable state (WAL) --
+    #: service counters captured in (and restored from) a snapshot
+    _COUNTERS = ("n_received", "n_folded", "n_flushes", "n_dropped",
+                 "n_published", "staleness_sum", "wire_bytes_received")
+
+    def _note_stream(self) -> None:
+        """Remember the stream the service runs on (its folds write the
+        state there); a snapshot reads the card on it."""
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
+
     def state_dict(self) -> dict:
-        raise NotImplementedError(
-            "service snapshots (crash recovery) are not ported yet; they "
-            "arrive with ROADMAP queue 1 item 16 (checkpoint/io, "
-            "fl/durability)")
+        """Everything a crash-recovery snapshot must carry to resume
+        **bit-identically**: the live :class:`ServerState`, the fold
+        accumulator (masses, flora's segment ledger, the momentum buffer),
+        the replay anchor and window, buffered uploads, the state of the
+        stochastic-rounding generator, the idempotency dedup window and
+        the service counters.  Plain dict/list/tensor structure, ready for
+        :func:`repro_torch.checkpoint.pack_obj`; see
+        :mod:`repro_torch.fl.durability`.
+
+        The snapshot is on the host: card tensors are copied on the stream
+        the service last ran on (the stream rule,
+        :func:`repro_torch.checkpoint.host_copy`), so a fold still queued
+        there is read finished whatever stream the caller is on."""
+
+        def st(s: ServerState) -> dict:
+            return {"adapters": s.adapters,
+                    "base_trainable": s.base_trainable,
+                    "round": int(s.round), "r_max": s.r_max,
+                    "client_ranks": s.client_ranks,
+                    "current_rank": s.current_rank}
+
+        def upd(u: ClientUpdate) -> dict:
+            return {"adapters": u.adapters,
+                    "base_trainable": u.base_trainable,
+                    "n_examples": float(u.n_examples), "rank": u.rank}
+
+        fs = self._fold_state
+        return host_copy({
+            "format": 1,
+            "state": st(self.state),
+            "anchor": st(self._anchor),
+            "fold": {"mass": float(fs.mass), "row_mass": fs.row_mass,
+                     "n_folds": int(fs.n_folds), "extra": fs.extra,
+                     "momentum": fs.momentum},
+            "replay": [[upd(u), float(w)] for u, w in self._replay],
+            "buffer": [{"update": upd(b.update), "weight": b.weight,
+                        "staleness": b.staleness, "arrived": b.arrived,
+                        "wire_bytes": b.wire_bytes}
+                       for b in self.buffer._items],
+            "generator": GeneratorState.of(self._generator),
+            "dedup": self.dedup.state_dict(),
+            "counters": {k: getattr(self, k) for k in self._COUNTERS},
+        }, self._stream)
 
     def load_state_dict(self, sd: dict) -> None:
-        raise NotImplementedError(
-            "service snapshots (crash recovery) are not ported yet; they "
-            "arrive with ROADMAP queue 1 item 16 (checkpoint/io, "
-            "fl/durability)")
+        """Restore a :meth:`state_dict` snapshot into this service (same
+        strategy and configuration as the service that wrote it).  Every
+        tensor is placed on the service's device in its own dtype as a new
+        tensor -- nothing is written in place, so buffers a serving engine
+        may hold stay as they are -- and the generator resumes where the
+        snapshot's left off.  A snapshot missing a field raises
+        ``KeyError`` before the service changes."""
+        if sd["format"] != 1:
+            raise ValueError(f"unknown snapshot format {sd['format']!r}")
+        dev = self.device
+
+        def on(tree):
+            return to_device(tree, dev)
+
+        def st(d: dict) -> ServerState:
+            return ServerState(adapters=on(d["adapters"]),
+                               base_trainable=on(d["base_trainable"]),
+                               round=d["round"], r_max=d["r_max"],
+                               client_ranks=on(d["client_ranks"]),
+                               current_rank=on(d["current_rank"]))
+
+        def upd(d: dict) -> ClientUpdate:
+            return ClientUpdate(adapters=on(d["adapters"]),
+                                base_trainable=on(d["base_trainable"]),
+                                n_examples=d["n_examples"], rank=d["rank"])
+
+        f = sd["fold"]
+        state, anchor = st(sd["state"]), st(sd["anchor"])
+        fold_state = FoldState(mass=f["mass"], row_mass=on(f["row_mass"]),
+                               n_folds=f["n_folds"], extra=f["extra"],
+                               momentum=on(f["momentum"]))
+        replay = [(upd(u), w) for u, w in sd["replay"]]
+        items = [BufferedUpdate(update=upd(b["update"]), weight=b["weight"],
+                                staleness=b["staleness"],
+                                arrived=b["arrived"],
+                                wire_bytes=b["wire_bytes"])
+                 for b in sd["buffer"]]
+        dedup, counters = sd["dedup"], sd["counters"]
+        missing = [k for k in self._COUNTERS if k not in counters]
+        if missing:
+            raise KeyError(f"snapshot counters lack {missing}")
+        generator = sd["generator"].generator(dev)
+        self.state, self._anchor = state, anchor
+        self._fold_state = fold_state
+        self._replay = replay
+        self.buffer._items = items
+        self._generator = generator
+        self.dedup.load_state_dict(dedup)
+        for k in self._COUNTERS:
+            setattr(self, k, counters[k])
+        self._m_buffer_depth.set(len(self.buffer))
+        self._note_stream()
 
     # ---------------------------------------------------------- reporting --
     def mean_staleness(self) -> float:

@@ -13,7 +13,10 @@ Two drivers share one rig:
   :class:`~repro_torch.fl.selection.ClientLatencyModel`) and the server
   folds updates as they arrive through an
   :class:`~repro_torch.fl.async_agg.AsyncAggregator`, discounting stale
-  ones.
+  ones; with a ``wal_dir`` the server is a
+  :class:`~repro_torch.fl.durability.DurableAggregator`, and a
+  :class:`~repro_torch.fl.chaos.FaultPlan` injects transport faults and
+  crash-restarts.
 
 Both run on ``device="cuda"`` unless the caller asks for the CPU.
 """
@@ -31,8 +34,11 @@ import torch
 from repro_torch.core.strategy import ClientUpdate, ServerState, get_strategy
 from repro_torch.data import make_dataset, staircase_partition
 from repro_torch.fl.async_agg import AsyncAggregator
+from repro_torch.fl.chaos import FaultPlan
 from repro_torch.fl.client import (make_local_fit, merge_base_params,
                                    split_base_params)
+from repro_torch.fl.comm import RetryPolicy
+from repro_torch.fl.durability import DurableAggregator
 from repro_torch.fl.selection import ClientLatencyModel, select_clients
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.lora import init_adapters, set_ranks
@@ -96,10 +102,18 @@ class AsyncFLConfig(FLConfig):
                                        # (None -> rounds * n_clients)
     eval_every: int | None = None      # eval cadence in uploads
                                        # (None -> n_clients)
-    dedup_window: int = 1024           # update_id memory (idempotency)
-    # the durable service (write-ahead log, checkpoints) is ROADMAP queue
-    # 1 item 16; a wal_dir raises until then
+    # -- durability: a wal_dir makes the server a DurableAggregator
+    # (journal + periodic checkpoints); crash-restart faults require it.
+    # fsync is off in simulation: the fault model is process crashes, and
+    # the event loop is hot.
     wal_dir: str | None = None
+    checkpoint_every: int = 64         # accepted uploads per snapshot
+    dedup_window: int = 1024           # update_id memory (idempotency)
+    retry_base_s: float = 0.5          # client re-upload backoff (see
+    retry_max: int = 4                 # repro_torch.fl.comm.RetryPolicy)
+    # the service's accumulators: None (fp32) or "bfloat16", stochastically
+    # rounded from the service's generator; clients pull them in fp32
+    accum_dtype: str | None = None
 
 
 @dataclass
@@ -239,8 +253,8 @@ def run_simulation(cfg: FLConfig, verbose: bool = False, *, device="cuda",
 
 
 def run_async_simulation(cfg: AsyncFLConfig, verbose: bool = False,
-                         fault_plan=None, *, device="cuda", params=None,
-                         adapters=None,
+                         fault_plan: FaultPlan | None = None, *,
+                         device="cuda", params=None, adapters=None,
                          batch_indices: Callable[[int, int], torch.Tensor]
                          | None = None) -> FLHistory:
     """Event-driven FLaaS loop on ``device``: clients report on their own
@@ -253,28 +267,55 @@ def run_async_simulation(cfg: AsyncFLConfig, verbose: bool = False,
     ``eval_every`` uploads, logging the simulated clock and the interval's
     mean staleness beside accuracy.
 
+    With ``cfg.wal_dir`` set the server is a :class:`DurableAggregator`
+    (journal + periodic checkpoints); every upload carries a client
+    ``update_id``, so redeliveries fold exactly once.  ``fault_plan``
+    injects the :mod:`repro_torch.fl.chaos` fault set: dropped uploads are
+    retried under the config's :class:`RetryPolicy` with the same id,
+    duplicates, corruption and truncation bounce off the dedup window and
+    the ingestion front door, stale pulls train on obsolete globals, and
+    ``crash_at`` points tear the server down mid-stream and recover it from
+    its checkpoint and WAL -- the run completes either way.
+
     ``params``/``adapters``: initial model in the port's format;
     ``batch_indices(k, client)``: the (steps, batch) index tensor of the
-    ``k``-th arrival (0-based, in arrival order), in place of the one the
-    client would draw.  Client seeds come from
-    ``np.random.default_rng(cfg.seed)``, one per arrival, in the JAX
-    package's order either way.  ``cfg.wal_dir`` and ``fault_plan`` (the
-    durable service and its chaos harness) raise ``NotImplementedError``:
-    ROADMAP queue 1 item 16."""
-    if cfg.wal_dir is not None or fault_plan is not None:
-        raise NotImplementedError(
-            "the durable service (wal_dir) and fault plans are not ported "
-            "yet; they arrive with ROADMAP queue 1 item 16 "
-            "(fl/durability, fl/chaos)")
+    ``k``-th local fit (0-based, in arrival order; a retransmission does
+    not train again), in place of the one the client would draw.  Client
+    seeds come from ``np.random.default_rng(cfg.seed)``, one per fit, in
+    the JAX package's order either way."""
+    plan = fault_plan
+    if plan is not None and plan.crash_at and cfg.wal_dir is None:
+        raise ValueError(
+            "FaultPlan.crash_at needs cfg.wal_dir: crash-restart recovery "
+            "only exists for a DurableAggregator")
     device = resolve_device(device)
     rig = _build_sim(cfg, device, params, adapters)
     clients = rig.clients
-    agg = AsyncAggregator(
-        rig.strategy, rig.state, staleness=cfg.staleness,
-        staleness_a=cfg.staleness_a, staleness_b=cfg.staleness_b,
-        staleness_clock=cfg.staleness_clock, buffer_size=cfg.buffer_size,
-        deadline=cfg.buffer_deadline_s, backend=cfg.agg_backend,
-        dedup_window=cfg.dedup_window)
+    agg_kw = dict(
+        staleness=cfg.staleness, staleness_a=cfg.staleness_a,
+        staleness_b=cfg.staleness_b, staleness_clock=cfg.staleness_clock,
+        buffer_size=cfg.buffer_size, deadline=cfg.buffer_deadline_s,
+        backend=cfg.agg_backend, dedup_window=cfg.dedup_window,
+        accum_dtype=cfg.accum_dtype)
+
+    def make_agg():
+        if cfg.wal_dir is not None:
+            return DurableAggregator(
+                rig.strategy, rig.state, dir=cfg.wal_dir,
+                checkpoint_every=cfg.checkpoint_every, wal_fsync=False,
+                **agg_kw)
+        return AsyncAggregator(rig.strategy, rig.state, **agg_kw)
+
+    def pull(tree):
+        # clients train on fp32 whatever the service stores
+        if cfg.accum_dtype is None:
+            return tree
+        return tree_map(lambda t: t.float() if t.dtype == torch.bfloat16
+                        else t, tree)
+
+    agg = make_agg()
+    retry = RetryPolicy(base=cfg.retry_base_s, max_retries=cfg.retry_max,
+                        seed=cfg.seed)
     latency = ClientLatencyModel(
         cfg.n_clients, median_s=cfg.latency_median_s,
         sigma=cfg.latency_sigma, straggler_sigma=cfg.straggler_sigma,
@@ -283,24 +324,52 @@ def run_async_simulation(cfg: AsyncFLConfig, verbose: bool = False,
     total = cfg.total_updates or cfg.rounds * cfg.n_clients
     eval_every = cfg.eval_every or cfg.n_clients
     rng = np.random.default_rng(cfg.seed)
-    # (done_time, tiebreak, client, version, pull_time, pulled snapshot,
-    #  update id); the snapshot is what the client trains on
+    # (done_time, tiebreak, client, version, pull_time, payload, uid,
+    #  attempt) -- payload is the pulled snapshot on attempt 0 and the
+    # already-trained ClientUpdate on retries (the client retransmits the
+    # same upload, it does not retrain)
     heap: list = []
     seq = 0
+    n_uploads = 0                  # upload ids handed out (-> update_id)
+    n_fits = 0                     # local fits so far (-> batch_indices)
+    past: list = []                # recent pulls for stale_pull faults
+    crashed: set[int] = set()
 
     def dispatch(ci: int, now: float) -> None:
-        nonlocal seq
+        nonlocal seq, n_uploads
         # the client trains on the global it pulls NOW; by the time its
         # update lands the server may have moved on -- that gap is the
         # staleness the aggregator discounts.  set_ranks copies, and no
         # fold writes into the state's tensors, so the snapshot holds.
+        uid = n_uploads
+        n_uploads += 1
+        version = agg.version
+        ad, base = agg.state.adapters, agg.state.base_trainable
+        if plan is not None:
+            past.append((version, ad, base))
+            del past[:-8]
+            if plan.stale_pull(uid):
+                version, ad, base = past[0]     # oldest retained pull
         local_ad = None
         if rig.mode == "lora":
-            local_ad = set_ranks(agg.state.adapters, clients[ci].rank,
+            local_ad = set_ranks(pull(ad), clients[ci].rank,
                                  r_storage=cfg.r_max)
-        heapq.heappush(heap, (now + latency.sample(ci), seq, ci, agg.version,
-                              now, (local_ad, agg.state.base_trainable), seq))
+        delay = latency.sample(ci)
+        if plan is not None and plan.reorder(uid):
+            delay += plan.reorder_delay_s
+        heapq.heappush(heap, (now + delay, seq, ci, version, now,
+                              (local_ad, base), uid, 0))
         seq += 1
+
+    def deliver(upd, version, now, pulled_at, uid) -> None:
+        """One delivery attempt through the ingestion front door; a
+        rejection (poisoned tensors, truncated pairs, duplicate id) is
+        counted by the aggregator and otherwise final."""
+        try:
+            agg.submit(upd, model_version=version, now=now,
+                       pulled_at=pulled_at, update_id=f"u{uid}")
+        except ValueError:
+            pass
 
     for ci in range(cfg.n_clients):
         dispatch(ci, 0.0)
@@ -312,33 +381,65 @@ def run_async_simulation(cfg: AsyncFLConfig, verbose: bool = False,
     received = 0
     t_wall = time.time()
     while received < total:
-        now, _, ci, version, pulled_at, (local_ad, base_snap), uid = \
-            heapq.heappop(heap)
+        (now, _, ci, version, pulled_at, payload, uid,
+         attempt) = heapq.heappop(heap)
         # a buffered deadline may fall before this arrival: honour it at
         # its own simulated time
         due_t = agg.next_deadline()
         if due_t is not None and due_t < now:
             agg.maybe_flush(now=due_t)
-        c = clients[ci]
-        # CPU generator: the batch indices are the same on every device
-        gen = torch.Generator().manual_seed(int(rng.integers(0, 2 ** 31)))
-        idx = (batch_indices(received, ci) if batch_indices is not None
-               else None)
-        res = rig.local_fit(rig.frozen_base, base_snap, local_ad,
-                            rig.client_x[ci], rig.client_y[ci], c.n,
-                            gen=gen, batch_idx=idx)
-        losses.append(float(res.loss))
-        upd = ClientUpdate(
-            adapters=res.adapters if rig.mode == "lora" else None,
-            base_trainable=res.base_trainable,
-            n_examples=float(max(c.n, 1)), rank=c.rank)
-        try:
-            agg.submit(upd, model_version=version, now=now,
-                       pulled_at=pulled_at, update_id=f"u{uid}")
-        except ValueError:
-            pass                    # rejected: counted by the aggregator
+        if attempt == 0:
+            local_ad, base_snap = payload
+            c = clients[ci]
+            # CPU generator: the batch indices are the same on every device
+            gen = torch.Generator().manual_seed(
+                int(rng.integers(0, 2 ** 31)))
+            idx = (batch_indices(n_fits, ci) if batch_indices is not None
+                   else None)
+            n_fits += 1
+            res = rig.local_fit(rig.frozen_base, base_snap, local_ad,
+                                rig.client_x[ci], rig.client_y[ci], c.n,
+                                gen=gen, batch_idx=idx)
+            losses.append(float(res.loss))
+            upd = ClientUpdate(
+                adapters=res.adapters if rig.mode == "lora" else None,
+                base_trainable=res.base_trainable,
+                n_examples=float(max(c.n, 1)), rank=c.rank)
+            if plan is not None:
+                if plan.corrupt(uid):
+                    upd = plan.corrupt_update(upd)
+                elif plan.truncate(uid):
+                    upd = plan.truncate_update(upd)
+        else:
+            upd = payload           # retransmission of the same upload
+        if plan is not None and plan.drop(uid, attempt):
+            if not retry.give_up(attempt):
+                # lost in transit: the client re-uploads the SAME update
+                # (same id) after a jittered backoff
+                heapq.heappush(heap, (now + retry.delay(attempt, salt=uid),
+                                      seq, ci, version, pulled_at, upd,
+                                      uid, attempt + 1))
+                seq += 1
+                continue            # nothing reached the server yet
+            # retries exhausted: the upload is lost for good; the client
+            # moves on to its next round (counts toward total so chaos
+            # runs still terminate)
+        else:
+            deliver(upd, version, now, pulled_at, uid)
+            if plan is not None and plan.duplicate(uid):
+                # transport redelivery: the dedup window must fold it
+                # exactly once (rejected as "duplicate")
+                deliver(upd, version, now, pulled_at, uid)
         received += 1
         dispatch(ci, now)
+        if (plan is not None and cfg.wal_dir is not None
+                and plan.crash_now(received) and received not in crashed):
+            # server crash-restart: drop the in-memory aggregator and
+            # recover from checkpoint + WAL.  In-flight client uploads
+            # (the heap) survive -- clients are other machines.
+            crashed.add(received)
+            agg.close()
+            agg = make_agg()
 
         if received % eval_every == 0 or received == total:
             if received == total:

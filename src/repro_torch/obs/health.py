@@ -1,6 +1,5 @@
 """Service-level health view over the async aggregation + serving stack
-(the port's copy of ``repro.obs.health``; the durability section arrives
-with the durable service).
+(the port's copy of ``repro.obs.health``).
 
 Operators of a long-lived FLaaS deployment need one call that answers
 "is the service healthy *right now*": how stale are arriving updates,
@@ -108,6 +107,43 @@ class ServiceHealth:
         stats["hit_rate"] = hits / (hits + misses) if hits + misses else None
         return stats
 
+    def durability(self) -> dict | None:
+        """Crash-recovery posture (only when the aggregator is a
+        :class:`~repro_torch.fl.DurableAggregator`): WAL volume, checkpoint
+        cadence and latency, recoveries and replays so far, and the serving
+        publish quarantine.  The one operator question this answers: *if
+        the server died right now, how much would replay cost?*"""
+        agg = self.aggregator
+        if agg is None or not hasattr(agg, "wal"):
+            return None
+        view = {
+            "wal_last_seq": agg.wal.last_seq,
+            "wal_records_appended": agg.wal.n_records,
+            "wal_bytes_appended": agg.wal.bytes_written,
+            "wal_torn_frames": agg.wal.n_torn,
+            "checkpoint_every": agg.checkpoint_every,
+            "n_checkpoints": agg.n_checkpoints,
+            "n_recoveries": agg.n_recoveries,
+            "n_replayed_updates": agg.n_replayed,
+            # replay exposure: records journaled past the newest snapshot
+            "replay_backlog": max(agg.wal.last_seq - agg._ckpt_seq, 0),
+            "checkpoint_latency": _hist_view(
+                self._hist_child("fl_checkpoint_seconds")),
+            "restore_latency": _hist_view(
+                self._hist_child("fl_restore_seconds")),
+        }
+        eng = self.engine
+        if eng is not None and hasattr(eng, "n_publish_failures"):
+            view["publish_failures"] = eng.n_publish_failures
+            view["publish_quarantined"] = eng._publish_pending is not None
+        return view
+
+    def _hist_child(self, name: str):
+        hist = self.registry.get(name)
+        if hist is None:
+            return None
+        return hist._children.get(())
+
     def store_health(self) -> dict | None:
         """Page occupancy per bucket and the pinned-snapshot count --
         read live off the store (free lists and snapshot liveness are
@@ -152,6 +188,9 @@ class ServiceHealth:
         store_view = self.store_health()
         if store_view is not None:
             out["store"] = store_view
+        dur_view = self.durability()
+        if dur_view is not None:
+            out["durability"] = dur_view
         return out
 
 

@@ -12,6 +12,7 @@ order); a simulation within 0.01 accuracy and 1e-3 on the adapters, as
 ``test_torch_simulation.py`` holds the synchronous loop.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -314,11 +315,36 @@ def test_service_configuration_errors_match_jax():
 
 
 def test_durable_snapshots_wait_for_item_16():
+    """Service snapshots, now that they exist (the name is kept so that
+    the test's node ID stays stable): ``state_dict`` -> ``pack_obj`` ->
+    ``unpack_obj`` -> ``load_state_dict`` restores a service bit for bit,
+    and a snapshot missing its fields raises ``KeyError`` and leaves the
+    service as it was."""
+    from repro_torch.checkpoint import pack_obj, unpack_obj
     _, _, tstr, tst = _states("rbla")
-    agg = TAgg(tstr, tst)
-    for fn in (agg.state_dict, lambda: agg.load_state_dict({})):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn()
+    _, tups = _updates(6)
+    kw = dict(buffer_size=2, server_momentum=0.5, accum_dtype="bfloat16",
+              seed=3, registry=tobs.MetricsRegistry())
+    agg = TAgg(tstr, tst, **kw)
+    for i, u in enumerate(tups[:3]):
+        agg.submit(u, model_version=0, now=float(i), update_id=f"u{i}")
+    twin = TAgg(tstr, tst, **dict(kw, registry=tobs.MetricsRegistry()))
+    twin.load_state_dict(unpack_obj(pack_obj(agg.state_dict())))
+    assert twin.dedup.state_dict() == agg.dedup.state_dict()
+    for a in (agg, twin):
+        for i, u in enumerate(tups[3:], start=3):
+            a.submit(u, model_version=0, now=float(i), update_id=f"u{i}")
+    for c in COUNTERS:
+        assert getattr(twin, c) == getattr(agg, c), c
+    for x, y in zip(tree_leaves((twin.state.adapters,
+                                 twin.state.base_trainable)),
+                    tree_leaves((agg.state.adapters,
+                                 agg.state.base_trainable))):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    before = twin.state
+    with pytest.raises(KeyError):
+        twin.load_state_dict({})
+    assert twin.state is before
 
 
 # ------------------------------------------------------------------ comm --
@@ -455,14 +481,26 @@ def test_async_simulation_is_deterministic():
     assert all(t >= 0 for t in a.mean_staleness)
 
 
-def test_async_simulation_defaults_to_the_card_and_refuses_item_16():
+def test_async_simulation_defaults_to_the_card_and_refuses_item_16(
+        tmp_path):
+    """The default device is the card; the durable service runs (the name
+    is kept so that the test's node ID stays stable): a run with a WAL in
+    ``tmp_path`` equals the run without one, and a crash point without a
+    WAL raises ``ValueError``, as in the JAX package."""
+    from repro_torch.fl import FaultPlan
     cfg = AsyncFLConfig(rounds=1, n_clients=2, n_per_class=2,
                         n_test_per_class=2, total_updates=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_async_simulation(dataclasses.replace(cfg, wal_dir="wal"),
+    plain = run_async_simulation(cfg, device="cpu")
+    durable = run_async_simulation(
+        dataclasses.replace(cfg, wal_dir=str(tmp_path / "wal"),
+                            checkpoint_every=1), device="cpu")
+    assert durable.test_acc == plain.test_acc
+    assert durable.train_loss == plain.train_loss
+    assert durable.mean_staleness == plain.mean_staleness
+    assert any(n.startswith("ckpt-") for n in os.listdir(tmp_path / "wal"))
+    with pytest.raises(ValueError, match="wal_dir"):
+        run_async_simulation(cfg, fault_plan=FaultPlan(crash_at=(1,)),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_async_simulation(cfg, fault_plan=object(), device="cpu")
     if torch.cuda.is_available():
         assert len(run_async_simulation(cfg).test_acc) == 1
     else:

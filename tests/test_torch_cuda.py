@@ -1338,6 +1338,114 @@ def test_async_simulation_kernel_folds_match_plain_folds():
     np.testing.assert_allclose(got.train_loss, want.train_loss, rtol=1e-5)
 
 
+# --------------------------------------------------------- durable service --
+def test_checkpoint_roundtrips_card_tensors_and_a_cuda_generator(tmp_path):
+    """fp32, bf16 and int8 card tensors and a CUDA generator's state through
+    save/restore and the blob codec: back on the card, bit for bit, and
+    the restored generator draws the same stream."""
+    need_cuda()
+    from repro_torch.checkpoint import (GeneratorState, load_blob, restore,
+                                        save, save_blob)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    torch.rand(7, device="cuda", generator=gen)     # move the offset
+    tree = {"f32": torch.randn(64, 200, device="cuda"),
+            "bf16": torch.randn(200, 64, device="cuda").bfloat16(),
+            "i8": torch.randint(-127, 128, (64, 10), device="cuda",
+                                dtype=torch.int8),
+            "rank": torch.tensor(6, dtype=torch.int32, device="cuda"),
+            "gen": gen, "n": 3}
+    save(str(tmp_path / "ck"), tree)
+    back = restore(str(tmp_path / "ck"), tree)
+    save_blob(str(tmp_path / "b.bin"), tree)
+    blob = load_blob(str(tmp_path / "b.bin"))
+    for k in ("f32", "bf16", "i8", "rank"):
+        assert back[k].is_cuda and back[k].dtype == tree[k].dtype
+        assert torch.equal(back[k], tree[k]), k
+        assert torch.equal(blob[k].cuda(), tree[k]), k
+    assert back["n"] == 3 and isinstance(blob["gen"], GeneratorState)
+    assert back["gen"].device.type == "cuda"
+    ref = torch.Generator(device="cuda").manual_seed(11)
+    torch.rand(7, device="cuda", generator=ref)
+    want = torch.rand(5, device="cuda", generator=ref)
+    for g in (back["gen"], blob["gen"].generator("cuda")):
+        assert torch.equal(torch.rand(5, device="cuda", generator=g), want)
+
+
+def test_durable_recovery_on_the_card_is_bit_identical(tmp_path):
+    """bf16 accumulators stochastically rounded from the card's generator,
+    momentum and a buffer: crash after 4 uploads, recover from the
+    checkpoint and WAL on the card, finish -- bit for bit the run that
+    never crashed; the replay folds with the kernels, no plain call."""
+    need_cuda()
+    from repro_torch.fl import AsyncAggregator, DurableAggregator
+    state, ups = _fold_cohort(9, n=7)
+    state, ups = _to_cuda_state(state), [_to_cuda_update(u) for u in ups]
+    kw = dict(accum_dtype="bfloat16", seed=5, server_momentum=0.5)
+    for buffer_size in (1, 2):
+        d = str(tmp_path / f"b{buffer_size}")
+        oracle = AsyncAggregator("rbla", state, buffer_size=buffer_size,
+                                 **kw)
+        first = DurableAggregator("rbla", state, dir=d, checkpoint_every=3,
+                                  wal_fsync=False, buffer_size=buffer_size,
+                                  **kw)
+        for i, u in enumerate(ups[:4]):
+            oracle.submit(u, now=float(i), update_id=f"u{i}")
+            first.submit(u, now=float(i), update_id=f"u{i}")
+        first.close()
+        runtime.reset_counts()
+        second = DurableAggregator("rbla", state, dir=d, checkpoint_every=3,
+                                   wal_fsync=False, buffer_size=buffer_size,
+                                   **kw)
+        torch.cuda.synchronize()
+        assert second.n_replayed == 1
+        assert not any(runtime.PLAIN_CALLS.values())
+        # the WAL tail is one upload: one fold, or the flush it completes
+        kernel = "axpy_fold" if buffer_size == 1 else "packed_agg"
+        assert runtime.LAUNCHES[kernel] == 1
+        for i, u in enumerate(ups[4:], start=4):
+            oracle.submit(u, now=float(i), update_id=f"u{i}")
+            second.submit(u, now=float(i), update_id=f"u{i}")
+        oracle.flush(now=9.0)
+        second.flush(now=9.0)
+        torch.cuda.synchronize()
+        assert second.state.adapters["fc1"]["A"].dtype == torch.bfloat16
+        for k in oracle.state.adapters:
+            for side in ("A", "B"):
+                got = second.state.adapters[k][side]
+                assert got.is_cuda
+                assert torch.equal(got, oracle.state.adapters[k][side])
+        assert torch.equal(second.state.base_trainable["b"],
+                           oracle.state.base_trainable["b"])
+        assert torch.equal(second._generator.get_state(),
+                           oracle._generator.get_state())
+        second.close()
+
+
+def test_snapshot_reads_the_card_on_the_service_stream():
+    """The stream rule for snapshots: a fold held back on the service's
+    stream by a sleep, then ``state_dict()`` requested at once from a
+    side stream -- the snapshot still reads the folded values."""
+    need_cuda()
+    from repro_torch.fl import AsyncAggregator
+    state, ups = _fold_cohort(4, n=2)
+    agg = AsyncAggregator("rbla", _to_cuda_state(state))
+    agg.submit(_to_cuda_update(ups[0]))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)                  # the service's stream
+    agg.submit(_to_cuda_update(ups[1]))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        sd = agg.state_dict()
+    torch.cuda.synchronize()
+    for k, pair in agg.state.adapters.items():
+        for side_name in ("A", "B"):
+            got = sd["state"]["adapters"][k][side_name]
+            assert got.device.type == "cpu"
+            assert torch.equal(got, pair[side_name].cpu()), (k, side_name)
+    assert torch.equal(sd["state"]["base_trainable"]["b"],
+                       agg.state.base_trainable["b"].cpu())
+
+
 # ------------------------------------------------------------ lora_matmul --
 LORA_WIDTHS = (10, 200, 784, 512)
 SLEEP_CYCLES = 300_000_000          # ~0.15 s at the H100's boost clock

@@ -156,7 +156,21 @@ Phases, each printing JSON lines:
   2e-3 of its plain twin's logits;
 * mamba_consistency -- the serve invariant at full width and depth (batch
   1, 512 tokens prefilled, 8 decoded) against forward(mode="full"), in
-  fp32 within 2e-3 of max|want|; the bf16 run's distance is recorded.
+  fp32 within 2e-3 of max|want|; the bf16 run's distance is recorded;
+* distributed -- ``backend="distributed"`` against kernel-path twins run
+  first in the phase: (a) main_path's config under a one-rank NCCL group
+  (one all_reduce a round and no launch, the accuracies within 0.01 and
+  the adapters within 1e-3 of max|want|), a distributed rbla
+  ``CompiledRound`` call timed beside the kernel round with the device
+  kernels of one call and the buffer's bytes; (b) one flora round at
+  ``stack_r_cap=512`` (one all_gather, one flora_stack launch) and one svd
+  round (one all_gather, no launch), within 1e-4 of max|B @ A|; (c) the
+  async service streaming (60 axpy_fold launches, bit for bit) and with a
+  buffer of 5 (one all_reduce a flush); (d) two gloo ranks on cuda:0
+  spawned over the quickstart's last cohort: fedavg, zeropad, rbla,
+  rbla_ranked and rbla's local aggregator within 2e-5 of max|want| of the
+  kernel round on each rank, svd and flora where gloo gathers CUDA
+  tensors, and the round's wall.
 
 Then the ``{"kernels": [...]}`` summary, the card's line from nvidia-smi,
 and the device summary as the last line.  Any failure ends the run with a
@@ -180,7 +194,7 @@ ENFORCE_DESIGN = True
 #: the phases ``--phases`` may pick: the others need the main path's run
 SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
               "lora_kernels", "serve_main", "serve_streams", "ssd_kernels",
-              "async_durable")
+              "async_durable", "distributed")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -1854,10 +1868,11 @@ def phase_svd():
 COPIES = ("DtoH", "HtoD", "DtoD", "HtoH", "Memset")
 
 
-def _device_events(fn, tries: int = 3) -> tuple[dict, dict]:
+def _device_events(fn, tries: int = 6) -> tuple[dict, dict]:
     """``_device_kernels`` of ``fn`` split into kernels and memory copies,
     profiled again (up to ``tries`` times) where the profiler lost records
-    (no event at all, or a count a call that is not whole)."""
+    (no event at all, or a count a call that is not whole: at 4096³ a
+    launch of the five has been lost three times in a row)."""
     for _ in range(tries):
         events = _device_kernels(fn)
         if events and all(float(c).is_integer() for c, _ in events.values()):
@@ -3435,6 +3450,327 @@ def phase_mamba_consistency(rig, rig32):
                              f"full forward: {errs}")
 
 
+# ------------------------------------------------------------- distributed --
+#: (d)'s strategies through aggregate_adapters(backend="distributed")
+DIST_METHODS = ("fedavg", "zeropad", "rbla", "rbla_ranked")
+#: one rank of (d) reaches the chip in about 8 s and builds nothing
+DIST_CHILD_TIMEOUT = 300
+
+
+def _dist_counts(launches, plain) -> dict:
+    from repro_torch.kernels import runtime
+    return {"collectives": dict(runtime.COLLECTIVES),
+            "launches": {k: v for k, v in launches.items() if v},
+            "plain_calls": {k: v for k, v in plain.items() if v}}
+
+
+def _mlp_wire_floats() -> tuple[int, int]:
+    """The distributed rbla round's buffer at the MLP's shapes: every pair
+    side's numerator (its leaf) and denominator (its rank rows)."""
+    nums = sum(64 * fi + fo * 64 for _, fo, fi in MLP_PAIRS)
+    return nums, 2 * 64 * len(MLP_PAIRS)
+
+
+def _dist_round_times(smi) -> dict:
+    """A distributed rbla ``CompiledRound`` call against the planned kernel
+    round on the agg_rounds cohort, under the one-rank group: wall ms, the
+    device kernels and copies of one call (the all_reduce's among them)."""
+    import torch
+    from repro_torch.core import plan, strategy
+    clients, prev, w = _mlp_cohort(11)
+    ranks = torch.tensor(STAIRCASE, dtype=torch.int32, device="cuda")
+    stacked = strategy.stack_trees(clients)
+    strat = strategy.get_strategy("rbla")
+    rounds = {kind: strat.plan(None, plan.build_cohort_spec(
+        stacked, kind=kind, r_max=64, client_ranks=ranks, prev_tree=prev))
+        for kind in ("kernel", "distributed")}
+    err, scale = _rel_err(rounds["distributed"](stacked, w, prev),
+                          rounds["kernel"](stacked, w, prev))
+    nums, dens = _mlp_wire_floats()
+    row = {"phase": "distributed", "leg": "round",
+           "nvidia_smi": smi, "max_abs_err": err, "tol": 2e-5 * scale,
+           "wire_floats": {"numerator": nums, "denominator": dens},
+           "buffer_bytes": 4 * (nums + dens)}
+    for kind, round_ in rounds.items():
+        def call(round_=round_):
+            return round_(stacked, w, prev)
+        kernels, copies = _device_events(call)
+        row[kind] = {"plan_kind": round_.kind, "ms": time_ms(call),
+                     "back_to_back_ms": time_ms_back_to_back(call),
+                     "device_kernels": kernels, "copies": copies,
+                     "device_ms": sum(m for _, m in kernels.values())}
+    row["all_reduce_device_ms"] = sum(
+        m for k, (_, m) in row["distributed"]["device_kernels"].items()
+        if "nccl" in k.lower())
+    emit(row)
+    if not err <= 2e-5 * scale:
+        raise AssertionError("distributed: the collective round disagrees "
+                             "with the kernel round")
+    return row
+
+
+def _dist_rank(rank, world, store, cohort_path, out_path, src):
+    """One rank of (d): a gloo group of ``world`` ranks on cuda:0, the
+    quickstart's last cohort through every distributed path, each result
+    against the single-process kernel round saved beside the cohort.
+    Writes its rows as JSON to ``out_path``; raises on a disagreement."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import compat, get_strategy
+    from repro_torch.core.distributed import make_distributed_aggregator
+    from repro_torch.core.strategy import stack_trees
+    from repro_torch.kernels import runtime
+    from repro_torch.lora import adapter_masks
+    from repro_torch.tree import tree_map
+    runtime.full_fp32()
+    torch.cuda.set_device(0)
+    data = torch.load(cohort_path, map_location="cuda:0")
+    clients, w, ranks = data["clients"], data["weights"], data["ranks"]
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    rows, bad = [], []
+
+    def check(label, got, want, tol_rel, products=False):
+        err = scale = 0.0
+        for k in want:
+            if products:
+                pairs = [(got[k]["B"].float() @ got[k]["A"].float(),
+                          want[k]["B"].float() @ want[k]["A"].float())]
+            else:
+                pairs = [(got[k][f].float(), want[k][f].float())
+                         for f in ("A", "B")]
+            for g, t in pairs:
+                err = max(err, float((g - t).abs().max()))
+                scale = max(scale, float(t.abs().max()))
+        row = {"case": label, "max_abs_err": err, "tol": tol_rel * scale,
+               "on_card": all(got[k][f].is_cuda for k in want
+                              for f in ("A", "B")),
+               "collectives": dict(runtime.COLLECTIVES),
+               "launches": {k: v for k, v in runtime.LAUNCHES.items() if v}}
+        rows.append(row)
+        if not (err <= tol_rel * scale and row["on_card"]):
+            bad.append(label)
+
+    def agg(method, **options):
+        return get_strategy(method).with_options(**options).aggregate_adapters(
+            clients, w, r_max=64, client_ranks=ranks,
+            prev_global=data["prev"] if method != "flora" else None,
+            backend="distributed")
+    try:
+        for method in DIST_METHODS:
+            runtime.reset_counts()
+            check(method, agg(method), data["want"][method], 2e-5)
+        # make_distributed_aggregator on this rank's slice only
+        stacked = stack_trees(clients)
+        loc = compat.local_slice(len(clients), dist.group.WORLD)
+        masks = adapter_masks(stacked)
+        runtime.reset_counts()
+        got = make_distributed_aggregator(None, "clients", "rbla")(
+            tree_map(lambda t: t[loc], stacked),
+            tree_map(lambda m: m if m.ndim == 0 else m[loc], masks), w[loc])
+        check(f"local_aggregator[{loc.start}:{loc.stop}]", got,
+              data["want"]["local"], 2e-5)
+        walls = []
+        for _ in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agg("rbla")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        probe = [torch.empty(4, device="cuda") for _ in range(world)]
+        try:
+            dist.all_gather(probe, torch.ones(4, device="cuda"))
+            gather = "ran"
+        except RuntimeError as e:     # reported, and the legs not run
+            gather = f"refused: {e}"
+        if gather == "ran":
+            runtime.reset_counts()
+            check("svd", agg("svd"), data["want"]["svd"], 1e-4, True)
+            runtime.reset_counts()
+            check("flora", agg("flora", stack_r_cap=512),
+                  data["want"]["flora"], 1e-4, True)
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "rows": rows, "gather": gather,
+                   "rbla_round_wall_ms": statistics.median(walls[3:])}, f)
+    if bad:
+        raise AssertionError(f"rank {rank}: {bad} disagree with the kernel "
+                             "round")
+
+
+def _two_ranks(last, smi, tmp) -> list:
+    """(d): 2 gloo ranks on cuda:0 over the quickstart's last cohort."""
+    import multiprocessing
+    import torch
+    import repro_torch
+    from repro_torch.core import get_strategy
+    prev_state, updates, _ = last
+    clients = [u.adapters for u in updates]
+    w = torch.tensor([float(u.n_examples) for u in updates], device="cuda")
+    ranks = torch.tensor([u.rank for u in updates], dtype=torch.int32,
+                         device="cuda")
+
+    def want(method, prev, **options):
+        return get_strategy(method).with_options(**options).aggregate_adapters(
+            clients, w, r_max=64, client_ranks=ranks, prev_global=prev,
+            backend="kernel")
+    data = {"clients": clients, "weights": w, "ranks": ranks,
+            "prev": prev_state.adapters,
+            "want": {m: want(m, prev_state.adapters) for m in DIST_METHODS}}
+    data["want"]["local"] = want("rbla", None)
+    data["want"]["svd"] = want("svd", None)
+    data["want"]["flora"] = want("flora", None, stack_r_cap=512)
+    cohort = str(Path(tmp) / "cohort.pt")
+    torch.save(data, cohort)
+    ctx = multiprocessing.get_context("spawn")
+    outs = [str(Path(tmp) / f"rank{k}.json") for k in range(2)]
+    procs = [ctx.Process(target=_dist_rank, args=(
+        k, 2, str(Path(tmp) / "gloo_store"), cohort, outs[k],
+        str(Path(repro_torch.__file__).resolve().parents[1])))
+        for k in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(DIST_CHILD_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for k, p in enumerate(procs):
+        if p.exitcode != 0:
+            raise AssertionError(f"distributed (d): rank {k} exited "
+                                 f"{p.exitcode}")
+        with open(outs[k]) as f:
+            results.append(json.load(f))
+        emit({"phase": "distributed", "leg": "two_gloo_ranks",
+              "nvidia_smi": smi, **results[-1]})
+    return results
+
+
+def phase_distributed(smi: str) -> dict:
+    """backend="distributed" on the card, each leg against its kernel-path
+    twin run first in this phase: (a) the main path under a one-rank NCCL
+    group, (b) one flora and one svd round, (c) the async service
+    streaming and buffered, then (d) two gloo ranks on cuda:0."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import runtime
+    dist_cfg = dict(MAIN_CFG, agg_backend="distributed")
+    flora_cfg = dict(FLORA_CFG, rounds=1)
+    svd_cfg = dict(MAIN_CFG, method="svd", rounds=1)
+    semi_cfg = dict(ASYNC_CFG, buffer_size=5)
+    twin = {"main": drive(MAIN_CFG), "flora": drive(flora_cfg),
+            "svd": drive(svd_cfg), "stream": drive_async(ASYNC_CFG),
+            "semi": drive_async(semi_cfg)}
+    launches_on_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            # (a) the main path
+            hist, launches, plain, last, secs, _ = drive(dist_cfg)
+            counts = _dist_counts(launches, plain)
+            k_hist, _, _, k_last, k_secs, _ = twin["main"]
+            err, scale = _rel_err(last[2].adapters, k_last[2].adapters)
+            gap = max(abs(a - b) for a, b in zip(hist.test_acc,
+                                                 k_hist.test_acc))
+            emit({"phase": "distributed", "leg": "main_path",
+                  "test_acc": hist.test_acc, "kernel_test_acc":
+                  k_hist.test_acc, "round_time_s": hist.round_time_s,
+                  "seconds": secs, "kernel_seconds": k_secs, **counts,
+                  "max_acc_gap": gap, "adapters_max_abs_err": err,
+                  "adapters_tol": 1e-3 * scale})
+            if counts["collectives"] != {"all_reduce": MAIN_CFG["rounds"],
+                                         "all_gather": 0} \
+                    or counts["launches"] or counts["plain_calls"]:
+                raise AssertionError(f"distributed (a): {counts}: one "
+                                     "all_reduce a round and no kernel "
+                                     "expected")
+            if not (gap <= 0.01 and err <= 1e-3 * scale):
+                raise AssertionError("distributed (a): the collective rounds "
+                                     "disagree with the kernel rounds")
+            _leaves_on_card(last[2].adapters)
+            _leaves_on_card(last[2].base_trainable)
+            round_row = _dist_round_times(smi)
+            # (b) flora and svd, one round each
+            for name, cfg in (("flora", flora_cfg), ("svd", svd_cfg)):
+                hist, launches, plain, last, secs, _ = drive(
+                    dict(cfg, agg_backend="distributed"))
+                counts = _dist_counts(launches, plain)
+                k_hist, _, _, k_last, _, _ = twin[name]
+                err, scale = _product_err(last[2].adapters,
+                                          k_last[2].adapters)
+                gap = abs(hist.test_acc[-1] - k_hist.test_acc[-1])
+                emit({"phase": "distributed", "leg": name,
+                      "test_acc": hist.test_acc, "seconds": secs, **counts,
+                      "acc_gap": gap, "product_max_abs_err": err,
+                      "tol": 1e-4 * scale})
+                want = {"flora_stack": 1} if name == "flora" else {}
+                if counts["launches"] != want or counts["plain_calls"] or \
+                        counts["collectives"] != {"all_reduce": 0,
+                                                  "all_gather": 1}:
+                    raise AssertionError(f"distributed (b) {name}: {counts}")
+                if not (gap <= 0.01 and err <= 1e-4 * scale):
+                    raise AssertionError(f"distributed (b) {name}: the "
+                                         "gathered round disagrees with "
+                                         "the kernel round")
+                _leaves_on_card(last[2].adapters)
+                launches_on_path.update(counts["launches"])
+            # (c) the async service: streaming, then a buffer of 5
+            hist, launches, plain, rec, secs = drive_async(
+                dict(ASYNC_CFG, agg_backend="distributed"))
+            counts = _dist_counts(launches, plain)
+            k_hist, k_launches, _, k_rec, _ = twin["stream"]
+            same = _same_bits(rec.agg, k_rec.agg)
+            emit({"phase": "distributed", "leg": "async_stream",
+                  "test_acc": hist.test_acc, "seconds": secs, **counts,
+                  "bit_identical": same})
+            folds = {"axpy_fold": ASYNC_CFG["total_updates"]}
+            if (counts["launches"] != folds or counts["plain_calls"]
+                    or any(counts["collectives"].values()) or not same
+                    or hist.test_acc != k_hist.test_acc):
+                raise AssertionError(f"distributed (c) streaming: {counts}, "
+                                     f"bit identical {same}")
+            launches_on_path.update(counts["launches"])
+            hist, launches, plain, rec, secs = drive_async(
+                dict(semi_cfg, agg_backend="distributed"))
+            counts = _dist_counts(launches, plain)
+            k_hist, _, _, k_rec, _ = twin["semi"]
+            err, scale = _rel_err(rec.agg.state.adapters,
+                                  k_rec.agg.state.adapters)
+            gap = max(abs(a - b) for a, b in zip(hist.test_acc,
+                                                 k_hist.test_acc))
+            flushes = rec.agg.n_flushes
+            emit({"phase": "distributed", "leg": "async_buffered",
+                  "test_acc": hist.test_acc, "seconds": secs, **counts,
+                  "n_flushes": flushes, "max_acc_gap": gap,
+                  "adapters_max_abs_err": err, "adapters_tol": 1e-3 * scale})
+            if counts["collectives"] != {"all_reduce": flushes,
+                                         "all_gather": 0} \
+                    or counts["launches"] or counts["plain_calls"] \
+                    or flushes != semi_cfg["total_updates"] // 5:
+                raise AssertionError(f"distributed (c) buffered: {counts}, "
+                                     f"{flushes} flushes")
+            if not (gap <= 0.01 and err <= 1e-3 * scale):
+                raise AssertionError("distributed (c) buffered: the "
+                                     "collective flushes disagree with the "
+                                     "kernel flushes")
+        finally:
+            dist.destroy_process_group()
+        # (d) two gloo ranks on one card, over the quickstart's last cohort
+        ranks = _two_ranks(twin["main"][3], smi, tmp)
+    return {"launches": launches_on_path, "round": round_row,
+            "two_rank_wall_ms": [r["rbla_round_wall_ms"] for r in ranks],
+            "gather": ranks[0]["gather"]}
+
+
 def _args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
@@ -3476,6 +3812,8 @@ def run_selected(names, smi: str) -> dict:
             summary["ssd_scan"] = phase_ssd_kernels()
         elif name == "async_durable":
             phase_async_durable(smi)
+        elif name == "distributed":
+            phase_distributed(smi)
         emit({"phase": name, "ok": True})
     return summary
 
@@ -3591,6 +3929,11 @@ def main(argv=None) -> int:
     phase_mamba_plain(rig, rig32, kernel_logits)
     phase_mamba_consistency(rig, rig32)
     summary["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
+
+    dist_path = phase_distributed(smi)
+    emit({"phase": "distributed", "ok": True, **dist_path})
+    for name in ("axpy_fold", "flora_stack"):
+        summary[name]["distributed_launches"] = dist_path["launches"][name]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     emit({"kernels": list(summary.values())})

@@ -26,8 +26,15 @@ turns a round into
    factored SVD per bucket (``repro_torch.core.lowrank``).
 3. **Cache.**  Plans are cached on the strategy instance keyed by the
    :class:`CohortSpec` (tree structure, shapes, dtypes, rank multiset,
-   codec mix, backend, device) and the strategy's ``plan_knobs`` in a
-   bounded LRU; see ``AggregationStrategy.plan``.
+   codec mix, backend, device, client mesh) and the strategy's
+   ``plan_knobs`` in a bounded LRU; see ``AggregationStrategy.plan``.
+
+On the ``distributed`` backend the mean family's round is one collective:
+each rank reduces its slice of the clients, every pair side where it lies,
+into fp32 numerators and denominators, and one ``all_reduce`` of one
+buffer sums them (:func:`_build_mean_distributed`); flora and svd take
+their gathered collectives through the per-leaf path
+(``repro_torch.core.distributed`` states the contract).
 
 :func:`build_fold_plan` hands every pair side of the server state to the
 async fold's one grouped ``axpy_fold`` call, each leaf in its own layout.
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
@@ -49,6 +57,7 @@ from repro_torch.kernels.rbla_agg import (packed_agg_group_ref,
 from repro_torch.kernels.rbla_agg.ops import grouped_launch
 
 from .aggregation import _EPS
+from .compat import all_reduce_sum, client_group, local_slice
 from .masks import pad_to_rank
 
 PyTree = Any
@@ -58,6 +67,41 @@ class PlanUnavailable(Exception):
     """A plan cannot be built for these inputs (bare leaves, mismatched
     prev shapes); callers take the per-leaf path, which handles
     everything."""
+
+
+#: the default client mesh of each axis name, with the world group it spans
+_DEFAULT_MESHES: dict = {}
+
+
+def default_client_mesh(client_axis: str = "clients"):
+    """The 1-D client mesh over every rank of the default process group --
+    the shared default of every distributed aggregation path -- or
+    ``None`` when no group is initialised: a world of this process alone,
+    in which no collective is called (the reference's one-device mesh).
+    The reference sizes its mesh to the largest device count dividing the
+    cohort; here each rank takes a slice as even as the cohort allows
+    (``compat.client_slices``), so the mesh is always the whole world.
+    Built once per world group and axis: a mesh may create a group."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return None
+    world = dist.group.WORLD
+    got = _DEFAULT_MESHES.get(client_axis)
+    if got is None or got[0] is not world:
+        from torch.distributed.device_mesh import init_device_mesh
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        got = _DEFAULT_MESHES[client_axis] = (world, init_device_mesh(
+            device, (dist.get_world_size(),), mesh_dim_names=(client_axis,)))
+    return got[1]
+
+
+def resolve_client_group(mesh, client_axis: str):
+    """The process group a distributed round reduces over: ``client_axis``
+    of ``mesh``, or of :func:`default_client_mesh` for ``mesh=None``
+    (``None`` again, and no collective, without a process group)."""
+    if mesh is None:
+        mesh = default_client_mesh(client_axis)
+    return client_group(mesh, client_axis)
 
 
 # ------------------------------------------------------------- cohort spec --
@@ -123,7 +167,7 @@ class PairMeta:
 class CohortSpec:
     """Hashable plan-cache key: everything a plan closes over."""
     n_clients: int
-    kind: str                       # resolved backend: "ref" | "kernel"
+    kind: str               # resolved: "ref" | "kernel" | "distributed"
     r_max: int | None
     pairs: tuple[PairMeta, ...]
     client_ranks: tuple | None
@@ -132,11 +176,16 @@ class CohortSpec:
     #: per-client upload codec names ("none" | "bf16" | "int8") of an
     #: encoded cohort; None for a plain stacked cohort
     codecs: tuple | None = None
+    #: the distributed round's client mesh (a ``DeviceMesh``; None for the
+    #: default one) and the axis its clients lie along
+    mesh: Any = None
+    client_axis: str = "clients"
 
 
 def build_cohort_spec(stacked_tree: PyTree, *, kind: str,
                       r_max: int | None = None, client_ranks=None,
-                      prev_tree: PyTree | None = None) -> CohortSpec:
+                      prev_tree: PyTree | None = None, mesh=None,
+                      client_axis: str = "clients") -> CohortSpec:
     """Describe a stacked cohort host-side; raises :class:`PlanUnavailable`
     for trees with bare leaves or unstacked pairs."""
     if client_ranks is not None:
@@ -172,7 +221,8 @@ def build_cohort_spec(stacked_tree: PyTree, *, kind: str,
         raise PlanUnavailable("no LoRA pairs in the cohort tree")
     return CohortSpec(n_clients=pairs[0].a_shape[0], kind=kind, r_max=r_max,
                       pairs=tuple(pairs), client_ranks=client_ranks,
-                      has_prev=prev_tree is not None, device=device)
+                      has_prev=prev_tree is not None, device=device,
+                      mesh=mesh, client_axis=client_axis)
 
 
 def build_encoded_cohort_spec(client_trees: Sequence, codecs, *, kind: str,
@@ -344,11 +394,13 @@ class CompiledRound:
     """One aggregation round for a fixed :class:`CohortSpec`.
 
     ``__call__(stacked_tree, weights, prev_tree=None)`` runs the round.
-    ``kind`` is "packed" (a planned round) or "eager" (the per-leaf path);
+    ``kind`` is "packed" (a planned round), "distributed" (the mean
+    family's collective round) or "eager" (the per-leaf path);
     ``n_kernel_launches`` is the packed plan's device computations per
     round (1 for the mean and robust families; for the stack plan 1 if
     any pair stacks, plus one per pair re-projected by SVD; #buckets for
-    the svd plan);
+    the svd plan; 0 for the collective round, whose reductions are plain
+    PyTorch ops around its ``all_reduce``);
     ``n_fallback_pairs`` counts the pairs a packed plan still routes
     through reference pair math (flora's over-cap re-projection).
     """
@@ -423,6 +475,8 @@ def _build_mean_round(strategy, spec: CohortSpec,
                     or meta.prev_b_shape != meta.b_shape[1:]):
                 raise PlanUnavailable(
                     "prev leaf shapes differ from the cohort's")
+    if spec.kind == "distributed":
+        return _build_mean_distributed(strategy, spec, slots, mask, retains)
     cr = _client_ranks(spec)
     rank_leaves = _out_rank_leaves(spec)
     masks = torch.as_tensor(mask, device=spec.device)
@@ -477,6 +531,83 @@ def _build_mean_round(strategy, spec: CohortSpec,
 
     return CompiledRound(strategy, spec, "packed", execute,
                          n_kernel_launches=1)
+
+
+# ------------------------------------------------ the collective mean round --
+def _side_shape(s: Slot) -> tuple:
+    """A slot's leaf shape: A ``(*lead, r, fan_in)``, B ``(*lead, fan_out,
+    r)``."""
+    return s.lead + ((s.r_st, s.width) if s.side == "A"
+                     else (s.width, s.r_st))
+
+
+def _build_mean_distributed(strategy, spec: CohortSpec, slots, mask,
+                            retains: bool) -> CompiledRound:
+    """The mean family's collective round.  Each rank takes its slice of
+    the clients (``compat.local_slice``) and reduces every pair side where
+    it lies -- A by rank row, B by rank column -- into fp32 numerators
+    ``sum_i w_i m_ir x_i`` and denominators ``sum_i w_i m_ir`` (the total
+    weight for ``norm_by="weight"``); every side's numerator and
+    denominator go into one fp32 buffer and one ``all_reduce`` a round
+    sums them over the client group.  The combine is the reference's:
+    ``num / (den + eps)`` where an owner has mass, else prev (strategies
+    that retain it) or 0.  Every rank returns the same aggregate; without
+    a process group the rank's slice is the whole cohort and no collective
+    runs.  The weights are transformed on the whole cohort first (a slice
+    does not see the global rank vector)."""
+    n = spec.n_clients
+    cr = _client_ranks(spec)
+    rank_leaves = _out_rank_leaves(spec)
+    masks = torch.as_tensor(mask, device=spec.device)
+    by_weight = strategy.norm_by == "weight"
+    shapes = [_side_shape(s) for s in slots]
+    sizes = ([math.prod(sh) for sh in shapes]
+             + ([1] if by_weight else [s.rows for s in slots]))
+    rebuild, paths = [None], [None]
+
+    def execute(stacked_tree, w, prev_tree):
+        if rebuild[0] is None:
+            rebuild[0] = _make_rebuilder(stacked_tree)
+            paths[0] = [p for p, _ in _walk_pairs(stacked_tree)]
+        group = resolve_client_group(spec.mesh, spec.client_axis)
+        loc = local_slice(n, group)
+        ab = _pairs_at(stacked_tree, paths[0])
+        wt = strategy.transform_weights(w, cr)[loc]
+        nums, dens = [], []
+        for s, shape in zip(slots, shapes):
+            x = ab[s.pair_idx][s.side][loc].float()
+            wm = wt[:, None] * masks[loc, s.offset:s.offset + s.rows]
+            # (n_loc, L, r) owner weights against (n_loc, L, r, fan_in) A
+            # rows or (n_loc, L, fan_out, r) B columns
+            L = s.rows // s.r_st
+            sub = "nlr,nlrd->lrd" if s.side == "A" else "nlr,nldr->ldr"
+            nums.append(torch.einsum(
+                sub, wm.reshape(-1, L, s.r_st),
+                x.reshape((-1, L) + shape[len(s.lead):])).reshape(-1))
+            if not by_weight:
+                dens.append(wm.sum(0))
+        if by_weight:
+            dens.append(wt.sum().reshape(1))
+        buf = all_reduce_sum(torch.cat(nums + dens), group)
+        parts = torch.split(buf, sizes)
+        pairs = [{"A": None, "B": None, "rank": rank_leaves[i]}
+                 for i in range(len(spec.pairs))]
+        prev_ab = _pairs_at(prev_tree, paths[0]) if retains else None
+        for i, (s, shape) in enumerate(zip(slots, shapes)):
+            num = parts[i].reshape(shape)
+            if by_weight:
+                out = num / (parts[-1] + _EPS)
+            else:       # one value a rank row: A's rows, B's columns
+                den = parts[len(slots) + i].reshape(s.lead + (
+                    (s.r_st, 1) if s.side == "A" else (1, s.r_st)))
+                fb = (prev_ab[s.pair_idx][s.side].float() if retains
+                      else torch.zeros_like(num))
+                out = torch.where(den > 0, num / (den + _EPS), fb)
+            pairs[s.pair_idx][s.side] = out.to(s.dtype)
+        return rebuild[0](pairs)
+
+    return CompiledRound(strategy, spec, "distributed", execute,
+                         n_kernel_launches=0)
 
 
 # ------------------------------------------------------ packed stack plans --
@@ -665,7 +796,7 @@ def _build_svd_round(strategy, spec: CohortSpec) -> CompiledRound:
 
 def _build_eager_round(strategy, spec: CohortSpec) -> CompiledRound:
     """The per-leaf path behind a plan's interface (cohorts a packed plan
-    cannot take)."""
+    cannot take, and flora's and svd's gathered collectives)."""
     cr = _client_ranks(spec)
 
     def execute(stacked_tree, w, prev_tree):
@@ -674,6 +805,11 @@ def _build_eager_round(strategy, spec: CohortSpec) -> CompiledRound:
         if spec.kind == "kernel":
             out = strategy.aggregate_tree_kernel(stacked_tree, w, cr, prev,
                                                  r_max=spec.r_max)
+        elif spec.kind == "distributed":
+            out = strategy.aggregate_tree_distributed(
+                stacked_tree, adapter_masks(stacked_tree), w, prev,
+                r_max=spec.r_max, client_ranks=cr, mesh=spec.mesh,
+                client_axis=spec.client_axis)
         else:
             masks = adapter_masks(stacked_tree)
             out = strategy.aggregate_tree(stacked_tree, masks, w, prev,
@@ -691,8 +827,25 @@ def build_plan(strategy, spec: CohortSpec) -> CompiledRound:
     layer-stacked ones to the per-leaf path (which refuses them); "stack"
     is flora's copy/scale round; "svd" the batched factored SVD round.
     Encoded cohorts plan only on the mean family; any other case raises
-    :class:`PlanUnavailable` for them, and the caller decodes."""
+    :class:`PlanUnavailable` for them, and the caller decodes.  On the
+    ``distributed`` backend "mean" is the collective round, "mean_norm"
+    refuses, and "stack" and "svd" take their gathered collectives through
+    the per-leaf path."""
     mode = getattr(strategy, "plan_mode", None)
+    if spec.kind == "distributed":
+        if spec.codecs is not None:
+            raise PlanUnavailable("encoded cohorts decode before a "
+                                  "distributed round")
+        if mode == "mean_norm":
+            raise NotImplementedError(
+                f"strategy {strategy.name!r}: the per-row norm restore has "
+                "no distributed round; use backend='ref'")
+        if mode == "mean":
+            try:
+                return _build_mean_round(strategy, spec)
+            except PlanUnavailable:
+                pass
+        return _build_eager_round(strategy, spec)
     if spec.codecs is not None:
         if mode == "mean" or (mode == "mean_norm" and all(
                 len(m.a_shape) == 3 for m in spec.pairs)):
@@ -778,4 +931,5 @@ def build_fold_plan(strategy, spec: CohortSpec) -> Callable:
 
 __all__ = ["CohortSpec", "PairMeta", "CompiledRound", "PlanUnavailable",
            "build_cohort_spec", "build_encoded_cohort_spec", "build_plan",
-           "build_fold_plan", "build_state_spec", "pair_side_rows"]
+           "build_fold_plan", "build_state_spec", "pair_side_rows",
+           "default_client_mesh", "resolve_client_group"]

@@ -15,19 +15,26 @@ Each method is one :class:`AggregationStrategy` that owns
   (:meth:`AggregationStrategy.fold` and the ``supports_incremental``
   declaration; see ``repro_torch.fl.async_agg``): every leaf of the server
   state and the arriving update is one segment of a single grouped
-  ``axpy_fold`` call per fold (one launch per dtype triple),
+  ``axpy_fold`` call per fold (one launch per dtype triple), and
+* (f) a **distributed path** over ``torch.distributed``
+  (:meth:`AggregationStrategy.aggregate_tree_distributed`,
+  :meth:`AggregationStrategy.make_distributed_aggregator`,
+  :meth:`AggregationStrategy.allreduce_leaf`, and the mean family's
+  collective round in ``repro_torch.core.plan``; the SPMD contract is in
+  ``repro_torch.core.distributed``),
 
-behind ``backend="auto" | "ref" | "kernel"`` (``"pallas"`` is an alias of
-``"kernel"``): ``auto`` runs the kernels for tensors on a CUDA device and
-the plain PyTorch versions for tensors on the CPU.
+behind ``backend="auto" | "ref" | "kernel" | "distributed"`` (``"pallas"``
+is an alias of ``"kernel"``): ``auto`` runs the kernels for tensors on a
+CUDA device and the plain PyTorch versions for tensors on the CPU.
 
 The port runs the mean family (fedavg, zeropad, rbla, rbla_ranked,
 rbla_norm), the robust family (rbla_clipped, rbla_trimmed, rbla_median),
 svd (product-space aggregation through ``repro_torch.core.lowrank``) and
 flora (rank-growing stacking), on plain or encoded (int8/bf16,
 ``repro_torch.core.codec``) uploads, one cohort at a time or one update at
-a time.  The distributed backend raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+a time.  ``supports_distributed`` declares the strategies with a
+distributed path, as in the JAX package: rbla_norm and the robust family
+have none and refuse it.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from repro_torch.kernels.runtime import resolve_backend, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
 from .aggregation import _EPS, fedavg_leaf, rbla_leaf, zeropad_leaf
+from .compat import all_gather_slices, all_reduce_sum, local_slice
 from .lowrank import product_factors, svd_project_stacked
 from .masks import pad_to_rank, stacked_rank_masks
 from .variants import rank_proportional_weights, rbla_norm_leaf
@@ -272,6 +280,50 @@ def _state_device(state: ServerState) -> torch.device:
     return got if got is not None else torch.device("cpu")
 
 
+def _retain_prev(tree: PyTree, prev: PyTree, client_ranks) -> PyTree:
+    """Rank rows no participant owns keep the server's current value: row r
+    is owned iff r < max(participant ranks), the per-element ``den > 0``
+    test for rank-row masks and positive weights."""
+    rmax = int(torch.as_tensor(client_ranks).max())
+
+    def fix(pair, prev_pair):
+        A, B = pair["A"], pair["B"]
+        owned = torch.arange(A.shape[-2], device=A.device) < rmax
+        return {"A": torch.where(owned[:, None], A,
+                                 prev_pair["A"].to(A.dtype)),
+                "B": torch.where(owned[None, :], B,
+                                 prev_pair["B"].to(B.dtype)),
+                "rank": pair["rank"]}
+    return _map_pairs(fix, tree, prev)
+
+
+def _gather_cohort(stacked_tree: PyTree, weights: torch.Tensor,
+                   client_ranks, group) -> tuple:
+    """Each rank's slice of the cohort, gathered to every rank in one
+    ``all_gather``: per client, every leaf of the stacked tree (factors and
+    rank leaves), its weight and its rank (when given) ride as one fp32 row,
+    and come back in their own dtypes (bf16 and int32 round-trip fp32
+    exactly).  Returns the whole cohort's ``(stacked_tree, weights,
+    client_ranks)``; without a group, the inputs as they are."""
+    if group is None:
+        return stacked_tree, weights, client_ranks
+    n = int(weights.shape[0])
+    loc = local_slice(n, group)
+    leaves = tree_leaves(stacked_tree) + [weights]
+    if client_ranks is not None:
+        leaves.append(torch.as_tensor(client_ranks, device=weights.device))
+    widths = [t[0].numel() for t in leaves]
+    rows = all_gather_slices(torch.cat(
+        [t[loc].reshape(loc.stop - loc.start, wd).float()
+         for t, wd in zip(leaves, widths)], 1), n, group)
+    full = [part.reshape(t.shape).to(t.dtype)
+            for part, t in zip(torch.split(rows, widths, 1), leaves)]
+    it = iter(full)
+    tree = tree_map(lambda _: next(it), stacked_tree)
+    w = next(it)
+    return tree, w, (next(it) if client_ranks is not None else None)
+
+
 # ------------------------------------------------------------ the protocol --
 class AggregationStrategy:
     """One server-side aggregation method, every execution path.
@@ -304,6 +356,8 @@ class AggregationStrategy:
     #: folding a cohort one update at a time (:meth:`fold`) reproduces the
     #: one-shot :meth:`aggregate`; the async service replays the rest
     supports_incremental: bool = False
+    #: ``backend="distributed"`` has a collective path (else it refuses)
+    supports_distributed: bool = True
 
     def with_options(self, **options) -> "AggregationStrategy":
         """A configured copy of this strategy.  Registered instances are
@@ -337,8 +391,14 @@ class AggregationStrategy:
         cached on this instance in a bounded LRU keyed by the spec and
         :meth:`plan_knobs`; :attr:`plan_stats` counts hits and misses.
         ``state`` is unused (the spec encodes the layout) and may be
-        None."""
+        None.  A distributed spec raises ``NotImplementedError`` for a
+        strategy without a distributed path."""
         from .plan import build_plan
+        if (cohort_spec.kind == "distributed"
+                and not self.supports_distributed):
+            raise NotImplementedError(
+                f"strategy {self.name!r} has no distributed path; "
+                "use backend='ref'")
         cache = self.__dict__.setdefault("_plan_cache", OrderedDict())
         stats = self.__dict__.setdefault("plan_stats",
                                          {"hits": 0, "misses": 0})
@@ -355,14 +415,16 @@ class AggregationStrategy:
             cache.popitem(last=False)
         return built
 
-    def _plan_round(self, stacked, kind, *, r_max, client_ranks, prev):
+    def _plan_round(self, stacked, kind, *, r_max, client_ranks, prev,
+                    mesh=None, client_axis="clients"):
         """Plan for an already-stacked cohort; ``None`` when the cohort
         cannot be described host-side (bare leaves)."""
         from .plan import PlanUnavailable, build_cohort_spec
         try:
             spec = build_cohort_spec(stacked, kind=kind, r_max=r_max,
                                      client_ranks=client_ranks,
-                                     prev_tree=prev)
+                                     prev_tree=prev, mesh=mesh,
+                                     client_axis=client_axis)
         except PlanUnavailable:
             return None
         return self.plan(None, spec)
@@ -479,12 +541,139 @@ class AggregationStrategy:
         return (torch.stack([p["rank"] for p in pairs], 1).to(torch.int32),
                 list(range(len(pairs))))
 
+    # ------------------------------------------------ (f) distributed path --
+    def _combine(self, num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+        """The collective paths' combine: ``num / (den + eps)``, and 0 where
+        no owner has mass for ``norm_by="mask"``."""
+        out = num / (den + _EPS)
+        return torch.where(den > 0, out, 0.0) if self.norm_by == "mask" \
+            else out
+
+    def allreduce_leaf(self, local: torch.Tensor, mask, weight, mesh=None,
+                       client_axis: str = "clients") -> torch.Tensor:
+        """Aggregate this rank's one-client leaf with its peers over
+        ``client_axis`` of ``mesh`` (the default client mesh for None): the
+        masked numerator and its denominator in one ``all_reduce``."""
+        if not self.supports_distributed:
+            raise NotImplementedError(
+                f"strategy {self.name!r} has no distributed path")
+        from .plan import resolve_client_group
+        x = local.float()
+        w = torch.as_tensor(weight, dtype=torch.float32, device=x.device)
+        mask = _squeeze_mask(mask) if self.use_mask else None
+        m = (torch.ones_like(x) if mask is None
+             else torch.broadcast_to(mask.float(), x.shape))
+        den = w * m if self.norm_by == "mask" else w.reshape(1)
+        buf = all_reduce_sum(torch.cat([(w * m * x).reshape(-1),
+                                        den.reshape(-1)]),
+                             resolve_client_group(mesh, client_axis))
+        num, den = torch.split(buf, [x.numel(), den.numel()])
+        den = den.reshape(x.shape) if self.norm_by == "mask" else den
+        return self._combine(num.reshape(x.shape), den).to(local.dtype)
+
+    def aggregate_tree_distributed(self, stacked_tree: PyTree,
+                                   mask_tree: PyTree, weights,
+                                   prev_tree: PyTree | None = None, *,
+                                   r_max: int | None = None,
+                                   client_ranks=None, mesh=None,
+                                   client_axis: str = "clients") -> PyTree:
+        """Distributed path over a stacked tree that every rank holds whole:
+        the weights are transformed on the whole cohort (a rank's slice
+        does not see the global rank vector), each rank reduces its slice
+        through :meth:`make_distributed_aggregator`, and prev retention is
+        applied after.  flora and svd override it with their gathered
+        collectives."""
+        wt = self.transform_weights(torch.as_tensor(weights).float(),
+                                    client_ranks)
+        out = self._aggregate_distributed(stacked_tree, mask_tree, wt, mesh,
+                                          client_axis)
+        if (prev_tree is not None and self.retains_prev
+                and client_ranks is not None):
+            out = _retain_prev(out, prev_tree, client_ranks)
+        return out
+
+    def make_distributed_aggregator(self, mesh, client_axis: str = "data"):
+        """A callable ``(stacked_tree, mask_tree, weights) -> tree`` over
+        ``client_axis`` of ``mesh`` (the default client mesh for None) that
+        takes **this rank's clients only**: leaves ``(n_local, ...)``, their
+        masks and weights already transformed (:meth:`transform_weights`
+        needs the global rank vector).  The local clients are reduced to
+        masked partial sums, then every leaf's numerator and denominator
+        are summed over the ranks in one ``all_reduce``: a two-level
+        reduction.  Every rank returns the same tree."""
+        if not self.supports_distributed:
+            raise NotImplementedError(
+                f"strategy {self.name!r} has no distributed path; "
+                "use backend='ref'")
+        from .plan import resolve_client_group
+        by_mask = self.norm_by == "mask"
+
+        def aggregate(stacked_tree, mask_tree, weights):
+            wf = torch.as_tensor(weights).float()
+            nums, dens, leaves = [], [], []
+
+            def reduce(x, m):
+                m = _squeeze_mask(m) if self.use_mask else None
+                xf = x.float()
+                w = wf.reshape(wf.shape + (1,) * (xf.ndim - 1))
+                mf = (torch.ones_like(xf) if m is None
+                      else torch.broadcast_to(m.float(), xf.shape))
+                nums.append((w * mf * xf).sum(0))
+                if by_mask:
+                    dens.append((w * mf).sum(0))
+                leaves.append(x)
+                return _Slot(len(leaves) - 1)
+            skeleton = tree_map(reduce, stacked_tree, mask_tree)
+            if not by_mask:
+                dens = [wf.sum()]
+            sizes = [t.numel() for t in nums + dens]
+            buf = all_reduce_sum(
+                torch.cat([t.reshape(-1) for t in nums + dens]),
+                resolve_client_group(mesh, client_axis))
+            parts = torch.split(buf, sizes)
+            outs = []
+            for i, (num, x) in enumerate(zip(nums, leaves)):
+                den = parts[len(nums) + i] if by_mask else parts[-1]
+                outs.append(self._combine(parts[i].reshape(num.shape),
+                                          den.reshape(num.shape) if by_mask
+                                          else den).to(x.dtype))
+            return tree_map(lambda t: outs[t.index], skeleton)
+        return aggregate
+
+    def _aggregate_distributed(self, stacked, masks, w, mesh, client_axis):
+        """This rank's slice of a whole stacked cohort through
+        :meth:`make_distributed_aggregator`; 0-d ("fully shared") masks are
+        materialised first, so that they slice over clients."""
+        from .plan import resolve_client_group
+        loc = local_slice(int(w.shape[0]),
+                          resolve_client_group(mesh, client_axis))
+        full = tree_map(lambda x, m: (
+            torch.ones(x.shape, device=x.device) if m.ndim == 0
+            else torch.broadcast_to(m.float(), x.shape)), stacked, masks)
+        agg = self.make_distributed_aggregator(mesh, client_axis)
+        return agg(tree_map(lambda t: t[loc], stacked),
+                   tree_map(lambda t: t[loc], full), w[loc])
+
+    def _fold_kind(self, backend: str, device) -> str:
+        """A fold's backend: one update has nothing to distribute, so a
+        ``"distributed"`` fold runs on the device's own backend (the kernels
+        on the card, the plain versions on the CPU); a strategy without a
+        distributed path refuses it, as its rounds do."""
+        kind = resolve_backend(backend, device)
+        if kind != "distributed":
+            return kind
+        if not self.supports_distributed:
+            raise NotImplementedError(
+                f"strategy {self.name!r} has no distributed path; "
+                "use backend='ref'")
+        return resolve_backend("auto", device)
+
     # ----------------------------------------------------- mid-level API --
     def aggregate_adapters(self, client_adapters: Sequence[PyTree], weights,
                            *, r_max: int | None = None, client_ranks=None,
                            prev_global: PyTree | None = None,
-                           backend: str = "auto",
-                           use_plan: bool = True) -> PyTree:
+                           backend: str = "auto", use_plan: bool = True,
+                           mesh=None, client_axis: str = "clients") -> PyTree:
         """Aggregate per-client adapter trees into the global adapter.
 
         Stacks the uploads and runs the round through a cached compiled
@@ -496,8 +685,13 @@ class AggregationStrategy:
         them directly -- per-client wire-dtype payloads, dequantisation
         fused into ``packed_agg``/``packed_robust``, one launch a round
         (mixed codecs too).  Every other strategy, a client whose pairs
-        mix codecs, and an unplannable cohort decode eagerly and take the
-        standard path."""
+        mix codecs, an unplannable cohort and a distributed round decode
+        eagerly and take the standard path.
+
+        ``backend="distributed"`` reduces over ``client_axis`` of ``mesh``
+        (the default client mesh for None); every rank is given the whole
+        cohort and returns the same aggregate (``repro_torch.core
+        .distributed``)."""
         from repro_torch.lora import adapter_masks
 
         from .codec import cohort_codecs, decode_adapters
@@ -505,6 +699,7 @@ class AggregationStrategy:
         if codecs is not None:
             kind_enc = resolve_backend(backend, _device_of(client_adapters))
             if (use_plan and "mixed" not in codecs
+                    and kind_enc != "distributed"
                     and self.plan_mode in ("mean", "mean_norm")):
                 prev_enc = prev_global if self.retains_prev else None
                 round_ = self._plan_encoded_round(
@@ -525,7 +720,8 @@ class AggregationStrategy:
         kind = resolve_backend(backend, device)
         if use_plan:
             round_ = self._plan_round(stacked, kind, r_max=r_max,
-                                      client_ranks=client_ranks, prev=prev)
+                                      client_ranks=client_ranks, prev=prev,
+                                      mesh=mesh, client_axis=client_axis)
             if round_ is not None:
                 return round_(stacked, w, prev)
         if kind == "kernel":
@@ -533,8 +729,15 @@ class AggregationStrategy:
                                              r_max=r_max)
         else:
             masks = stack_trees([adapter_masks(a) for a in client_adapters])
-            out = self.aggregate_tree(stacked, masks, w, prev, r_max=r_max,
-                                      client_ranks=client_ranks)
+            if kind == "distributed":
+                out = self.aggregate_tree_distributed(
+                    stacked, masks, w, prev, r_max=r_max,
+                    client_ranks=client_ranks, mesh=mesh,
+                    client_axis=client_axis)
+            else:
+                out = self.aggregate_tree(stacked, masks, w, prev,
+                                          r_max=r_max,
+                                          client_ranks=client_ranks)
         return self.finalize_tree(out, r_max)
 
     def finalize_tree(self, out: PyTree, r_max: int | None) -> PyTree:
@@ -544,11 +747,13 @@ class AggregationStrategy:
     # ---------------------------------------------------- high-level API --
     def aggregate(self, state: ServerState,
                   client_updates: Sequence[ClientUpdate], weights=None, *,
-                  backend: str = "auto", device="cuda") -> ServerState:
+                  backend: str = "auto", device="cuda", mesh=None,
+                  client_axis: str = "clients") -> ServerState:
         """One server round: fold a participant cohort into ``state``.
 
         Non-LoRA trainables are FedAvg'd; adapters go through this
-        strategy.  ``weights`` defaults to the updates' ``n_examples``.
+        strategy (over ``client_axis`` of ``mesh`` on the distributed
+        backend).  ``weights`` defaults to the updates' ``n_examples``.
         The state's tensors must lie on ``device``."""
         device = resolve_device(device)
         for tree in (state.adapters, state.base_trainable):
@@ -576,7 +781,8 @@ class AggregationStrategy:
                 and all(a is not None for a in ad_trees)):
             new_adapters = self.aggregate_adapters(
                 ad_trees, w, r_max=state.r_max, client_ranks=ranks,
-                prev_global=state.adapters, backend=backend)
+                prev_global=state.adapters, backend=backend, mesh=mesh,
+                client_axis=client_axis)
 
         current_rank = (adapter_live_ranks(new_adapters)
                         if new_adapters is not None else state.current_rank)
@@ -612,7 +818,8 @@ class AggregationStrategy:
         if w <= 0:
             raise ValueError(f"fold needs a positive weight, got {w}")
         device = _state_device(state)
-        agg = self.aggregate(state, [update], weights=[w], backend=backend,
+        kind = self._fold_kind(backend, device)
+        agg = self.aggregate(state, [update], weights=[w], backend=kind,
                              device=device)
         alpha = w / (fs.mass + w)
         batch = _FoldBatch()
@@ -621,8 +828,7 @@ class AggregationStrategy:
             new_adapters = batch.add_tree(state.adapters, agg.adapters, alpha)
         new_base = batch.add_tree(state.base_trainable, agg.base_trainable,
                                   alpha)
-        new_adapters, new_base = batch.run(resolve_backend(backend, device),
-                                           (new_adapters, new_base))
+        new_adapters, new_base = batch.run(kind, (new_adapters, new_base))
         new_fs = FoldState(mass=fs.mass + w, row_mass=fs.row_mass,
                            n_folds=fs.n_folds + 1)
         current_rank = (adapter_live_ranks(new_adapters)
@@ -801,7 +1007,7 @@ class RBLAStrategy(AggregationStrategy):
         if w <= 0:
             raise ValueError(f"fold needs a positive weight, got {w}")
         dev = _state_device(state)
-        kind = resolve_backend(backend, dev)
+        kind = self._fold_kind(backend, dev)
 
         batch = _FoldBatch()
         new_adapters, new_row_mass = state.adapters, fs.row_mass
@@ -884,6 +1090,14 @@ class RBLARankedStrategy(RBLAStrategy):
         return rank_proportional_weights(
             weights, torch.as_tensor(client_ranks, device=weights.device))
 
+    def allreduce_leaf(self, local, mask, weight, mesh=None,
+                       client_axis="clients"):
+        raise NotImplementedError(
+            "rbla_ranked cannot reweight inside a one-client collective (a "
+            "rank never sees the global rank vector); apply "
+            "rank_proportional_weights to the weights first and use the "
+            "'rbla' strategy")
+
 
 @register_strategy
 class RBLANormStrategy(AggregationStrategy):
@@ -892,6 +1106,7 @@ class RBLANormStrategy(AggregationStrategy):
     name = "rbla_norm"
     norm_by = "mask"
     plan_mode = "mean_norm"
+    supports_distributed = False
 
     def leaf(self, stacked, mask, weights, prev=None):
         return rbla_leaf(stacked, mask, weights, prev)
@@ -953,6 +1168,8 @@ class RobustRBLAStrategy(AggregationStrategy):
     use_mask = True
     retains_prev = True
     plan_mode = "mean"
+    #: robust statistics need every owner's value on one device
+    supports_distributed = False
     #: L2 clip applied per (client, rank-row) by "clipped"
     clip_norm: float = 100.0
     #: per-end trim fraction of a row's owners used by "trimmed"
@@ -1093,6 +1310,30 @@ class SVDStrategy(AggregationStrategy):
         the JAX package also leaves them to the compiler's library)."""
         return self.aggregate_tree(stacked_tree, None, weights, prev_tree,
                                    r_max=r_max, client_ranks=client_ranks)
+
+    def make_distributed_aggregator(self, mesh, client_axis: str = "data"):
+        raise NotImplementedError(
+            "svd's distributed path gathers the low-rank factors "
+            "(all_gather moves (out+in)*r per client; a dense out*in "
+            "delta psum would defeat the factored engine) and projects "
+            "replicated -- use aggregate_tree_distributed / "
+            "aggregate_adapters(backend='distributed') instead")
+
+    def aggregate_tree_distributed(self, stacked_tree, mask_tree, weights,
+                                   prev_tree=None, *, r_max=None,
+                                   client_ranks=None, mesh=None,
+                                   client_axis: str = "clients"):
+        """Gathered-factor collective: each rank gathers every rank's slice
+        of the low-rank factors, rank leaves, weights and client ranks --
+        O((out + in) * r) bytes a client on the wire, never a dense delta
+        -- and runs the factored projection replicated, on the tensors'
+        device."""
+        from .plan import resolve_client_group
+        tree, w, cr = _gather_cohort(
+            stacked_tree, torch.as_tensor(weights).float(), client_ranks,
+            resolve_client_group(mesh, client_axis))
+        return self.aggregate_tree(tree, None, w, None, r_max=r_max,
+                                   client_ranks=cr)
 
 
 # --------------------------------------------------------------------- flora --
@@ -1404,7 +1645,7 @@ class FloraStrategy(AggregationStrategy):
                 rank_seen = max((p["seg_ranks"][-1] for p in new_pairs
                                  if p["seg_ranks"]), default=None)
 
-        kind = resolve_backend(backend, dev)
+        kind = self._fold_kind(backend, dev)
         new_base = state.base_trainable
         if tree_leaves(update.base_trainable):
             batch = _FoldBatch()
@@ -1497,3 +1738,33 @@ class FloraStrategy(AggregationStrategy):
                                tuple(pairs[p][0]["rank"].shape[1:]), r_total,
                                pairs[p][0]["rank"].device)}
         return _place_pairs(skeleton, outs)
+
+    # ---------------------------------------------- (f) distributed path --
+    def make_distributed_aggregator(self, mesh, client_axis: str = "data"):
+        raise NotImplementedError(
+            "flora's distributed path is a ragged concat "
+            "(gather-then-stack), not a uniform masked psum -- the base "
+            "leafwise aggregator would silently average the stacked "
+            "factors; use aggregate_tree_distributed / "
+            "aggregate_adapters(backend='distributed') instead")
+
+    def aggregate_tree_distributed(self, stacked_tree, mask_tree, weights,
+                                   prev_tree=None, *, r_max=None,
+                                   client_ranks=None, mesh=None,
+                                   client_axis: str = "clients"):
+        """Ragged-concat collective: ranks differ per client, so there is
+        no uniform sum.  Each rank gathers every rank's slice of the
+        factors (gather, then stack) and runs the per-pair stacking round
+        replicated, prev first: on the card one ``flora_stack_group``
+        launch stacks every pair within the cap
+        (:meth:`aggregate_tree_kernel`), on the CPU the plain pair math;
+        pairs over the cap are re-projected by ``product_factors``."""
+        from .plan import resolve_client_group
+        tree, w, cr = _gather_cohort(
+            stacked_tree, torch.as_tensor(weights).float(), client_ranks,
+            resolve_client_group(mesh, client_axis))
+        if resolve_backend("auto", w.device) == "kernel":
+            return self.aggregate_tree_kernel(tree, w, cr, prev_tree,
+                                              r_max=r_max)
+        return self.aggregate_tree(tree, None, w, prev_tree, r_max=r_max,
+                                   client_ranks=cr)

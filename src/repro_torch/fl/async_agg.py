@@ -141,8 +141,10 @@ class AsyncAggregator:
         time*, not fold churn, is what discounts an update.
     backend
         Execution backend for the underlying strategy paths (``auto |
-        ref | kernel``; ``auto`` takes the kernels for a state on a CUDA
-        device).
+        ref | kernel | distributed``; ``auto`` takes the kernels for a
+        state on a CUDA device; ``distributed`` runs each flush's cohort
+        round over the client group and each single-update fold on the
+        device's own backend).
     replay_window
         Fully-async mode only: non-incremental strategies replay the
         updates folded since the last anchor; after this many the service

@@ -28,7 +28,8 @@ def aggregate_adapters(client_adapters: Sequence[PyTree], weights,
                        client_ranks=None, prev_global: PyTree | None = None,
                        backend: str = "auto") -> PyTree:
     """Aggregate per-client adapter trees into the global adapter with the
-    registered strategy ``method``; the live rank is reset to r_max."""
+    registered strategy ``method``; the live rank is reset to r_max.
+    ``backend`` is ``auto | ref | kernel | distributed``."""
     warnings.warn(_DEPRECATION % ("aggregate_adapters", "aggregate_adapters"),
                   DeprecationWarning, stacklevel=2)
     return get_strategy(method).aggregate_adapters(

@@ -59,6 +59,7 @@ class FLConfig:
                                    # | rbla_median | svd | flora -- or
                                    # "fft" (full fine-tune)
     agg_backend: str = "auto"      # auto | ref | kernel (alias: pallas)
+                                   # | distributed
     stack_r_cap: int | None = None  # rank-changing strategies (flora):
                                     # stacked-rank cap / server storage
                                     # rank (None = the strategy default)

@@ -3,10 +3,12 @@
 * :func:`resolve_backend` -- ``"auto"`` is ``"kernel"`` for tensors on a
   CUDA device and ``"ref"`` for tensors on the CPU; nothing else is
   consulted.  ``"pallas"`` (the JAX package's name) is an alias of
-  ``"kernel"``.
+  ``"kernel"``.  ``"distributed"`` names the strategies' collective paths
+  (``repro_torch.core.distributed``); no kernel wrapper takes it.
 * :data:`LAUNCHES` -- one plain count per kernel, raised by its wrapper
   right after a launch succeeded and nowhere else; :data:`PLAIN_CALLS`
-  counts calls of each kernel's plain PyTorch version.
+  counts calls of each kernel's plain PyTorch version;
+  :data:`COLLECTIVES` counts ``torch.distributed`` collectives by name.
 * :func:`check_launch`, :func:`stream_handle` -- what every wrapper does
   around a ctypes launch;
 * :func:`bench_env` -- the header every measurement prints.
@@ -27,24 +29,26 @@ KERNELS = ("packed_agg", "rbla_agg", "packed_robust", "packed_stack",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: plain-version calls per kernel since the last :func:`reset_counts`
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: collectives the distributed paths called since the last
+#: :func:`reset_counts`, raised right after each call returned
+COLLECTIVES: dict[str, int] = {"all_reduce": 0, "all_gather": 0}
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
 
 
 def resolve_backend(backend: str, device) -> str:
-    """``"auto" | "ref" | "kernel"`` (or alias) -> ``"ref" | "kernel"``."""
+    """``"auto" | "ref" | "kernel" | "distributed"`` (or alias) -> ``"ref" |
+    "kernel" | "distributed"``."""
     backend = _ALIASES.get(backend, backend)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options: "
                          f"{BACKENDS + tuple(_ALIASES)}")
-    if backend == "distributed":
-        raise NotImplementedError(
-            "backend='distributed' (torch.distributed aggregation) is not "
-            "ported yet; it arrives with ROADMAP queue 1 item 18")
     if backend == "auto":
         return "kernel" if torch.device(device).type == "cuda" else "ref"
     return backend
@@ -53,8 +57,12 @@ def resolve_backend(backend: str, device) -> str:
 def use_kernel(backend: str, x: torch.Tensor, name: str) -> bool:
     """A wrapper's choice for tensor ``x``: launch the kernel (True) or run
     the plain version (False, only ever for a CPU tensor).  A CUDA tensor
-    always launches; asking for the kernel on a CPU tensor raises."""
+    always launches; asking for the kernel on a CPU tensor raises, and so
+    does ``"distributed"``, which names a strategy path, not a kernel's."""
     kind = resolve_backend(backend, x.device)
+    if kind == "distributed":
+        raise ValueError(f"{name}: backend='distributed' is a strategy path; "
+                         "a kernel wrapper takes 'auto', 'ref' or 'kernel'")
     if x.is_cuda:
         if kind != "kernel":
             raise ValueError(f"{name}: a CUDA tensor always takes the kernel; "

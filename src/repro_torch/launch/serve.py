@@ -4,7 +4,8 @@
         --batch 4 --prompt-len 2048 --new 16 --rank 8
 
 The JAX package's ``repro.launch.serve`` path without its mesh (one
-device; sharding waits for ROADMAP item 18): weights from ``Model.init``
+device; the sharding rules come with the rest of the zoo, ROADMAP item
+19b): weights from ``Model.init``
 and adapters from ``Model.init_adapters`` (seeds 0 and 1), random prompt
 tokens from ``numpy.random.default_rng(0)``, one prefill, then ``new - 1``
 decode steps each feeding back the argmax token.  Prints the reference's

@@ -7,6 +7,11 @@ file imports no JAX, so it also runs on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -2022,3 +2027,99 @@ def test_prefill_makes_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ distributed --
+DIST_CHILD = Path(__file__).resolve().parent / "_dist_child.py"
+
+
+def _dist_world(tmp_path, cases, world, backend):
+    """Run ``cases`` in ``world`` ranks of ``tests/_dist_child.py`` on
+    ``cuda:0`` (a ``FileStore`` under ``tmp_path``, 120 s a rank); returns
+    each rank's ``(arrays, meta)``."""
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(cases, f)
+    procs = [subprocess.Popen(
+        [sys.executable, str(DIST_CHILD), str(tmp_path / "inputs.pkl"),
+         str(tmp_path / "store"), str(k), str(world),
+         str(tmp_path / f"out{k}.npz"), backend, "cuda:0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(world)]
+    errs = []
+    try:
+        for k, p in enumerate(procs):
+            _, err = p.communicate(timeout=120)
+            if p.returncode:
+                errs.append(f"rank {k} exited {p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert not errs, "\n".join(errs)
+    outs = []
+    for k in range(world):
+        with open(tmp_path / f"out{k}.npz.meta", "rb") as f:
+            outs.append((dict(np.load(tmp_path / f"out{k}.npz")),
+                         pickle.load(f)))
+    return outs
+
+
+def _dist_case(name, method, seed, **options):
+    clients, ranks, weights, prev = _cohort(seed, n=6)
+    as_np = lambda t: t.numpy()                               # noqa: E731
+    return dict(name=name, kind="agg", method=method, options=options,
+                adapters=[tree_map(as_np, c) for c in clients],
+                weights=weights.numpy(), ranks=ranks.numpy(), r_max=8,
+                prev=tree_map(as_np, prev) if method == "rbla" else None)
+
+
+def _dist_want(case):
+    """The case's round on the kernel path in this process."""
+    cuda = lambda t: torch.as_tensor(t).cuda()                # noqa: E731
+    strat = ts.get_strategy(case["method"]).with_options(**case["options"])
+    return strat.aggregate_adapters(
+        [tree_map(cuda, a) for a in case["adapters"]],
+        cuda(case["weights"]), r_max=8, client_ranks=cuda(case["ranks"]),
+        prev_global=(None if case["prev"] is None
+                     else tree_map(cuda, case["prev"])), backend="kernel")
+
+
+def _dist_check(arrays, case, want, products):
+    for k in want:
+        got = {f: arrays[f"{case}|{k}|{f}"] for f in ("A", "B")}
+        if products:
+            assert_close(got["B"] @ got["A"], want[k]["B"] @ want[k]["A"],
+                         msg=f"{case}/{k}")
+        else:
+            for f in ("A", "B"):
+                assert_close(got[f], want[k][f], msg=f"{case}/{k}/{f}")
+
+
+def test_distributed_rounds_in_a_one_rank_nccl_group(tmp_path):
+    """A one-rank NCCL group on the card: rbla's round is one all_reduce
+    and no kernel, agreeing with the packed_agg round; flora's gathered
+    round is one all_gather and one flora_stack_group launch."""
+    need_cuda()
+    cases = [_dist_case("rbla", "rbla", 0),
+             _dist_case("flora", "flora", 1, stack_r_cap=64)]
+    ((arrays, meta),) = _dist_world(tmp_path, cases, 1, "nccl")
+    assert meta["rbla"]["collectives"] == {"all_reduce": 1, "all_gather": 0}
+    assert meta["rbla"]["launches"] == {}
+    assert meta["flora"]["collectives"] == {"all_reduce": 0, "all_gather": 1}
+    assert meta["flora"]["launches"] == {"flora_stack": 1}
+    _dist_check(arrays, "rbla", _dist_want(cases[0]), products=False)
+    _dist_check(arrays, "flora", _dist_want(cases[1]), products=True)
+
+
+def test_distributed_round_of_two_gloo_ranks_on_one_card(tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one device):
+    each rank's rbla round agrees with the single-process packed_agg
+    round, through one all_reduce of CUDA tensors."""
+    need_cuda()
+    case = _dist_case("rbla", "rbla", 2)
+    want = _dist_want(case)
+    for arrays, meta in _dist_world(tmp_path, [case], 2, "gloo"):
+        assert meta["rbla"]["collectives"] == {"all_reduce": 1,
+                                               "all_gather": 0}
+        _dist_check(arrays, "rbla", want, products=False)

@@ -164,8 +164,17 @@ def test_unported_paths_raise():
         ts.get_strategy("nope")
     tads, tranks, tw, _ = _port(0)
     rbla = ts.get_strategy("rbla")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        rbla.aggregate_adapters(tads, tw, backend="distributed")
+    # the distributed backend is ported: with no process group it is a
+    # world of one and agrees with the JAX package's one-device mesh
+    adapters, _, weights, _ = _cohort(0)
+    assert_trees_close(
+        rbla.aggregate_adapters(tads, tw, backend="distributed"),
+        js.get_strategy("rbla").aggregate_adapters(adapters, weights,
+                                                   backend="distributed"))
+    # ... and strategies without a distributed path refuse it by name
+    with pytest.raises(NotImplementedError, match="rbla_norm"):
+        ts.get_strategy("rbla_norm").aggregate_adapters(
+            tads, tw, backend="distributed")
     # the codec slice (item 13) and the fold (item 14) are ported: a bf16
     # cohort plans (and equals its decoded aggregate), and the fold on the
     # kernel backend refuses CPU tensors like every other kernel path

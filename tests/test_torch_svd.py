@@ -157,13 +157,16 @@ def test_svd_knobs_and_backends():
         "randomized"
     adapters, ranks, weights = _cohort(0)
     tads = [port_tree(a) for a in adapters]
-    with pytest.raises(NotImplementedError, match="item 18"):
-        svd.aggregate_adapters(tads, torch.as_tensor(np.array(weights)),
-                               r_max=R_MAX, backend="distributed")
     # svd has no kernel of its own: the kernel backend runs the engine's
     # math on the tensors' device, here the CPU
     kw = dict(r_max=R_MAX, client_ranks=torch.as_tensor(np.array(ranks)))
     tw = torch.as_tensor(np.array(weights))
+    # the distributed backend (a world of one without a process group)
+    # gathers the factors and projects them as the ref backend does
+    _assert_same_products(svd.aggregate_adapters(tads, tw, r_max=R_MAX,
+                                                 backend="distributed"),
+                          svd.aggregate_adapters(tads, tw, r_max=R_MAX,
+                                                 backend="ref"), tol=0.0)
     _assert_same_products(svd.aggregate_adapters(tads, tw, backend="kernel",
                                                  **kw),
                           svd.aggregate_adapters(tads, tw, backend="ref",

@@ -157,6 +157,25 @@ Phases, each printing JSON lines:
 * mamba_consistency -- the serve invariant at full width and depth (batch
   1, 512 tokens prefilled, 8 decoded) against forward(mode="full"), in
   fp32 within 2e-3 of max|want|; the bf16 run's distance is recorded;
+* attn_main -- ``repro_torch.launch.serve``'s path at full width and
+  depth: h2o-danube-3-4b in bf16 (24 layers, d_model 3840, 32 query and 8
+  KV heads x 120, d_ff 10240, vocab 32000, SWA window 4096), batch 4, a
+  2048-token prompt into KV caches of 2064 slots, 16 new tokens, adapters
+  at rank 8 of r_max 64 with a live B; then Model.loss (bf16, 1 x 512) and
+  its gradient with respect to the adapters; prefill ms, decode ms a step
+  and tokens/s, peak device memory, parameter count and bytes; finite
+  logits, tokens within the vocab, and no kernel launch and no plain call
+  across the phase (no kernel lies on the attention path);
+* attn_consistency -- the serve invariant for the same weights upcast to
+  fp32 at full width and depth (batch 1, 512 tokens prefilled, 8 decoded)
+  against forward(mode="full"), TF32 off, within 2e-3 of max|want|; the
+  bf16 run's distance is recorded;
+* attn_zoo -- the same invariant at full width in fp32, each depth cut to
+  one repeat of its unit (stated on its line): h2o-danube-3-4b with a
+  256-token window (320 prefilled, 64 decoded: the ring wraps), yi-34b,
+  chatglm3-6b (half RoPE, kv 2, QKV bias) and gemma2-9b (one local and one
+  global layer, query scale, both softcaps, post-block norms, GeGLU, tied
+  256,000-word embeddings), each within 2e-3 of max|want|;
 * distributed -- ``backend="distributed"`` against kernel-path twins run
   first in the phase: (a) main_path's config under a one-rank NCCL group
   (one all_reduce a round and no launch, the accuracies within 0.01 and
@@ -194,7 +213,8 @@ ENFORCE_DESIGN = True
 #: the phases ``--phases`` may pick: the others need the main path's run
 SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
               "lora_kernels", "serve_main", "serve_streams", "ssd_kernels",
-              "async_durable", "distributed")
+              "async_durable", "distributed", "attn_main",
+              "attn_consistency", "attn_zoo")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -3229,21 +3249,23 @@ def phase_ssd_kernels() -> dict:
             "phases_ms": main.get("phases_ms")}
 
 
-def _mamba_rig():
-    """mamba2-1.3b at full width on the card: Model.init and init_adapters
-    (seeds 0 and 1) as repro_torch.launch.serve makes them, each pair's B
-    then drawn nonzero on its live columns (seed 2) so the LoRA term of
-    every dense is live, and the prompt tokens (seed 3)."""
+def _lm_rig(cfg, spec, dtype=None):
+    """``cfg`` at full width on the card: Model.init and init_adapters
+    (seeds 0 and 1) as repro_torch.launch.serve makes them (weights in
+    ``dtype`` if given, else the config's), each pair's B then drawn
+    nonzero on its live columns (seed 2) so the LoRA term of every dense is
+    live, and ``spec``'s prompt tokens (seed 3)."""
+    import dataclasses
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.lora import mask_pair
     from repro_torch.models.model import make_model
-    cfg = get_config(MAMBA_CFG["arch"])
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     model = make_model(cfg, remat=False)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     adapters = model.init_adapters(
         torch.Generator(device="cuda").manual_seed(1),
-        r_max=MAMBA_CFG["r_max"], rank=MAMBA_CFG["rank"])
+        r_max=spec["r_max"], rank=spec["rank"])
     gen = torch.Generator(device="cuda").manual_seed(2)
     adapters = {"stages": tuple(
         {b: {path: mask_pair(dict(pair, B=torch.randn(
@@ -3251,10 +3273,16 @@ def _mamba_rig():
             for path, pair in unit.items()} for b, unit in stage.items()}
         for stage in adapters["stages"])}
     tokens = torch.randint(
-        0, cfg.vocab_size, (MAMBA_CFG["batch"], MAMBA_CFG["prompt_len"]),
+        0, cfg.vocab_size, (spec["batch"], spec["prompt_len"]),
         generator=torch.Generator(device="cuda").manual_seed(3),
         device="cuda")
     return cfg, model, params, adapters, tokens
+
+
+def _mamba_rig():
+    """mamba2-1.3b at full width on the card (MAMBA_CFG, :func:`_lm_rig`)."""
+    from repro_torch.configs import get_config
+    return _lm_rig(get_config(MAMBA_CFG["arch"]), MAMBA_CFG)
 
 
 def _logit_err(got, want, tol) -> tuple[float, float]:
@@ -3405,11 +3433,14 @@ def phase_mamba_plain(rig, rig32, kernel_logits):
 
 
 def _consistency(model, params, adapters, seq, pre, tol):
-    """Prefill ``pre`` tokens of ``seq``, decode the rest, and hold each
-    position's logits against forward(mode="full") over ``seq``."""
+    """Prefill ``pre`` tokens of ``seq`` into caches of ``len(seq)`` slots
+    (an attention layer's; a mamba layer has none), decode the rest, and
+    hold each position's logits against forward(mode="full") over
+    ``seq``."""
     errs = []
     full, _ = model.forward(params, adapters, {"tokens": seq})
-    last, caches = model.prefill(params, adapters, {"tokens": seq[:, :pre]})
+    last, caches = model.prefill(params, adapters, {"tokens": seq[:, :pre]},
+                                 capacity=seq.shape[1])
     errs.append(_logit_err(last, full[:, pre - 1], tol))
     for t in range(pre, seq.shape[1]):
         logits, caches = model.decode_step(params, adapters, caches,
@@ -3448,6 +3479,254 @@ def phase_mamba_consistency(rig, rig32):
     if not all(e <= t for e, t in errs):
         raise AssertionError(f"mamba_consistency: decode diverges from the "
                              f"full forward: {errs}")
+
+
+# --------------------------------------------------------------- attention --
+#: h2o-danube-3-4b's serving path as chip_smoke drives it: the full config
+#: (24 layers, d_model 3840, 32 query and 8 KV heads x 120, d_ff 10240,
+#: vocab 32000, SWA window 4096 on every layer, bf16), batch 4, a
+#: 2048-token prompt, 16 new tokens, adapters at rank 8 of r_max 64
+ATTN_CFG = dict(arch="h2o-danube-3-4b", batch=4, prompt_len=2048, new=16,
+                rank=8, r_max=64)
+#: Model.loss once on the card, in bf16
+ATTN_LOSS = dict(batch=1, seq=512)
+#: the serve invariant at full width and depth, in fp32
+ATTN_CONSISTENCY = dict(batch=1, prompt_len=512, decode=8)
+#: prefill + decode against the full forward in fp32: mamba_consistency's
+#: tolerance, 2e-3 of max|want|
+ATTN_FP32_TOL = 2e-3
+#: (arch, SWA window override or None, prefill, decode steps): each at full
+#: width in fp32, its depth cut to one repeat of its unit; h2o-danube with
+#: a 256-token window wraps its ring inside the window (320 prefilled, 64
+#: decoded); yi-34b's bf16 weights alone are about 69 GB at full depth
+ATTN_ZOO = (("h2o-danube-3-4b", 256, 320, 64), ("yi-34b", None, 256, 8),
+            ("chatglm3-6b", None, 256, 8), ("gemma2-9b", None, 256, 8))
+
+
+def _attn_rig(dtype=None):
+    """h2o-danube-3-4b at full width and depth on the card (ATTN_CFG,
+    :func:`_lm_rig`)."""
+    from repro_torch.configs import get_config
+    return _lm_rig(get_config(ATTN_CFG["arch"]), ATTN_CFG, dtype)
+
+
+def _param_count(tree) -> tuple[int, int]:
+    """(elements, bytes) of every leaf of ``tree``."""
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(tree)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def _device_split(fn) -> dict:
+    """One call of ``fn`` on the device (``torch.profiler``): its kernels'
+    launches and ms in all, by kind (GEMMs, the softmax, the rest), and
+    the five longest kernels by name."""
+    kernels = _device_kernels(fn, calls=1)
+
+    def kind(name):
+        low = name.lower()
+        if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90",
+                                  "nvjet")):
+            return "gemm"
+        return "softmax" if "softmax" in low else "other"
+    split = {}
+    for name, (n, ms) in kernels.items():
+        agg = split.setdefault(kind(name), [0.0, 0.0])
+        agg[0] += n
+        agg[1] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"launches": sum(n for n, _ in kernels.values()),
+            "ms": sum(ms for _, ms in kernels.values()), "by_kind": split,
+            "top": {name: v for name, v in top}}
+
+
+def phase_attn_main(rig, smi: str) -> dict:
+    """repro_torch.launch.serve's path at full width and depth for
+    h2o-danube-3-4b: one prefill into KV caches of prompt + new slots and
+    15 greedy decode steps, then Model.loss (bf16, 1 x 512) and its
+    gradient with respect to the adapters.  No kernel and no plain twin
+    lies on this path: every count stays 0 across the phase."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import generate
+    from repro_torch.lora import attach_ranks, strip_ranks
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, model, params, adapters, tokens = rig
+    generate(model, params, adapters, tokens[:, :256], 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    res = generate(model, params, adapters, tokens, ATTN_CFG["new"])
+    peak = torch.cuda.max_memory_allocated()
+    # where the device time goes: one prefill and one decode step
+    with torch.inference_mode():
+        prefill_dev = _device_split(lambda: model.prefill(
+            params, adapters, {"tokens": tokens},
+            capacity=tokens.shape[1] + ATTN_CFG["new"]))
+        step_pos = tokens.shape[1] + ATTN_CFG["new"] - 2
+        decode_dev = _device_split(lambda: model.decode_step(
+            params, adapters, res["caches"], res["tokens"][:, -1],
+            step_pos))
+    b, s = ATTN_LOSS["batch"], ATTN_LOSS["seq"]
+    factors, ranks = strip_ranks(adapters)
+    factors = tree_map(lambda t: t.detach().requires_grad_(True), factors)
+    loss_ms = []
+    for _ in range(2):      # the first call meets autograd's first use
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(params, attach_ranks(factors, ranks),
+                          {"tokens": tokens[:b, :s]})
+        grads = torch.autograd.grad(loss, tree_leaves(factors))
+        loss = float(loss.detach())
+        torch.cuda.synchronize()
+        loss_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
+    finite = bool(torch.isfinite(res["prefill_logits"].float()).all()
+                  and torch.isfinite(res["logits"].float()).all())
+    in_vocab = bool(((res["tokens"] >= 0)
+                     & (res["tokens"] < cfg.vocab_size)).all())
+    grads_finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    n_params, param_bytes = _param_count(params)
+    steps = ATTN_CFG["new"] - 1
+    cache = res["caches"][0]["b0"]["k"]
+    line = {"phase": "attn_main", "config": ATTN_CFG, "card": smi,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "window": cfg.stages[0].unit[0].window,
+            "prefill_ms": res["prefill_s"] * 1e3, "decode_steps": steps,
+            "decode_ms_per_step": res["decode_s"] * 1e3 / steps,
+            "decode_tok_per_s": steps * ATTN_CFG["batch"] / res["decode_s"],
+            "peak_device_bytes": peak, "params": n_params,
+            "param_bytes": param_bytes, "kv_cache_shape": list(cache.shape),
+            "prefill_device": prefill_dev, "decode_step_device": decode_dev,
+            "loss": loss, "loss_and_grad_ms": loss_ms,
+            "loss_shape": [b, s], "grads_finite": grads_finite,
+            "launches": sum(launches.values()),
+            "plain_calls": sum(plain.values()), "finite": finite,
+            "tokens_in_vocab": in_vocab, "tokens": res["tokens"][0].tolist()}
+    emit(line)
+    if any(launches.values()) or any(plain.values()):
+        raise AssertionError(f"attn_main: a kernel or plain twin ran on the "
+                             f"attention path: {launches} {plain}")
+    if not (finite and in_vocab) or res["tokens"].shape != (
+            ATTN_CFG["batch"], ATTN_CFG["new"]):
+        raise AssertionError("attn_main: logits not finite or tokens "
+                             "misshapen or outside the vocab")
+    if not (math.isfinite(loss) and grads_finite):
+        raise AssertionError(f"attn_main: Model.loss {loss} or its "
+                             f"gradient is not finite")
+    if list(cache.shape) != [cfg.n_layers, ATTN_CFG["batch"],
+                             ATTN_CFG["prompt_len"] + ATTN_CFG["new"],
+                             cfg.n_kv_heads, cfg.head_dim]:
+        raise AssertionError(f"attn_main: KV cache {list(cache.shape)}")
+    return line
+
+
+def phase_attn_consistency(rig, rig32):
+    """The serve invariant at full width and depth: prefill P tokens into
+    caches of P + k slots, decode k, and each position's logits match
+    forward(mode="full") over P + k, in fp32 (the bf16 weights upcast)
+    within ATTN_FP32_TOL with TF32 off; the bf16 run's distance is
+    recorded."""
+    import torch
+    from repro_torch.kernels import runtime
+    cfg, model, params, adapters, tokens = rig
+    b, pre, k = (ATTN_CONSISTENCY[key] for key in
+                 ("batch", "prompt_len", "decode"))
+    seq = tokens[:b, :pre + k]
+    _, m32, p32, _, _ = rig32
+    runtime.full_fp32()
+    runtime.reset_counts()
+    with torch.inference_mode():
+        errs = _consistency(m32, p32, adapters, seq, pre, ATTN_FP32_TOL)
+        bf16 = _consistency(model, params, adapters, seq, pre, 1.0)
+    torch.cuda.synchronize()
+    launches = sum(runtime.LAUNCHES.values())
+    plain = sum(runtime.PLAIN_CALLS.values())
+    emit({"phase": "attn_consistency", "arch": cfg.name,
+          "layers": cfg.n_layers, **ATTN_CONSISTENCY,
+          "fp32_max_abs_err": [e for e, _ in errs],
+          "fp32_tol": [t for _, t in errs],
+          "bf16_max_abs_err": [e for e, _ in bf16],
+          "bf16_max_abs": [t for _, t in bf16], "launches": launches,
+          "plain_calls": plain})
+    if launches or plain:
+        raise AssertionError(f"attn_consistency: {launches} launches, "
+                             f"{plain} plain calls")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"attn_consistency: decode diverges from the "
+                             f"full forward: {errs}")
+
+
+def _zoo_config(arch, window):
+    """``arch`` at full width in fp32, its depth cut to one repeat of its
+    unit (and its SWA windows set to ``window`` where given); returns the
+    config and what was cut."""
+    import dataclasses
+    from repro_torch.configs import Stage, get_config
+    cfg = get_config(arch)
+    cut = [f"depth {cfg.n_layers} -> {sum(len(s.unit) for s in cfg.stages)} "
+           f"layers (one repeat of the unit)"]
+    stages = []
+    for st in cfg.stages:
+        unit = st.unit
+        if window is not None:
+            unit = tuple(dataclasses.replace(b, window=window) if b.window
+                         else b for b in unit)
+            cut.append(f"SWA window {st.unit[0].window} -> {window}")
+        stages.append(Stage(unit=unit, repeat=1))
+    cut.append("dtype bfloat16 -> float32")
+    return dataclasses.replace(cfg, stages=tuple(stages),
+                               dtype="float32"), cut
+
+
+def phase_attn_zoo() -> list:
+    """Each ATTN_ZOO arch at full width in fp32 with one repeat of its
+    unit: prefill, then decode, each position against the full forward
+    within ATTN_FP32_TOL (TF32 off), no kernel and no plain twin."""
+    import torch
+    from repro_torch.kernels import runtime
+    runtime.full_fp32()
+    lines = []
+    for arch, window, pre, k in ATTN_ZOO:
+        cfg, cut = _zoo_config(arch, window)
+        spec = dict(batch=1, prompt_len=pre + k, rank=8, r_max=64)
+        _, model, params, adapters, tokens = _lm_rig(cfg, spec)
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            errs = _consistency(model, params, adapters, tokens, pre,
+                                ATTN_FP32_TOL)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = sum(runtime.LAUNCHES.values())
+        plain = sum(runtime.PLAIN_CALLS.values())
+        worst = max(errs, key=lambda e: e[0] / e[1])
+        blocks = [dict(window=b.window) for b in cfg.stages[0].unit]
+        line = {"phase": "attn_zoo", "arch": arch, "cut": cut,
+                "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                "vocab": cfg.vocab_size, "blocks": blocks,
+                "rope_kind": cfg.rope_kind, "qkv_bias": cfg.qkv_bias,
+                "softcaps": [cfg.attn_softcap, cfg.final_softcap],
+                "post_block_norm": cfg.post_block_norm,
+                "mlp_act": cfg.mlp_act, "tied": cfg.tie_embeddings,
+                "prefill": pre, "decode": k,
+                "params": _param_count(params)[0],
+                "worst_err": worst[0], "worst_tol": worst[1],
+                "rel_err": [e / t * ATTN_FP32_TOL for e, t in errs],
+                "seconds": secs, "launches": launches, "plain_calls": plain}
+        emit(line)
+        lines.append(line)
+        del model, params, adapters, tokens
+        torch.cuda.empty_cache()
+        if launches or plain:
+            raise AssertionError(f"attn_zoo {arch}: {launches} launches, "
+                                 f"{plain} plain calls")
+        if not all(e <= t for e, t in errs):
+            raise AssertionError(f"attn_zoo {arch}: decode diverges from the "
+                                 f"full forward: {worst}")
+    return lines
 
 
 # ------------------------------------------------------------- distributed --
@@ -3814,6 +4093,13 @@ def run_selected(names, smi: str) -> dict:
             phase_async_durable(smi)
         elif name == "distributed":
             phase_distributed(smi)
+        elif name == "attn_main":
+            phase_attn_main(_attn_rig(), smi)
+        elif name == "attn_consistency":
+            rig = _attn_rig()
+            phase_attn_consistency(rig, _fp32_rig(rig))
+        elif name == "attn_zoo":
+            phase_attn_zoo()
         emit({"phase": name, "ok": True})
     return summary
 
@@ -3929,6 +4215,17 @@ def main(argv=None) -> int:
     phase_mamba_plain(rig, rig32, kernel_logits)
     phase_mamba_consistency(rig, rig32)
     summary["ssd_scan"]["launches"] = mamba_launches["ssd_scan"]
+    del rig, rig32, kernel_logits
+    torch.cuda.empty_cache()
+
+    attn = _attn_rig()
+    phase_attn_main(attn, smi)
+    attn32 = _fp32_rig(attn)
+    phase_attn_consistency(attn, attn32)
+    del attn, attn32
+    torch.cuda.empty_cache()
+    phase_attn_zoo()
+    emit({"phase": "attention", "ok": True})
 
     dist_path = phase_distributed(smi)
     emit({"phase": "distributed", "ok": True, **dist_path})

@@ -72,6 +72,11 @@ def _check_operands(xdt, dta, bm, cm) -> None:
 
 def _ssd_cuda(xdt, dta, bm, cm, q):
     _check_operands(xdt, dta, bm, cm)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, dta, bm, cm)):
+        raise NotImplementedError(
+            "ssd_scan: the kernel has no backward; differentiate through "
+            "the plain version (a mamba Model with scan_backend='ref')")
     b, l, h, p = xdt.shape
     n = bm.shape[-1]
     dev = xdt.device

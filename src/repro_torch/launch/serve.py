@@ -1,18 +1,20 @@
 """Serving launcher: batched prefill, then greedy decode, on one device.
 
+    python -m repro_torch.launch.serve --preset full --prompt-len 2048
     python -m repro_torch.launch.serve --arch mamba2-1.3b --preset full \\
         --batch 4 --prompt-len 2048 --new 16 --rank 8
 
 The JAX package's ``repro.launch.serve`` path without its mesh (one
 device; the sharding rules come with the rest of the zoo, ROADMAP item
-19b): weights from ``Model.init``
-and adapters from ``Model.init_adapters`` (seeds 0 and 1), random prompt
-tokens from ``numpy.random.default_rng(0)``, one prefill, then ``new - 1``
+19b): weights from ``Model.init`` and adapters from ``Model.init_adapters``
+(seeds 0 and 1), random prompt tokens from ``numpy.random.default_rng(0)``,
+one prefill into KV caches of ``prompt_len + new`` slots, then ``new - 1``
 decode steps each feeding back the argmax token.  Prints the reference's
-``prefill:`` and ``decode:`` lines.  ``--device`` defaults to ``cuda`` and
-raises without a card; ``--device cpu`` runs the plain path.  ``--arch``
-defaults to ``mamba2-1.3b``, the one arch the port has (the reference's
-default, ``h2o-danube-3-4b``, needs attention: ROADMAP item 19b).
+``prefill:`` and ``decode:`` lines.  ``--arch`` defaults to the reference's
+``h2o-danube-3-4b``; the port serves it and the other dense GQA archs
+(``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``) and ``mamba2-1.3b``.
+``--device`` defaults to ``cuda`` and raises without a card; ``--device
+cpu`` runs the plain path.
 """
 from __future__ import annotations
 
@@ -36,17 +38,18 @@ def generate(model: Model, params, adapters, tokens: torch.Tensor,
              new: int) -> dict:
     """Prefill ``tokens`` (B, S), then ``new - 1`` greedy decode steps.
 
-    Returns the generated tokens (B, new) -- the prefill's argmax first --
-    the prefill's last-position logits, the last step's logits, the caches
-    after the last step and the host seconds of the prefill and the decode
-    loop (each ending in a synchronise)."""
+    The prefill's KV caches have ``S + new`` slots (a mamba model has
+    none).  Returns the generated tokens (B, new) -- the prefill's argmax
+    first -- the prefill's last-position logits, the last step's logits,
+    the caches after the last step and the host seconds of the prefill and
+    the decode loop (each ending in a synchronise)."""
     device = tokens.device
     prompt_len = tokens.shape[1]
     _sync(device)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        prefill_logits, caches = model.prefill(params, adapters,
-                                               {"tokens": tokens})
+        prefill_logits, caches = model.prefill(
+            params, adapters, {"tokens": tokens}, capacity=prompt_len + new)
         tok = prefill_logits.argmax(-1)
         _sync(device)
         prefill_s = time.perf_counter() - t0
@@ -66,7 +69,7 @@ def generate(model: Model, params, adapters, tokens: torch.Tensor,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="h2o-danube-3-4b")
     ap.add_argument("--preset", default="reduced",
                     choices=["reduced", "full"])
     ap.add_argument("--batch", type=int, default=4)

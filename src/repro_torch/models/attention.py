@@ -1,0 +1,220 @@
+"""Grouped-query attention (GQA) on tensor dicts: SWA windows, softcaps,
+QKV bias, query scale and post-block norms.
+
+The JAX package's ``repro.models.attention`` GQA path, in plain PyTorch
+ops and the reference's formulation.  Three modes share one parameter set:
+
+* full    -- a whole sequence (training, the full forward);
+* prefill -- full, plus the KV cache padded to ``capacity`` (an SWA layer's
+  in ring order, ``slot = pos % w``);
+* decode  -- one new token against the cache (a ring buffer for an SWA
+  layer).
+
+Query head ``i`` reads KV head ``i // g`` (heads grouped ``(kv, g)`` by a
+reshape).  Scores are ``q.k * scale`` in the input dtype, softcapped, then
+fp32; masked entries are ``NEG_INF`` (not ``-inf``), the softmax runs in
+fp32 and the probabilities are cast to v's dtype for the product with v.
+Queries go in chunks (:func:`_choose_q_chunk`), so a long prefill never
+holds an (S, S) score matrix per head group.  No kernel lies on this path:
+``scaled_dot_product_attention`` has no score softcap and masks otherwise.
+MLA and cross-attention arrive with ROADMAP item 19b.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from .common import (apply_rope, dense, dense_init, dtype_of, norm,
+                     norm_init, softcap)
+
+NEG_INF = -2.0 ** 30  # large-negative in f32, safe under bf16 casts
+
+
+def _choose_q_chunk(s: int, target: int = 1024) -> int:
+    if s <= target:
+        return s
+    for c in range(target, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def _check_block(block) -> None:
+    if block.cross_attn:
+        raise NotImplementedError("cross-attention is not ported yet: it "
+                                  "arrives with ROADMAP item 19b")
+
+
+# =================================================================== GQA ====
+def gqa_init(gen: torch.Generator, cfg, block,
+             d_model: int | None = None) -> dict:
+    _check_block(block)
+    d = d_model or cfg.d_model
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = dtype_of(cfg)
+    p = {
+        "ln": norm_init(cfg, d, device=gen.device),
+        "q": dense_init(gen, d, h * hd, dt, bias=cfg.qkv_bias),
+        "k": dense_init(gen, d, kv * hd, dt, bias=cfg.qkv_bias),
+        "v": dense_init(gen, d, kv * hd, dt, bias=cfg.qkv_bias),
+        "o": dense_init(gen, h * hd, d, dt),
+    }
+    if cfg.post_block_norm:
+        p["post_ln"] = norm_init(cfg, d, device=gen.device)
+    return p
+
+
+def gqa_lora_targets(block) -> tuple[str, ...]:
+    _check_block(block)
+    return ("q", "k", "v", "o")
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+
+
+def _masked_softmax_av(scores: torch.Tensor, mask: torch.Tensor,
+                       v: torch.Tensor, cap: float) -> torch.Tensor:
+    """scores (B,K,G,Q,T) in the input dtype, mask broadcastable to it:
+    softcap, fp32, NEG_INF where masked, softmax, probs in v's dtype, then
+    ``(B,Q,K,G,D)`` = probs . v."""
+    s = softcap(scores, cap).float()
+    s = s.masked_fill_(~mask, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqt,btkd->bqkgd", probs, v)
+
+
+def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int, q_positions: torch.Tensor,
+                    k_positions: torch.Tensor, scale: float,
+                    cap: float) -> torch.Tensor:
+    """q: (B,S,K,G,D); k/v: (B,T,K,D); positions give absolute indices.
+
+    Loops over query chunks; masks built from absolute positions so the
+    same path serves training (q_pos == k_pos) and prefill."""
+    b, s, kh, g, d = q.shape
+    qc = _choose_q_chunk(s)
+    outs = []
+    for c0 in range(0, s, qc):
+        qi, qp = q[:, c0:c0 + qc], q_positions[c0:c0 + qc]
+        scores = torch.einsum("bqkgd,btkd->bkgqt", qi, k) * scale
+        mask = torch.ones((qp.shape[0], k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_positions[None, :] <= qp[:, None]
+        if window > 0:
+            mask &= k_positions[None, :] > (qp[:, None] - window)
+        outs.append(_masked_softmax_av(scores, mask, v, cap))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+
+
+def _attend_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor, scale: float,
+                   cap: float) -> torch.Tensor:
+    """q: (B,1,K,G,D); k/v: (B,T,K,D); valid: (T,) bool."""
+    scores = torch.einsum("bqkgd,btkd->bkgqt", q, k) * scale
+    return _masked_softmax_av(scores, valid, v, cap)
+
+
+def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
+                block, *, mode: str, positions: torch.Tensor | None = None,
+                cache: Mapping | None = None, pos=None, alpha: float = 16.0,
+                capacity: int | None = None):
+    """Returns (y, new_cache or None).
+
+    mode: 'full' | 'prefill' | 'decode'.  ``positions``: (S,) absolute
+    positions for full/prefill.  ``pos``: the current index for decode (an
+    int or a 0-d tensor).  ``capacity``: the prefill cache's length (>= S)
+    so that decode can continue in it."""
+    _check_block(block)
+    lora = lora or {}
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // kv
+    scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
+    hx = norm(p["ln"], x, cfg.norm_eps)
+
+    def proj(name):
+        return dense(p[name], hx, lora.get(name), alpha)
+
+    q = _split_heads(proj("q"), h)
+    kk = _split_heads(proj("k"), kv)
+    vv = _split_heads(proj("v"), kv)
+    new_cache = None
+    if mode in ("full", "prefill"):
+        s = x.shape[1]
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions[None], cfg.rope_theta, cfg.rope_kind)
+        kk = apply_rope(kk, positions[None], cfg.rope_theta, cfg.rope_kind)
+        qg = q.reshape(q.shape[:2] + (kv, g, hd))
+        out = _attend_chunked(qg, kk, vv, causal=block.causal,
+                              window=block.window, q_positions=positions,
+                              k_positions=positions, scale=scale,
+                              cap=cfg.attn_softcap)
+        if mode == "prefill":
+            t_cap = capacity or s
+            if block.window > 0:
+                w = min(block.window, t_cap)
+                # keep the last `w` positions in ring order slot = pos % w
+                tail_k, tail_v, _ = _ring_from_tail(kk, vv, positions, w)
+                new_cache = {"k": tail_k, "v": tail_v}
+            else:
+                if t_cap < s:
+                    raise ValueError(f"gqa_forward: capacity {t_cap} is "
+                                     f"shorter than the prompt ({s})")
+                pad = (0, 0, 0, 0, 0, t_cap - s)
+                new_cache = {"k": torch.nn.functional.pad(kk, pad),
+                             "v": torch.nn.functional.pad(vv, pad)}
+    elif mode == "decode":
+        pos = int(pos)
+        posb = torch.full((1, 1), pos, device=x.device)
+        q = apply_rope(q, posb, cfg.rope_theta, cfg.rope_kind)
+        kk = apply_rope(kk, posb, cfg.rope_theta, cfg.rope_kind)
+        t = cache["k"].shape[1]
+        # ring buffer slot; the cache may be shorter than the window when
+        # the serving context itself is (t == min(window, seq_len)); the
+        # write's start is placed as lax.dynamic_update_slice_in_dim places
+        # it: a negative start counts once from the end, then clamps into
+        # [0, t - 1]
+        slot = (pos % t) if block.window > 0 else pos
+        slot = min(max(slot + t if slot < 0 else slot, 0), t - 1)
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        ck[:, slot] = kk[:, 0]
+        cv[:, slot] = vv[:, 0]
+        iota = torch.arange(t, device=x.device)
+        valid = iota < min(pos + 1, t) if block.window > 0 else iota <= pos
+        qg = q.reshape(q.shape[:2] + (kv, g, hd))
+        out = _attend_decode(qg, ck, cv, valid, scale, cfg.attn_softcap)
+        new_cache = {"k": ck, "v": cv}
+    else:
+        raise ValueError(f"unknown mode {mode!r}; options: full | prefill | "
+                         "decode")
+    out = out.reshape(x.shape[:2] + (h * hd,))
+    y = dense(p["o"], out, lora.get("o"), alpha)
+    if cfg.post_block_norm:
+        y = norm(p["post_ln"], y, cfg.norm_eps)
+    return y, new_cache
+
+
+def _ring_from_tail(kk: torch.Tensor, vv: torch.Tensor,
+                    positions: torch.Tensor, w: int):
+    """Arrange the last ``w`` timesteps of (B,T,KV,D) into ring order."""
+    t = kk.shape[1]
+    if t <= w:
+        pad = (0, 0, 0, 0, 0, w - t)
+        return (torch.nn.functional.pad(kk, pad),
+                torch.nn.functional.pad(vv, pad), positions)
+    # positions kept: last_pos-w+1 .. last_pos ; slot = pos % w
+    kept_pos = positions[-w:]
+    order = torch.argsort(kept_pos % w)
+    return kk[:, -w:][:, order], vv[:, -w:][:, order], kept_pos
+
+
+def gqa_init_cache(cfg, block, batch: int, seq_len: int, dtype,
+                   device=None) -> dict:
+    _check_block(block)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    t = min(block.window, seq_len) if block.window > 0 else seq_len
+    return {"k": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device)}

@@ -9,8 +9,7 @@ The JAX package's conventions, kept at every public function:
 * activations and matmuls run in the config dtype (bf16), norms in fp32.
 
 Initialisers draw from an explicit ``torch.Generator`` on the generator's
-device.  ``rope_freqs`` and ``apply_rope`` wait for attention (ROADMAP item
-19b).
+device.
 """
 from __future__ import annotations
 
@@ -95,6 +94,34 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ------------------------------------------------------------------ rope ----
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               kind: str = "full") -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable (..., seq).
+
+    The rotated part is split into two contiguous halves (not interleaved
+    pairs); ``"half"`` rotates the first ``head_dim // 2`` and passes the
+    rest through (chatglm3), ``"none"`` returns x.  Angles in fp32, the
+    result in x's dtype."""
+    if kind == "none":
+        return x
+    hd = x.shape[-1]
+    rot = hd if kind == "full" else hd // 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    freqs = rope_freqs(rot, theta, x.device)                 # (rot/2,)
+    ang = positions[..., None].float() * freqs               # (..., s, rot/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(xr.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                    dim=-1).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if kind == "half" else out
 
 
 # ------------------------------------------------------------- embedding ----

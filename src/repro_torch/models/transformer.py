@@ -5,13 +5,12 @@ repeats: every leaf has a leading ``repeat`` axis, the JAX package's
 layout, so ``repro_torch.bridge`` carries them leaf for leaf.  Where the
 JAX package scans over that axis, :func:`stage_forward` loops: repeat ``i``
 indexes layer ``i`` of every stacked leaf, and the new caches are stacked
-again.  The port has the mamba mixer without a feed-forward
-(``kind="mamba"``, ``ffn="none"``); attention (gqa, mla, cross-attention)
-and the dense and MoE feed-forwards wait for ROADMAP item 19b and raise
-``NotImplementedError``.  Forward only: ``remat`` is accepted and does
-nothing.  The reference's ``positions``, ``enc_out``, ``mla_absorbed`` and
-``capacity`` (rope, cross-attention, MLA and MoE) and the cache's
-``seq_len`` (a KV cache's length) return with the code that reads them.
+again.  A block's mixer is GQA attention (``kind="gqa"``) or the Mamba2
+mixer (``"mamba"``); its feed-forward is the dense MLP (``ffn="dense"``) or
+none.  MLA, MoE feed-forwards and cross-attention arrive with ROADMAP item
+19b and raise ``NotImplementedError``.  ``remat`` is accepted and does
+nothing: autograd keeps what the backward needs.  The reference's
+``enc_out`` and ``mla_absorbed`` return with the code that reads them.
 """
 from __future__ import annotations
 
@@ -22,21 +21,24 @@ import torch
 from repro_torch.lora import init_pair
 from repro_torch.tree import tree_map
 
+from .attention import (gqa_forward, gqa_init, gqa_init_cache,
+                        gqa_lora_targets)
 from .mamba import (MAMBA_LORA_TARGETS, mamba_forward, mamba_init,
                     mamba_init_cache)
+from .mlp import mlp_forward, mlp_init, mlp_lora_targets
 
 PyTree = Any
 
 
 def _check_spec(spec) -> None:
-    if spec.kind != "mamba":
+    if spec.kind == "mla":
         raise NotImplementedError(
-            f"block kind {spec.kind!r} (attention) is not ported yet: it "
+            "block kind 'mla' (latent attention) is not ported yet: it "
             "arrives with ROADMAP item 19b")
-    if spec.ffn != "none":
+    if spec.ffn == "moe":
         raise NotImplementedError(
-            f"ffn {spec.ffn!r} is not ported yet: dense and MoE "
-            "feed-forwards arrive with ROADMAP item 19b")
+            "ffn 'moe' is not ported yet: MoE feed-forwards arrive with "
+            "ROADMAP item 19b")
     if spec.cross_attn:
         raise NotImplementedError("cross-attention is not ported yet: it "
                                   "arrives with ROADMAP item 19b")
@@ -45,33 +47,71 @@ def _check_spec(spec) -> None:
 # ============================================================ block level ====
 def block_init(gen: torch.Generator, cfg, spec) -> dict:
     _check_spec(spec)
-    return {"mix": mamba_init(gen, cfg)}
+    if spec.kind == "mamba":
+        p = {"mix": mamba_init(gen, cfg)}
+    else:
+        p = {"mix": gqa_init(gen, cfg, spec)}
+    if spec.ffn == "dense":
+        p["ffn"] = mlp_init(gen, cfg)
+    return p
 
 
-def block_forward(bp, blora, x, cfg, spec, *, mode, cache=None, pos=None,
-                  alpha=16.0, scan_backend="auto"):
+def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
+                  cache=None, pos=None, alpha=16.0, scan_backend="auto",
+                  capacity=None):
     _check_spec(spec)
     blora = blora or {}
-    y, c = mamba_forward(bp["mix"], blora.get("mix"), x, cfg, mode=mode,
-                         cache=cache, pos=pos, alpha=alpha,
-                         scan_backend=scan_backend)
-    return x + y, c
+    if spec.kind == "mamba":
+        y, c = mamba_forward(bp["mix"], blora.get("mix"), x, cfg, mode=mode,
+                             cache=cache, pos=pos, alpha=alpha,
+                             scan_backend=scan_backend)
+    else:
+        y, c = gqa_forward(bp["mix"], blora.get("mix"), x, cfg, spec,
+                           mode=mode, positions=positions, cache=cache,
+                           pos=pos, alpha=alpha, capacity=capacity)
+    x = x + y
+    if spec.ffn == "dense":
+        x = x + mlp_forward(bp["ffn"], blora.get("ffn"), x, cfg, alpha)
+    return x, c
 
 
-def block_init_cache(cfg, spec, batch: int, dtype, device=None) -> dict:
+def block_init_cache(cfg, spec, batch: int, seq_len: int | None, dtype,
+                     device=None) -> dict:
+    """One block's zero decode state; an attention block's KV cache has
+    ``seq_len`` slots (``min(window, seq_len)`` for an SWA layer)."""
     _check_spec(spec)
-    return mamba_init_cache(cfg, batch, dtype, device)
+    if spec.kind == "mamba":
+        return mamba_init_cache(cfg, batch, dtype, device)
+    if seq_len is None:
+        raise ValueError("an attention block's KV cache needs seq_len")
+    return gqa_init_cache(cfg, spec, batch, seq_len, dtype, device)
 
 
 def block_lora_specs(cfg, spec) -> dict[str, tuple]:
     """{relpath: (fan_out, fan_in, extra_leading)} for one block."""
     _check_spec(spec)
     d = cfg.d_model
-    d_in = cfg.ssm_expand * d
-    h = d_in // cfg.ssm_head_dim
-    n = cfg.ssm_state
-    dims = {"in_proj": (2 * d_in + 2 * n + h, d), "out_proj": (d, d_in)}
-    return {f"mix/{t}": dims[t] + ((),) for t in MAMBA_LORA_TARGETS}
+    out: dict[str, tuple] = {}
+    if spec.kind == "mamba":
+        d_in = cfg.ssm_expand * d
+        h = d_in // cfg.ssm_head_dim
+        n = cfg.ssm_state
+        dims = {"in_proj": (2 * d_in + 2 * n + h, d), "out_proj": (d, d_in)}
+        for t in MAMBA_LORA_TARGETS:
+            out[f"mix/{t}"] = dims[t] + ((),)
+    else:
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dims = {"q": (h * hd, d), "k": (kv * hd, d), "v": (kv * hd, d),
+                "o": (d, h * hd)}
+        for t in gqa_lora_targets(spec):
+            out[f"mix/{t}"] = dims[t] + ((),)
+    if spec.ffn == "dense":
+        f = cfg.d_ff
+        dims = {"fc1": (f, d), "fc2": (d, f), "gate": (f, d), "up": (f, d),
+                "down": (d, f)}
+        for t in mlp_lora_targets(cfg):
+            out[f"ffn/{t}"] = dims[t] + ((),)
+    return out
 
 
 def _get_lora(blora: Mapping | None, prefix: str):
@@ -111,8 +151,9 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
-def stage_forward(sp, slora, x, cfg, stage, *, mode, caches=None, pos=None,
-                  alpha=16.0, remat=False, scan_backend="auto"):
+def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
+                  caches=None, pos=None, alpha=16.0, remat=False,
+                  scan_backend="auto", capacity=None):
     """Loop over the stage's repeats. Returns (x, new_caches or None), the
     caches stacked over the repeats."""
     per_layer = []
@@ -129,8 +170,9 @@ def stage_forward(sp, slora, x, cfg, stage, *, mode, caches=None, pos=None,
                       "ffn": _get_lora(flat, "ffn")} if flat else None
             c = cache_unit[f"b{i}"] if cache_unit is not None else None
             x, cnew = block_forward(
-                bp_unit[f"b{i}"], bl, x, cfg, spec, mode=mode, cache=c,
-                pos=pos, alpha=alpha, scan_backend=scan_backend)
+                bp_unit[f"b{i}"], bl, x, cfg, spec, mode=mode,
+                positions=positions, cache=c, pos=pos, alpha=alpha,
+                scan_backend=scan_backend, capacity=capacity)
             if cnew is not None:
                 new_caches[f"b{i}"] = cnew
         per_layer.append(new_caches or None)

@@ -1,7 +1,10 @@
 """``repro_torch.launch.serve`` on the CPU: the reduced mamba2-1.3b preset
 prefills, decodes greedily and prints the reference launcher's
 ``prefill:`` and ``decode:`` lines; the greedy tokens are the full
-forward's argmax; ``--device cuda`` without a card raises."""
+forward's argmax; ``--device cuda`` without a card raises; an arch the
+port lacks raises.  The default arch, h2o-danube-3-4b, serves from KV
+caches of ``prompt_len + new`` slots, its greedy tokens the full forward's
+argmax too."""
 import os
 import re
 import subprocess
@@ -17,8 +20,8 @@ from repro_torch.launch import serve
 from repro_torch.models.model import make_model
 
 ROOT = Path(__file__).resolve().parents[1]
-ARGS = ["--preset", "reduced", "--device", "cpu", "--batch", "2",
-        "--prompt-len", "20", "--new", "5"]
+ARGS = ["--arch", "mamba2-1.3b", "--preset", "reduced", "--device", "cpu",
+        "--batch", "2", "--prompt-len", "20", "--new", "5"]
 
 
 def test_serve_reduced_on_the_cpu_prints_its_lines(capsys):
@@ -48,6 +51,25 @@ def test_greedy_tokens_are_the_full_forward_argmax():
     assert torch.equal(full[:, 19:].argmax(-1), res["tokens"])
 
 
+def test_serve_default_arch_serves_h2o_danube(capsys):
+    res = serve.main(ARGS[2:])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("prefill: ") and out[1].startswith(
+        "decode: 4 steps, ")
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    cache = res["caches"][0]["b0"]
+    assert set(cache) == {"k", "v"}
+    assert cache["k"].shape == (1, 2, 25, cfg.n_kv_heads, cfg.head_dim)
+    model = make_model(cfg, remat=False)
+    params = model.init(torch.Generator().manual_seed(0))
+    adapters = model.init_adapters(torch.Generator().manual_seed(1), rank=8)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)), dtype=torch.long)
+    seq = torch.cat([prompt, res["tokens"][:, :-1]], 1)
+    full, _ = model.forward(params, adapters, {"tokens": seq})
+    assert torch.equal(full[:, 19:].argmax(-1), res["tokens"])
+
+
 def test_serve_on_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -56,7 +78,7 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 
 def test_serve_arch_not_ported_raises():
     with pytest.raises(NotImplementedError, match="19b"):
-        serve.main(["--arch", "h2o-danube-3-4b", "--device", "cpu"])
+        serve.main(["--arch", "granite-moe-3b-a800m", "--device", "cpu"])
 
 
 def test_serve_runs_as_a_module():

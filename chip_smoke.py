@@ -214,7 +214,8 @@ ENFORCE_DESIGN = True
 SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
               "lora_kernels", "serve_main", "serve_streams", "ssd_kernels",
               "async_durable", "distributed", "attn_main",
-              "attn_consistency", "attn_zoo")
+              "attn_consistency", "attn_zoo", "moe_main", "moe_consistency",
+              "moe_zoo", "moe_ep")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -3135,7 +3136,8 @@ MAMBA_FP32_TOL = 2e-3
 #: (label, b, l, h, p, n, chunk, |dta| scale): tests/test_kernels.py's
 #: SSD_SHAPES, one mamba2-1.3b layer at batch 1 and 4 (|dta| near what its
 #: prefill gives: softplus of a unit normal at A = -1), L = 2000 (Q 250), a
-#: prime L (Q 1)
+#: prime L (Q 1), one jamba-1.5-large-398b mamba layer as moe_zoo's prefill
+#: gives it (batch 2, L 1024, h 256)
 #: and a decay that takes a_cs past -100 within a chunk
 SSD_CASES = (
     ("ssd_shape_1", 1, 32, 2, 8, 16, 8, 0.5),
@@ -3146,6 +3148,7 @@ SSD_CASES = (
     ("mamba_layer_b4", 4, 2048, 64, 64, 128, 256, 0.7),
     ("l2000_q250", 1, 2000, 64, 64, 128, 256, 0.7),
     ("prime_l127_q1", 2, 127, 4, 16, 32, 32, 0.5),
+    ("jamba_layer", 2, 1024, 256, 64, 128, 256, 0.7),
     ("large_decay", 1, 512, 8, 64, 128, 256, 8.0),
 )
 
@@ -3541,38 +3544,53 @@ def _device_split(fn) -> dict:
             "top": {name: v for name, v in top}}
 
 
-def phase_attn_main(rig, smi: str) -> dict:
-    """repro_torch.launch.serve's path at full width and depth for
-    h2o-danube-3-4b: one prefill into KV caches of prompt + new slots and
-    15 greedy decode steps, then Model.loss (bf16, 1 x 512) and its
-    gradient with respect to the adapters.  No kernel and no plain twin
-    lies on this path: every count stays 0 across the phase."""
+def _serve_run(rig, spec) -> dict:
+    """repro_torch.launch.serve's ``generate`` after a warm-up: prefill
+    ``spec``'s prompt into caches of prompt + new slots, then new - 1
+    greedy steps; the counts start at 0 after the warm-up."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import generate
-    from repro_torch.lora import attach_ranks, strip_ranks
-    from repro_torch.tree import tree_leaves, tree_map
     cfg, model, params, adapters, tokens = rig
     generate(model, params, adapters, tokens[:, :256], 2)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_counts()
-    res = generate(model, params, adapters, tokens, ATTN_CFG["new"])
-    peak = torch.cuda.max_memory_allocated()
-    # where the device time goes: one prefill and one decode step
-    with torch.inference_mode():
-        prefill_dev = _device_split(lambda: model.prefill(
-            params, adapters, {"tokens": tokens},
-            capacity=tokens.shape[1] + ATTN_CFG["new"]))
-        step_pos = tokens.shape[1] + ATTN_CFG["new"] - 2
-        decode_dev = _device_split(lambda: model.decode_step(
-            params, adapters, res["caches"], res["tokens"][:, -1],
-            step_pos))
-    b, s = ATTN_LOSS["batch"], ATTN_LOSS["seq"]
+    res = generate(model, params, adapters, tokens, spec["new"])
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["launches"] = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    res["plain_calls"] = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+    res["finite"] = bool(torch.isfinite(res["prefill_logits"].float()).all()
+                         and torch.isfinite(res["logits"].float()).all())
+    res["in_vocab"] = bool(((res["tokens"] >= 0)
+                            & (res["tokens"] < cfg.vocab_size)).all())
+    steps = spec["new"] - 1
+    res["line"] = {"prefill_ms": res["prefill_s"] * 1e3,
+                   "decode_steps": steps,
+                   "decode_ms_per_step": res["decode_s"] * 1e3 / steps,
+                   "decode_tok_per_s": steps * spec["batch"]
+                   / res["decode_s"], "peak_device_bytes": res["peak"],
+                   "finite": res["finite"], "tokens_in_vocab":
+                   res["in_vocab"], "tokens": res["tokens"][0].tolist()}
+    if not (res["finite"] and res["in_vocab"]) or res["tokens"].shape != (
+            spec["batch"], spec["new"]):
+        raise AssertionError(f"{cfg.name}: logits not finite or tokens "
+                             "misshapen or outside the vocab")
+    return res
+
+
+def _loss_and_grad(rig, b, s, calls: int = 2) -> dict:
+    """Model.loss over ``tokens[:b, :s]`` and its gradient with respect to
+    every adapter factor, ``calls`` times (the first meets autograd's first
+    use); the loss, each call's ms and whether the gradient is finite."""
+    import torch
+    from repro_torch.lora import attach_ranks, strip_ranks
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, model, params, adapters, tokens = rig
     factors, ranks = strip_ranks(adapters)
     factors = tree_map(lambda t: t.detach().requires_grad_(True), factors)
-    loss_ms = []
-    for _ in range(2):      # the first call meets autograd's first use
+    ms = []
+    for _ in range(calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = model.loss(params, attach_ranks(factors, ranks),
@@ -3580,45 +3598,64 @@ def phase_attn_main(rig, smi: str) -> dict:
         grads = torch.autograd.grad(loss, tree_leaves(factors))
         loss = float(loss.detach())
         torch.cuda.synchronize()
-        loss_ms.append((time.perf_counter() - t0) * 1e3)
-    launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
-    finite = bool(torch.isfinite(res["prefill_logits"].float()).all()
-                  and torch.isfinite(res["logits"].float()).all())
-    in_vocab = bool(((res["tokens"] >= 0)
-                     & (res["tokens"] < cfg.vocab_size)).all())
-    grads_finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    del grads, factors
+    if not (math.isfinite(loss) and finite):
+        raise AssertionError(f"{cfg.name}: Model.loss {loss} or its "
+                             "gradient is not finite")
+    return {"loss": loss, "loss_and_grad_ms": ms, "loss_shape": [b, s],
+            "grads_finite": finite}
+
+
+def _lm_main(phase, rig, spec, loss_spec, smi, **extra) -> dict:
+    """repro_torch.launch.serve's path at full width: one prefill into KV
+    caches of prompt + new slots and new - 1 greedy decode steps, the
+    device split of a prefill and of a decode step, then Model.loss (in
+    the weights' dtype) and its gradient with respect to the adapters.
+    No kernel and no plain twin lies on the attention, MLP or MoE path:
+    every count stays 0 from generate's start to the end."""
+    import torch
+    from repro_torch.kernels import runtime
+    cfg, model, params, adapters, tokens = rig
+    res = _serve_run(rig, spec)
+    # where the device time goes: one prefill and one decode step
+    with torch.inference_mode():
+        prefill_dev = _device_split(lambda: model.prefill(
+            params, adapters, {"tokens": tokens},
+            capacity=tokens.shape[1] + spec["new"]))
+        step_pos = tokens.shape[1] + spec["new"] - 2
+        decode_dev = _device_split(lambda: model.decode_step(
+            params, adapters, res["caches"], res["tokens"][:, -1],
+            step_pos))
+    loss = _loss_and_grad(rig, loss_spec["batch"], loss_spec["seq"])
+    launches = sum(runtime.LAUNCHES.values())
+    plain = sum(runtime.PLAIN_CALLS.values())
     n_params, param_bytes = _param_count(params)
-    steps = ATTN_CFG["new"] - 1
-    cache = res["caches"][0]["b0"]["k"]
-    line = {"phase": "attn_main", "config": ATTN_CFG, "card": smi,
-            "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "window": cfg.stages[0].unit[0].window,
-            "prefill_ms": res["prefill_s"] * 1e3, "decode_steps": steps,
-            "decode_ms_per_step": res["decode_s"] * 1e3 / steps,
-            "decode_tok_per_s": steps * ATTN_CFG["batch"] / res["decode_s"],
-            "peak_device_bytes": peak, "params": n_params,
-            "param_bytes": param_bytes, "kv_cache_shape": list(cache.shape),
+    line = {"phase": phase, "config": spec, "card": smi,
+            "layers": cfg.n_layers, "d_model": cfg.d_model, **extra,
+            **res["line"], "params": n_params, "param_bytes": param_bytes,
+            "kv_cache_shape": list(res["caches"][0]["b0"]["k"].shape),
             "prefill_device": prefill_dev, "decode_step_device": decode_dev,
-            "loss": loss, "loss_and_grad_ms": loss_ms,
-            "loss_shape": [b, s], "grads_finite": grads_finite,
-            "launches": sum(launches.values()),
-            "plain_calls": sum(plain.values()), "finite": finite,
-            "tokens_in_vocab": in_vocab, "tokens": res["tokens"][0].tolist()}
+            **loss, "launches": launches, "plain_calls": plain}
     emit(line)
-    if any(launches.values()) or any(plain.values()):
-        raise AssertionError(f"attn_main: a kernel or plain twin ran on the "
-                             f"attention path: {launches} {plain}")
-    if not (finite and in_vocab) or res["tokens"].shape != (
-            ATTN_CFG["batch"], ATTN_CFG["new"]):
-        raise AssertionError("attn_main: logits not finite or tokens "
-                             "misshapen or outside the vocab")
-    if not (math.isfinite(loss) and grads_finite):
-        raise AssertionError(f"attn_main: Model.loss {loss} or its "
-                             f"gradient is not finite")
-    if list(cache.shape) != [cfg.n_layers, ATTN_CFG["batch"],
-                             ATTN_CFG["prompt_len"] + ATTN_CFG["new"],
-                             cfg.n_kv_heads, cfg.head_dim]:
-        raise AssertionError(f"attn_main: KV cache {list(cache.shape)}")
+    if launches or plain:
+        raise AssertionError(f"{phase}: a kernel or plain twin ran on the "
+                             f"path: {dict(runtime.LAUNCHES)} "
+                             f"{dict(runtime.PLAIN_CALLS)}")
+    return line
+
+
+def phase_attn_main(rig, smi: str) -> dict:
+    """:func:`_lm_main` for h2o-danube-3-4b at full width and depth
+    (ATTN_CFG, ATTN_LOSS), its KV caches checked."""
+    cfg = rig[0]
+    line = _lm_main("attn_main", rig, ATTN_CFG, ATTN_LOSS, smi,
+                    window=cfg.stages[0].unit[0].window)
+    if line["kv_cache_shape"] != [cfg.n_layers, ATTN_CFG["batch"],
+                                  ATTN_CFG["prompt_len"] + ATTN_CFG["new"],
+                                  cfg.n_kv_heads, cfg.head_dim]:
+        raise AssertionError(f"attn_main: KV cache {line['kv_cache_shape']}")
     return line
 
 
@@ -3727,6 +3764,596 @@ def phase_attn_zoo() -> list:
             raise AssertionError(f"attn_zoo {arch}: decode diverges from the "
                                  f"full forward: {worst}")
     return lines
+
+
+# --------------------------------------------------------------------- MoE --
+#: granite-moe-3b-a800m's serving path as chip_smoke drives it: the full
+#: config (32 layers, d_model 1536, 24 query and 8 KV heads x 64, 40
+#: experts top-8 of width 512 on every layer, vocab 49155, tied
+#: embeddings, bf16), batch 4, a 2048-token prompt, 16 new tokens, adapters
+#: at rank 8 of r_max 64; nothing cut
+MOE_CFG = dict(arch="granite-moe-3b-a800m", batch=4, prompt_len=2048, new=16,
+               rank=8, r_max=64)
+#: Model.loss once on the card, in bf16
+MOE_LOSS = dict(batch=1, seq=512)
+#: the serve invariant at full width and depth, in fp32
+MOE_CONSISTENCY = dict(batch=1, prompt_len=512, decode=8)
+#: prefill + decode against the full forward in fp32, as attn_consistency
+MOE_FP32_TOL = 2e-3
+#: the expert-adapter rbla round: four clients' granite expert pairs at full
+#: depth (leading (32, 40)), at these ranks of r_max 64, weighted 1..4
+MOE_ROUND_RANKS = (8, 16, 32, 64)
+#: jamba-1.5-large-398b at full width, cut to one unit of three blocks
+#: (mamba + dense, mamba + MoE, gqa + dense): prefill and decode in bf16,
+#: then the serve invariant in fp32 (check_pre + check_decode)
+JAMBA_ZOO = dict(arch="jamba-1.5-large-398b", batch=2, prompt_len=1024,
+                 new=8, rank=8, r_max=64, check_pre=256, check_decode=8)
+#: deepseek-v3-671b at full width, cut to its two stages' first layers (MLA
+#: + dense, MLA + MoE of 256 experts) and the MTP block: prefill, decode
+#: and Model.loss (with its MTP term) in bf16; then with 32 routed experts
+#: in fp32 the serve invariant and the absorbed decode against the naive
+DEEPSEEK_ZOO = dict(arch="deepseek-v3-671b", batch=1, prompt_len=512, new=8,
+                    loss_seq=256, rank=8, r_max=64, check_pre=256,
+                    check_decode=8, fp32_experts=32)
+#: the reference's absorbed-against-naive tolerance
+ABSORBED_TOL = 2e-2
+#: moe_ep: one granite MoE layer at full width in fp32 over batch x seq
+#: tokens
+MOE_EP = dict(batch=4, seq=512)
+MOE_EP_TOL = 2e-5
+
+
+def _no_drop(cfg):
+    """``cfg`` at a capacity factor where no token drops (an expert takes
+    at most one slot a token, so E / k makes cap >= the group's tokens),
+    and the cut that says so."""
+    import dataclasses
+    e = cfg.n_experts + cfg.moe_pad_experts
+    cf = e / cfg.experts_per_token
+    return (dataclasses.replace(cfg, capacity_factor=cf),
+            f"capacity_factor {cfg.capacity_factor} -> {cf} (no token "
+            "drops, so decode and the full forward route alike)")
+
+
+def _to_fp32_in_place(tree) -> None:
+    """Every floating leaf of ``tree``'s dicts in fp32, replaced leaf by
+    leaf so that each bf16 leaf is freed as its fp32 copy is made."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list, tuple)):
+            _to_fp32_in_place(v)
+        elif v.is_floating_point():
+            tree[k] = v.float()
+
+
+def _moe_rig(dtype=None):
+    """granite-moe-3b-a800m at full width and depth on the card (MOE_CFG,
+    :func:`_lm_rig`)."""
+    from repro_torch.configs import get_config
+    return _lm_rig(get_config(MOE_CFG["arch"]), MOE_CFG, dtype)
+
+
+def phase_moe_main(rig, smi: str) -> dict:
+    """:func:`_lm_main` for granite-moe-3b-a800m at full width and depth
+    (MOE_CFG, MOE_LOSS), with the dispatch tensor's shape in a prefill and
+    a decode step."""
+    from repro_torch.models.moe import dispatch_shape
+    cfg = rig[0]
+    return _lm_main(
+        "moe_main", rig, MOE_CFG, MOE_LOSS, smi,
+        experts=[cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff],
+        capacity_factor=cfg.capacity_factor,
+        dispatch_shape=list(dispatch_shape(
+            cfg, MOE_CFG["batch"] * MOE_CFG["prompt_len"])),
+        decode_dispatch_shape=list(dispatch_shape(cfg, MOE_CFG["batch"])))
+
+
+def _moe_expert_round(cfg, smi: str) -> dict:
+    """The paper's aggregation over the new family's expert pairs: four
+    clients' granite expert adapters at full depth (leading (32, 40)) at
+    MOE_ROUND_RANKS through ``aggregate_adapters(method="rbla")`` on the
+    card -- one packed_agg launch -- held against the plain round on the
+    same inputs within 2e-5 of max|want|; the kernel round's and the plain
+    round's ms and the HBM bound of the live rows, the weights and the
+    output."""
+    import torch
+    from repro_torch.core import plan, strategy
+    from repro_torch.kernels import runtime
+    from repro_torch.lora import mask_pair
+    from repro_torch.models.model import make_model
+    model = make_model(cfg, remat=False)
+    clients = []
+    for i, r in enumerate(MOE_ROUND_RANKS):
+        gen = torch.Generator(device="cuda").manual_seed(40 + i)
+        full = model.init_adapters(gen, r_max=64, rank=r)
+        clients.append({"stages": tuple(
+            {b: {path: mask_pair(dict(pair, B=torch.randn(
+                pair["B"].shape, generator=gen, device="cuda") * 0.02))
+                for path, pair in unit.items()
+                if path.startswith("ffn/experts/")}
+             for b, unit in stage.items()} for stage in full["stages"])})
+        del full
+    w = torch.arange(1.0, len(clients) + 1, device="cuda")
+    # a copy: its cached plans go with it, not with the shared registry's
+    strat = strategy.get_strategy("rbla").with_options()
+    runtime.reset_counts()
+    got = strat.aggregate_adapters(clients, w, r_max=64, backend="auto")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+    stacked = strategy.stack_trees(clients)
+    ranks = torch.tensor(MOE_ROUND_RANKS, dtype=torch.int32, device="cuda")
+    rounds = {kind: strat.plan(None, plan.build_cohort_spec(
+        stacked, kind=kind, r_max=64, client_ranks=ranks))
+        for kind in ("kernel", "ref")}
+    want = rounds["ref"](stacked, w, None)
+    err, scale = _rel_err(got, want)
+    client_bytes = _live_pair_bytes(clients, MOE_ROUND_RANKS, 64)
+    # the global's rank is the largest client's, r_max: every row written
+    out_bytes = sum(t.numel() * t.element_size()
+                    for t in _float_leaves(got))
+    bytes_moved = client_bytes + out_bytes + w.numel() * w.element_size()
+    ms = time_ms(lambda: rounds["kernel"](stacked, w, None), reps=10)
+    plain_ms = time_ms(lambda: rounds["ref"](stacked, w, None), reps=5)
+    bound_ms, bound_by = bound(bytes_moved, 0.0)
+    row = {"phase": "moe_round", "card": smi, "clients": len(clients),
+           "ranks": list(MOE_ROUND_RANKS), "pairs": "ffn/experts/*",
+           "leading": list(clients[0]["stages"][0]["b0"][
+               "ffn/experts/gate"]["A"].shape[:2]),
+           "launches": launches, "plain_calls": plain, "max_abs_err": err,
+           "tol": 2e-5 * max(scale, 1.0), "ms": ms, "plain_ms": plain_ms,
+           "bytes": bytes_moved, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    del clients, stacked, got, want, rounds, strat
+    torch.cuda.empty_cache()
+    if launches != {"packed_agg": 1} or plain:
+        raise AssertionError(f"moe_round: launches {launches}, plain "
+                             f"{plain}: one packed_agg launch expected")
+    if not err <= 2e-5 * max(scale, 1.0):
+        raise AssertionError(f"moe_round: the kernel round disagrees with "
+                             f"the plain round ({err})")
+    return row
+
+
+def _live_pair_bytes(clients, ranks, r_max) -> int:
+    """Bytes of the clients' pairs that a round must read: each client's
+    live A rows and B columns (rank / r_max of each factor; the rest are
+    zero, and the plan is built with the client ranks) and its rank
+    leaves."""
+    from repro_torch.tree import tree_leaves
+    total = 0
+    for c, r in zip(clients, ranks):
+        for stage in c["stages"]:
+            for unit in stage.values():
+                for pair in unit.values():
+                    total += sum(pair[f].numel() * pair[f].element_size()
+                                 for f in ("A", "B")) * r // r_max
+                    total += sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(pair["rank"]))
+    return total
+
+
+def _float_leaves(tree) -> list:
+    from repro_torch.tree import tree_leaves
+    return [t for t in tree_leaves(tree) if t.is_floating_point()]
+
+
+def phase_moe_consistency(rig) -> dict:
+    """The serve invariant at full width and depth for granite: the bf16
+    weights upcast to fp32 in place, the capacity factor raised so that no
+    token drops (:func:`_no_drop`); prefill 512 tokens into caches of 520
+    slots, decode 8, each position's logits against forward(mode="full")
+    over 520 within MOE_FP32_TOL, TF32 off; no kernel and no plain twin."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import make_model
+    cfg, _, params, adapters, tokens = rig
+    _to_fp32_in_place(params)
+    cfg32, cut = _no_drop(dataclasses.replace(cfg, dtype="float32"))
+    model = make_model(cfg32, remat=False)
+    b, pre, k = (MOE_CONSISTENCY[key] for key in
+                 ("batch", "prompt_len", "decode"))
+    runtime.full_fp32()
+    runtime.reset_counts()
+    with torch.inference_mode():
+        errs = _consistency(model, params, adapters, tokens[:b, :pre + k],
+                            pre, MOE_FP32_TOL)
+    torch.cuda.synchronize()
+    launches = sum(runtime.LAUNCHES.values())
+    plain = sum(runtime.PLAIN_CALLS.values())
+    line = {"phase": "moe_consistency", "arch": cfg.name,
+            "layers": cfg.n_layers, **MOE_CONSISTENCY, "cut": [cut],
+            "fp32_max_abs_err": [e for e, _ in errs],
+            "fp32_tol": [t for _, t in errs],
+            "rel_err": [e / t * MOE_FP32_TOL for e, t in errs],
+            "launches": launches, "plain_calls": plain}
+    emit(line)
+    if launches or plain:
+        raise AssertionError(f"moe_consistency: {launches} launches, "
+                             f"{plain} plain calls")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"moe_consistency: decode diverges from the "
+                             f"full forward: {errs}")
+    return line
+
+
+def _moe_zoo_config(arch, **over):
+    """``arch`` at full width with its depth cut as moe_zoo cuts it; returns
+    the config and what was cut."""
+    import dataclasses
+    from repro_torch.configs import BlockSpec, Stage, get_config
+    cfg = get_config(arch)
+    if arch == JAMBA_ZOO["arch"]:
+        unit = (BlockSpec(kind="mamba", ffn="dense"),
+                BlockSpec(kind="mamba", ffn="moe"),
+                BlockSpec(kind="gqa", ffn="dense"))
+        stages = (Stage(unit=unit, repeat=1),)
+        cut = [f"depth {cfg.n_layers} -> 3 layers: one unit of three blocks "
+               "(mamba + dense, mamba + MoE, gqa + dense) of the 8-block "
+               "unit"]
+    else:
+        stages = tuple(Stage(unit=s.unit, repeat=1) for s in cfg.stages)
+        cut = [f"depth {cfg.n_layers} -> 2 layers (one of each stage: MLA + "
+               "dense, MLA + MoE) + the MTP block"]
+    cfg = dataclasses.replace(cfg, stages=stages, **over)
+    for k, v in over.items():
+        cut.append(f"{k} -> {v}")
+    return cfg, cut
+
+
+def _zoo_line(arch, cfg, cut, params, **extra) -> dict:
+    return {"phase": "moe_zoo", "arch": arch, "cut": cut,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "blocks": [[b.kind, b.ffn] for s in cfg.stages for b in s.unit],
+            "experts": [cfg.n_experts, cfg.n_shared_experts,
+                        cfg.experts_per_token, cfg.moe_d_ff],
+            "dtype": cfg.dtype, "params": _param_count(params)[0], **extra}
+
+
+def _jamba_mixer_walk(cfg, params, adapters, tokens, tol) -> list:
+    """jamba's unit block by block over the prompt from the kernel path's
+    residual stream: each mamba mixer with the kernel and with the plain
+    scan on fp32-upcast operands, the same layer's operands to both (the
+    scan at the shape the prefill gives it); returns each mamba layer's
+    (error, tolerance) at ``tol`` of max|plain|.  The walk stops at the
+    last mamba mixer."""
+    from repro_torch.models.common import embed
+    from repro_torch.models.mamba import mamba_forward
+    from repro_torch.models.transformer import block_forward
+    from repro_torch.tree import tree_map
+    unit = cfg.stages[0].unit
+    last = max(i for i, b in enumerate(unit) if b.kind == "mamba")
+    bp = tree_map(lambda t: t[0], params["stages"][0])
+    pairs = tree_map(lambda t: t[0], adapters["stages"][0])
+    x = embed(params["embed"], tokens)
+    errs = []
+    for i, spec in enumerate(unit[:last + 1]):
+        flat = pairs.get(f"b{i}", {})
+        bl = {part: {k.split("/", 1)[1]: v for k, v in flat.items()
+                     if k.startswith(part + "/")} or None
+              for part in ("mix", "ffn")}
+        if spec.kind == "mamba":
+            def mixer(backend, **plain):
+                return mamba_forward(bp[f"b{i}"]["mix"], bl["mix"], x, cfg,
+                                     mode="full", scan_backend=backend,
+                                     **plain)[0]
+            errs.append(_logit_err(
+                mixer("auto"), mixer("ref", plain_scan=_plain_scan_in_fp32),
+                tol))
+        if i < last:
+            x, _ = block_forward(bp[f"b{i}"], bl, x, cfg, spec, mode="full")
+    return errs
+
+
+def phase_moe_zoo(smi: str) -> list:
+    """jamba and deepseek at full width (JAMBA_ZOO, DEEPSEEK_ZOO): jamba's
+    bf16 prefill launches ssd_scan once a mamba layer, and each mamba
+    mixer's kernel scan is held against the plain scan on the same
+    operands (bf16 and fp32), then its fp32 serve invariant; deepseek's bf16 prefill, decode and Model.loss with the MTP
+    term, then with 32 routed experts in fp32 the serve invariant and the
+    absorbed decode against the naive decode."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import make_model
+    runtime.full_fp32()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_zoo", "allocated_gb_at_start":
+          torch.cuda.memory_allocated() / 1e9})
+    lines = []
+    # ---- jamba: bf16 serve, then the same weights in fp32
+    spec = JAMBA_ZOO
+    cfg, cut = _moe_zoo_config(spec["arch"])
+    rig = _lm_rig(cfg, spec)
+    res = _serve_run(rig, spec)
+    n_mamba = sum(b.kind == "mamba" for s in cfg.stages for b in s.unit)
+    line = _zoo_line(spec["arch"], cfg, cut, rig[2], card=smi,
+                     config={k: spec[k] for k in ("batch", "prompt_len",
+                                                  "new")},
+                     **res["line"], launches=res["launches"],
+                     plain_calls=res["plain_calls"])
+    emit(line)
+    lines.append(line)
+    if res["launches"] != {"ssd_scan": n_mamba} or res["plain_calls"]:
+        raise AssertionError(f"moe_zoo jamba: launches {res['launches']}, "
+                             f"plain {res['plain_calls']}: one ssd_scan a "
+                             "mamba layer expected in the prefill")
+    del res
+    _, _, params, adapters, tokens = rig
+    del rig
+    cfg32, drop_cut = _no_drop(dataclasses.replace(cfg, dtype="float32"))
+    walk = {}
+    for dtype, tol in (("bfloat16", MAMBA_BF16_TOL),
+                       ("float32", MAMBA_FP32_TOL)):
+        if dtype == "float32":
+            _to_fp32_in_place(params)
+        with torch.inference_mode():
+            walk[dtype] = _jamba_mixer_walk(
+                cfg32 if dtype == "float32" else cfg, params, adapters,
+                tokens, tol)
+    line = {"phase": "moe_zoo", "arch": spec["arch"], "card": smi,
+            "check": "ssd_scan against the plain scan, each mamba mixer",
+            "scan_shape": [spec["batch"], spec["prompt_len"],
+                           cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+                           cfg.ssm_head_dim, cfg.ssm_state],
+            **{f"{d}_rel_err": [e / t * tol for e, t in errs]
+               for (d, errs), tol in zip(walk.items(), (MAMBA_BF16_TOL,
+                                                        MAMBA_FP32_TOL))}}
+    emit(line)
+    lines.append(line)
+    if not all(e <= t for errs in walk.values() for e, t in errs) or \
+            [len(errs) for errs in walk.values()] != [n_mamba, n_mamba]:
+        raise AssertionError(f"moe_zoo jamba: a mamba mixer's kernel scan "
+                             f"disagrees with the plain scan: {walk}")
+    pre, k = spec["check_pre"], spec["check_decode"]
+    runtime.reset_counts()
+    with torch.inference_mode():
+        errs = _consistency(make_model(cfg32, remat=False), params,
+                            adapters, tokens[:1, :pre + k], pre,
+                            MOE_FP32_TOL)
+    torch.cuda.synchronize()
+    launches = {k_: v for k_, v in runtime.LAUNCHES.items() if v}
+    line = _zoo_line(spec["arch"], cfg32, cut + [drop_cut,
+                                                 "dtype bfloat16 -> float32"],
+                     params, check="serve invariant", prefill=pre,
+                     decode=k, rel_err=[e / t * MOE_FP32_TOL
+                                        for e, t in errs],
+                     worst_err=max(errs, key=lambda e: e[0] / e[1]),
+                     launches=launches)
+    emit(line)
+    lines.append(line)
+    del params, adapters, tokens
+    torch.cuda.empty_cache()
+    # the full forward's and the prefill's mamba layers, none in decode
+    if launches != {"ssd_scan": 2 * n_mamba}:
+        raise AssertionError(f"moe_zoo jamba fp32: launches {launches}")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"moe_zoo jamba: decode diverges from the full "
+                             f"forward: {errs}")
+    # ---- deepseek: bf16 serve and loss with MTP, 256 experts
+    spec = DEEPSEEK_ZOO
+    cfg, cut = _moe_zoo_config(spec["arch"])
+    rig = _lm_rig(cfg, spec)
+    res = _serve_run(rig, spec)
+    loss = _loss_and_grad(rig, 1, spec["loss_seq"])
+    launches = sum(runtime.LAUNCHES.values()) + sum(
+        runtime.PLAIN_CALLS.values())
+    line = _zoo_line(spec["arch"], cfg, cut, rig[2], card=smi,
+                     config={k: spec[k] for k in ("batch", "prompt_len",
+                                                  "new")},
+                     mtp_depth=cfg.mtp_depth, **res["line"], **loss,
+                     launches=launches)
+    emit(line)
+    lines.append(line)
+    del res, rig
+    torch.cuda.empty_cache()
+    if launches:
+        raise AssertionError(f"moe_zoo deepseek: {launches} launches")
+    # ---- deepseek in fp32 with 32 routed experts
+    cfg, cut = _moe_zoo_config(spec["arch"], dtype="float32",
+                               n_experts=spec["fp32_experts"])
+    cfg, drop_cut = _no_drop(cfg)
+    rig = _lm_rig(cfg, spec)
+    _, model, params, adapters, tokens = rig
+    pre, k = spec["check_pre"], spec["check_decode"]
+    seq = tokens[:1, :pre + k]
+    absorbed = make_model(cfg, remat=False, mla_absorbed=True)
+    # the absorbed form folds kv_b's weight and skips its adapter, as the
+    # reference: both decodes run without that one pair
+    no_kv_b = {"stages": tuple(
+        {b: {path: pair for path, pair in unit.items()
+             if path != "mix/kv_b"} for b, unit in stage.items()}
+        for stage in adapters["stages"])}
+    runtime.reset_counts()
+    with torch.inference_mode():
+        errs = _consistency(model, params, adapters, seq, pre, MOE_FP32_TOL)
+        _, caches = model.prefill(params, no_kv_b, {"tokens": seq[:, :pre]},
+                                  capacity=pre + k)
+        abs_caches = caches
+        abs_errs = []
+        for t in range(pre, pre + k):
+            naive, caches = model.decode_step(params, no_kv_b, caches,
+                                              seq[:, t], t)
+            got, abs_caches = absorbed.decode_step(params, no_kv_b,
+                                                   abs_caches, seq[:, t], t)
+            abs_errs.append(_logit_err(got, naive, ABSORBED_TOL))
+    torch.cuda.synchronize()
+    launches = sum(runtime.LAUNCHES.values())
+    line = _zoo_line(spec["arch"], cfg, cut + [drop_cut], params,
+                     check="serve invariant, absorbed decode", prefill=pre,
+                     decode=k, rel_err=[e / t * MOE_FP32_TOL
+                                        for e, t in errs],
+                     absorbed_rel_err=[e / t * ABSORBED_TOL
+                                       for e, t in abs_errs],
+                     launches=launches)
+    emit(line)
+    lines.append(line)
+    del rig, model, params, adapters, no_kv_b, tokens, caches, abs_caches
+    torch.cuda.empty_cache()
+    if launches:
+        raise AssertionError(f"moe_zoo deepseek fp32: {launches} launches")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"moe_zoo deepseek: decode diverges from the "
+                             f"full forward: {errs}")
+    if not all(e <= t for e, t in abs_errs):
+        raise AssertionError(f"moe_zoo deepseek: the absorbed decode "
+                             f"diverges from the naive one: {abs_errs}")
+    return lines
+
+
+def _ep_inputs():
+    """One granite MoE layer at full width in fp32 (seed 5) and MOE_EP's
+    tokens (seed 6) on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_init
+    cfg = dataclasses.replace(get_config(MOE_CFG["arch"]), dtype="float32")
+    p = moe_init(torch.Generator(device="cuda").manual_seed(5), cfg)
+    x = torch.randn((MOE_EP["batch"], MOE_EP["seq"], cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    return cfg, p, x
+
+
+def _ep_rank(rank, world, store, data_path, out_path, src):
+    """One rank of moe_ep's gloo world on cuda:0: the expert-parallel
+    wrapper over the default model mesh, its result against the sort path
+    with ``world`` groups saved beside the inputs, and a dispatch round's
+    wall.  Writes its row as JSON to ``out_path``; raises on a
+    disagreement."""
+    sys.path.insert(0, src)
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.models.moe_ep import moe_forward_ep_wrapped
+    runtime.full_fp32()
+    torch.cuda.set_device(0)
+    data = torch.load(data_path, map_location="cuda:0")
+    cfg = dataclasses.replace(get_config(MOE_CFG["arch"]), dtype="float32")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        runtime.reset_counts()
+        with torch.inference_mode():
+            y = moe_forward_ep_wrapped(data["p"], None, data["x"], cfg)
+        collectives = dict(runtime.COLLECTIVES)
+        err = float((y - data["want"]).abs().max())
+        tol = MOE_EP_TOL * max(1.0, float(data["want"].abs().max()))
+        walls = []
+        with torch.inference_mode():
+            for _ in range(8):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                moe_forward_ep_wrapped(data["p"], None, data["x"], cfg)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    row = {"rank": rank, "world": world, "max_abs_err": err, "tol": tol,
+           "collectives": collectives, "on_card": bool(y.is_cuda),
+           "dispatch_round_wall_ms": statistics.median(walls[2:])}
+    with open(out_path, "w") as f:
+        json.dump(row, f)
+    if not (err <= tol and y.is_cuda):
+        raise AssertionError(f"moe_ep rank {rank}: {err} > {tol}")
+
+
+def phase_moe_ep(smi: str) -> dict:
+    """The expert-parallel MoE (``moe_mode="ep_a2a"``) on the card: under a
+    one-rank NCCL group the wrapper equals the sort path with one group
+    (the same group count) within MOE_EP_TOL of max|want| in fp32, with one
+    all_to_all each way and one all_gather; a dispatch round's wall against
+    the sort path's; then 2 gloo ranks on cuda:0 (spawned), each rank's
+    tokens against the sort path with 2 groups."""
+    import multiprocessing
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.kernels import runtime
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.models.moe_ep import moe_forward_ep_wrapped
+    runtime.full_fp32()
+    cfg, p, x = _ep_inputs()
+    with torch.inference_mode():
+        want1 = moe_forward(p, None, x, cfg, n_groups=1)
+        want2 = moe_forward(p, None, x, cfg, n_groups=2)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            runtime.reset_counts()
+            with torch.inference_mode():
+                got = moe_forward_ep_wrapped(p, None, x, cfg)
+            torch.cuda.synchronize()
+            collectives = dict(runtime.COLLECTIVES)
+            err, tol = _logit_err(got, want1, MOE_EP_TOL)
+
+            def ep():
+                return moe_forward_ep_wrapped(p, None, x, cfg)
+
+            def sort():
+                return moe_forward(p, None, x, cfg, n_groups=1)
+            with torch.inference_mode():
+                ep_ms, sort_ms = time_ms(ep, reps=10), time_ms(sort, reps=10)
+                ep_dev, _ = _device_events(ep)
+        finally:
+            dist.destroy_process_group()
+        out = {"phase": "moe_ep", "leg": "one_rank_nccl", "card": smi,
+               "tokens": list(x.shape[:2]), "experts": cfg.n_experts,
+               "max_abs_err": err, "tol": tol, "collectives": collectives,
+               "ep_ms": ep_ms, "sort_ms": sort_ms,
+               "ep_device_kernels": sum(c for c, _ in ep_dev.values()),
+               "nccl_device_ms": sum(m for k, (_, m) in ep_dev.items()
+                                     if "nccl" in k.lower())}
+        emit(out)
+        if collectives != {"all_reduce": 0, "all_gather": 1,
+                           "all_to_all": 2}:
+            raise AssertionError(f"moe_ep: collectives {collectives}: one "
+                                 "all_to_all each way and one all_gather "
+                                 "expected")
+        if not err <= tol:
+            raise AssertionError(f"moe_ep: the expert-parallel path "
+                                 f"disagrees with the sort path ({err})")
+        # two gloo ranks on the one card
+        data = str(Path(tmp) / "ep.pt")
+        torch.save({"p": p, "x": x, "want": want2}, data)
+        ctx = multiprocessing.get_context("spawn")
+        outs = [str(Path(tmp) / f"ep{k}.json") for k in range(2)]
+        procs = [ctx.Process(target=_ep_rank, args=(
+            k, 2, str(Path(tmp) / "gloo_store"), data, outs[k],
+            str(Path(repro_torch.__file__).resolve().parents[1])))
+            for k in range(2)]
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(DIST_CHILD_TIMEOUT)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        ranks = []
+        for k, proc in enumerate(procs):
+            if proc.exitcode != 0:
+                raise AssertionError(f"moe_ep: gloo rank {k} exited "
+                                     f"{proc.exitcode}")
+            with open(outs[k]) as f:
+                ranks.append(json.load(f))
+            emit({"phase": "moe_ep", "leg": "two_gloo_ranks", "card": smi,
+                  **ranks[-1]})
+    return {**out, "two_rank_wall_ms": [r["dispatch_round_wall_ms"]
+                                        for r in ranks]}
 
 
 # ------------------------------------------------------------- distributed --
@@ -3967,7 +4594,7 @@ def phase_distributed(smi: str) -> dict:
                   "max_acc_gap": gap, "adapters_max_abs_err": err,
                   "adapters_tol": 1e-3 * scale})
             if counts["collectives"] != {"all_reduce": MAIN_CFG["rounds"],
-                                         "all_gather": 0} \
+                                         "all_gather": 0, "all_to_all": 0} \
                     or counts["launches"] or counts["plain_calls"]:
                 raise AssertionError(f"distributed (a): {counts}: one "
                                      "all_reduce a round and no kernel "
@@ -3994,7 +4621,8 @@ def phase_distributed(smi: str) -> dict:
                 want = {"flora_stack": 1} if name == "flora" else {}
                 if counts["launches"] != want or counts["plain_calls"] or \
                         counts["collectives"] != {"all_reduce": 0,
-                                                  "all_gather": 1}:
+                                                  "all_gather": 1,
+                                                  "all_to_all": 0}:
                     raise AssertionError(f"distributed (b) {name}: {counts}")
                 if not (gap <= 0.01 and err <= 1e-4 * scale):
                     raise AssertionError(f"distributed (b) {name}: the "
@@ -4032,7 +4660,7 @@ def phase_distributed(smi: str) -> dict:
                   "n_flushes": flushes, "max_acc_gap": gap,
                   "adapters_max_abs_err": err, "adapters_tol": 1e-3 * scale})
             if counts["collectives"] != {"all_reduce": flushes,
-                                         "all_gather": 0} \
+                                         "all_gather": 0, "all_to_all": 0} \
                     or counts["launches"] or counts["plain_calls"] \
                     or flushes != semi_cfg["total_updates"] // 5:
                 raise AssertionError(f"distributed (c) buffered: {counts}, "
@@ -4071,6 +4699,7 @@ def _args(argv):
 def run_selected(names, smi: str) -> dict:
     """The independent phases in ``names``, in that order; returns their
     kernels' summary rows."""
+    import torch
     summary = {}
     for name in names:
         if name == "kernels":
@@ -4100,6 +4729,19 @@ def run_selected(names, smi: str) -> dict:
             phase_attn_consistency(rig, _fp32_rig(rig))
         elif name == "attn_zoo":
             phase_attn_zoo()
+        elif name == "moe_main":
+            rig = _moe_rig()
+            phase_moe_main(rig, smi)
+            summary["packed_agg"] = {"moe_round": _moe_expert_round(
+                rig[0], smi)}
+            del rig
+            torch.cuda.empty_cache()
+        elif name == "moe_consistency":
+            phase_moe_consistency(_moe_rig())
+        elif name == "moe_zoo":
+            phase_moe_zoo(smi)
+        elif name == "moe_ep":
+            phase_moe_ep(smi)
         emit({"phase": name, "ok": True})
     return summary
 
@@ -4226,6 +4868,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_attn_zoo()
     emit({"phase": "attention", "ok": True})
+
+    moe = _moe_rig()
+    phase_moe_main(moe, smi)
+    moe_round = _moe_expert_round(moe[0], smi)
+    phase_moe_consistency(moe)      # upcasts moe's weights in place
+    del moe
+    torch.cuda.empty_cache()
+    zoo = phase_moe_zoo(smi)
+    ep = phase_moe_ep(smi)
+    summary["packed_agg"]["moe_round"] = {
+        k: moe_round[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "max_abs_err", "bytes")}
+    summary["ssd_scan"]["jamba_prefill_launches"] = \
+        zoo[0]["launches"]["ssd_scan"]
+    emit({"phase": "moe", "ok": True, "ep_ms": ep["ep_ms"],
+          "sort_ms": ep["sort_ms"],
+          "two_rank_wall_ms": ep["two_rank_wall_ms"]})
 
     dist_path = phase_distributed(smi)
     emit({"phase": "distributed", "ok": True, **dist_path})

@@ -57,7 +57,7 @@ from repro_torch.kernels.rbla_agg import (packed_agg_group_ref,
 from repro_torch.kernels.rbla_agg.ops import grouped_launch
 
 from .aggregation import _EPS
-from .compat import all_reduce_sum, client_group, local_slice
+from .compat import all_reduce_sum, client_group, default_mesh, local_slice
 from .masks import pad_to_rank
 
 PyTree = Any
@@ -69,30 +69,14 @@ class PlanUnavailable(Exception):
     everything."""
 
 
-#: the default client mesh of each axis name, with the world group it spans
-_DEFAULT_MESHES: dict = {}
-
-
 def default_client_mesh(client_axis: str = "clients"):
     """The 1-D client mesh over every rank of the default process group --
     the shared default of every distributed aggregation path -- or
-    ``None`` when no group is initialised: a world of this process alone,
-    in which no collective is called (the reference's one-device mesh).
+    ``None`` when no group is initialised (``compat.default_mesh``).
     The reference sizes its mesh to the largest device count dividing the
     cohort; here each rank takes a slice as even as the cohort allows
-    (``compat.client_slices``), so the mesh is always the whole world.
-    Built once per world group and axis: a mesh may create a group."""
-    import torch.distributed as dist
-    if not dist.is_initialized():
-        return None
-    world = dist.group.WORLD
-    got = _DEFAULT_MESHES.get(client_axis)
-    if got is None or got[0] is not world:
-        from torch.distributed.device_mesh import init_device_mesh
-        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        got = _DEFAULT_MESHES[client_axis] = (world, init_device_mesh(
-            device, (dist.get_world_size(),), mesh_dim_names=(client_axis,)))
-    return got[1]
+    (``compat.client_slices``), so the mesh is always the whole world."""
+    return default_mesh(client_axis)
 
 
 def resolve_client_group(mesh, client_axis: str):

@@ -31,7 +31,8 @@ LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: collectives the distributed paths called since the last
 #: :func:`reset_counts`, raised right after each call returned
-COLLECTIVES: dict[str, int] = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVES: dict[str, int] = {"all_reduce": 0, "all_gather": 0,
+                               "all_to_all": 0}
 
 
 def reset_counts() -> None:

@@ -12,7 +12,11 @@ one prefill into KV caches of ``prompt_len + new`` slots, then ``new - 1``
 decode steps each feeding back the argmax token.  Prints the reference's
 ``prefill:`` and ``decode:`` lines.  ``--arch`` defaults to the reference's
 ``h2o-danube-3-4b``; the port serves it and the other dense GQA archs
-(``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``) and ``mamba2-1.3b``.
+(``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``), ``mamba2-1.3b`` and the MoE
+archs (``granite-moe-3b-a800m``; ``jamba-1.5-large-398b``, whose mamba
+layers launch ``ssd_scan``; ``deepseek-v3-671b``, MLA with a latent
+cache).  At a full config's ``capacity_factor`` (1.25) a prompt's
+capacity can drop tokens that a one-token decode step keeps.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the plain path.
 """

@@ -1,14 +1,18 @@
-"""Grouped-query attention (GQA) on tensor dicts: SWA windows, softcaps,
-QKV bias, query scale and post-block norms.
+"""Attention token mixers on tensor dicts: grouped-query attention (GQA:
+SWA windows, softcaps, QKV bias, query scale and post-block norms) and
+DeepSeek's multi-head latent attention (MLA).
 
-The JAX package's ``repro.models.attention`` GQA path, in plain PyTorch
-ops and the reference's formulation.  Three modes share one parameter set:
+The JAX package's ``repro.models.attention`` GQA and MLA paths, in plain
+PyTorch ops and the reference's formulation.  Three modes share one
+parameter set:
 
 * full    -- a whole sequence (training, the full forward);
-* prefill -- full, plus the KV cache padded to ``capacity`` (an SWA layer's
-  in ring order, ``slot = pos % w``);
+* prefill -- full, plus the cache padded to ``capacity`` (an SWA layer's
+  in ring order, ``slot = pos % w``; MLA's the latent ``ckv`` and the
+  rotated ``kr``);
 * decode  -- one new token against the cache (a ring buffer for an SWA
-  layer).
+  layer; MLA re-expands K and V from its latent cache, or, absorbed,
+  attends in the latent space).
 
 Query head ``i`` reads KV head ``i // g`` (heads grouped ``(kv, g)`` by a
 reshape).  Scores are ``q.k * scale`` in the input dtype, softcapped, then
@@ -17,7 +21,9 @@ fp32 and the probabilities are cast to v's dtype for the product with v.
 Queries go in chunks (:func:`_choose_q_chunk`), so a long prefill never
 holds an (S, S) score matrix per head group.  No kernel lies on this path:
 ``scaled_dot_product_attention`` has no score softcap and masks otherwise.
-MLA and cross-attention arrive with ROADMAP item 19b.
+MLA's values are narrower than its queries and keys (``v_head_dim``
+against ``qk_nope_dim + qk_rope_dim``): the products take each operand's
+own head dim.  Cross-attention arrives with ROADMAP item 19b.
 """
 from __future__ import annotations
 
@@ -173,15 +179,10 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
         kk = apply_rope(kk, posb, cfg.rope_theta, cfg.rope_kind)
         t = cache["k"].shape[1]
         # ring buffer slot; the cache may be shorter than the window when
-        # the serving context itself is (t == min(window, seq_len)); the
-        # write's start is placed as lax.dynamic_update_slice_in_dim places
-        # it: a negative start counts once from the end, then clamps into
-        # [0, t - 1]
+        # the serving context itself is (t == min(window, seq_len))
         slot = (pos % t) if block.window > 0 else pos
-        slot = min(max(slot + t if slot < 0 else slot, 0), t - 1)
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[:, slot] = kk[:, 0]
-        cv[:, slot] = vv[:, 0]
+        ck = _write_slot(cache["k"], kk, slot)
+        cv = _write_slot(cache["v"], vv, slot)
         iota = torch.arange(t, device=x.device)
         valid = iota < min(pos + 1, t) if block.window > 0 else iota <= pos
         qg = q.reshape(q.shape[:2] + (kv, g, hd))
@@ -195,6 +196,18 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
     if cfg.post_block_norm:
         y = norm(p["post_ln"], y, cfg.norm_eps)
     return y, new_cache
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor,
+                slot: int) -> torch.Tensor:
+    """A copy of ``cache`` (B, T, ...) with ``new`` (B, 1, ...) written at
+    ``slot``, placed as ``lax.dynamic_update_slice_in_dim`` places it: a
+    negative start counts once from the end, then clamps into [0, T - 1]."""
+    t = cache.shape[1]
+    slot = min(max(slot + t if slot < 0 else slot, 0), t - 1)
+    out = cache.clone()
+    out[:, slot] = new[:, 0]
+    return out
 
 
 def _ring_from_tail(kk: torch.Tensor, vv: torch.Tensor,
@@ -218,3 +231,148 @@ def gqa_init_cache(cfg, block, batch: int, seq_len: int, dtype,
     t = min(block.window, seq_len) if block.window > 0 else seq_len
     return {"k": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device)}
+
+
+# =================================================================== MLA ====
+def mla_init(gen: torch.Generator, cfg, block) -> dict:
+    _check_block(block)
+    d = cfg.d_model
+    h = cfg.n_heads
+    dt = dtype_of(cfg)
+    dev = gen.device
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "ln": norm_init(cfg, d, device=dev),
+        "q_a": dense_init(gen, d, cfg.q_lora_rank, dt),
+        "q_ln": norm_init(cfg, cfg.q_lora_rank, device=dev),
+        "q_b": dense_init(gen, cfg.q_lora_rank, h * qk_dim, dt),
+        "kv_a": dense_init(gen, d, cfg.kv_lora_rank + cfg.qk_rope_dim, dt),
+        "kv_ln": norm_init(cfg, cfg.kv_lora_rank, device=dev),
+        "kv_b": dense_init(gen, cfg.kv_lora_rank,
+                           h * (cfg.qk_nope_dim + cfg.v_head_dim), dt),
+        "o": dense_init(gen, h * cfg.v_head_dim, d, dt),
+    }
+
+
+MLA_LORA_TARGETS = ("q_a", "q_b", "kv_a", "kv_b", "o")
+
+
+def _rope_key(k_rope: torch.Tensor, positions: torch.Tensor,
+              theta: float) -> torch.Tensor:
+    """The one rotated key head MLA shares across heads: (B, S, rope_d)."""
+    return apply_rope(k_rope[..., None, :], positions, theta, "full")[..., 0, :]
+
+
+def _expand_kv(p, lora, ckv, kr, cfg, alpha):
+    """K (B, T, H, nope + rope_d) and V (B, T, H, v_head_dim) from the
+    latent ``ckv`` (B, T, kv_lora_rank) and the shared rotated key
+    ``kr`` (B, T, rope_d)."""
+    h, nope = cfg.n_heads, cfg.qk_nope_dim
+    kv = dense(p["kv_b"], ckv, lora.get("kv_b"), alpha).reshape(
+        ckv.shape[:2] + (h, nope + cfg.v_head_dim))
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, kr[..., None, :].expand(
+        k_nope.shape[:-1] + (cfg.qk_rope_dim,))], -1)
+    return k, v
+
+
+def mla_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
+                block, *, mode: str, positions: torch.Tensor | None = None,
+                cache: Mapping | None = None, pos=None, alpha: float = 16.0,
+                absorbed: bool = False, capacity: int | None = None):
+    """DeepSeek-V3 multi-head latent attention.  Returns (y, new_cache or
+    None); the cache is ``{"ckv": (B, T, kv_lora_rank), "kr": (B, T,
+    qk_rope_dim)}``.
+
+    Decode re-expands K and V from the latent cache every step (the
+    reference implementation's form); ``absorbed=True`` folds ``kv_b``'s
+    K half into the query and its V half into the output, attending in the
+    latent space (``kv_b``'s adapter is then not applied, as in the
+    reference)."""
+    _check_block(block)
+    lora = lora or {}
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qk_dim = nope + rope_d
+    scale = qk_dim ** -0.5
+    hx = norm(p["ln"], x, cfg.norm_eps)
+
+    def proj(name, inp):
+        return dense(p[name], inp, lora.get(name), alpha)
+
+    # query path
+    cq = norm(p["q_ln"], proj("q_a", hx), cfg.norm_eps)
+    q = proj("q_b", cq).reshape(hx.shape[:2] + (h, qk_dim))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    # latent kv path
+    ckv_full = proj("kv_a", hx)
+    ckv, k_rope = (ckv_full[..., :cfg.kv_lora_rank],
+                   ckv_full[..., cfg.kv_lora_rank:])
+    ckv = norm(p["kv_ln"], ckv, cfg.norm_eps)
+
+    if mode in ("full", "prefill"):
+        s = x.shape[1]
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q_rope = apply_rope(q_rope, positions[None], cfg.rope_theta, "full")
+        kr = _rope_key(k_rope, positions[None], cfg.rope_theta)
+        k, v = _expand_kv(p, lora, ckv, kr, cfg, alpha)
+        qg = torch.cat([q_nope, q_rope], -1).reshape(
+            x.shape[:2] + (h, 1, qk_dim))
+        out = _attend_chunked(qg, k, v, causal=block.causal, window=0,
+                              q_positions=positions, k_positions=positions,
+                              scale=scale, cap=0.0)
+        y = dense(p["o"], out.reshape(x.shape[:2] + (h * vd,)),
+                  lora.get("o"), alpha)
+        new_cache = None
+        if mode == "prefill":
+            t_cap = capacity or s
+            if t_cap < s:
+                raise ValueError(f"mla_forward: capacity {t_cap} is shorter "
+                                 f"than the prompt ({s})")
+            pad = (0, 0, 0, t_cap - s)
+            new_cache = {"ckv": torch.nn.functional.pad(ckv, pad),
+                         "kr": torch.nn.functional.pad(kr, pad)}
+        return y, new_cache
+    if mode != "decode":
+        raise ValueError(f"unknown mode {mode!r}; options: full | prefill | "
+                         "decode")
+
+    pos = int(pos)
+    posb = torch.full((1, 1), pos, device=x.device)
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta, "full")
+    ckv_c = _write_slot(cache["ckv"], ckv, pos)
+    kr_c = _write_slot(cache["kr"], _rope_key(k_rope, posb, cfg.rope_theta),
+                       pos)
+    t = ckv_c.shape[1]
+    valid = torch.arange(t, device=x.device) <= pos
+    if absorbed:
+        # fold kv_b's K half into the query: q_lat = q_nope @ W_bk^T
+        wkb = p["kv_b"]["w"].reshape(cfg.kv_lora_rank, h, nope + vd)
+        wk, wv = wkb[..., :nope], wkb[..., nope:]
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk)    # (B,1,H,R)
+        s_lat = torch.einsum("bqhr,btr->bhqt", q_lat, ckv_c)
+        s_rope = torch.einsum("bqhd,btd->bhqt", q_rope, kr_c)
+        scores = ((s_lat + s_rope) * scale).float().masked_fill_(
+            ~valid, NEG_INF)
+        probs = torch.softmax(scores, -1).to(x.dtype)
+        ctx_lat = torch.einsum("bhqt,btr->bqhr", probs, ckv_c)  # (B,1,H,R)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx_lat, wv)
+    else:
+        k, v = _expand_kv(p, lora, ckv_c, kr_c, cfg, alpha)
+        qg = torch.cat([q_nope, q_rope], -1).reshape(
+            x.shape[:2] + (h, 1, qk_dim))
+        out = _attend_decode(qg, k, v, valid, scale, 0.0)
+    y = dense(p["o"], out.reshape(x.shape[:2] + (h * vd,)), lora.get("o"),
+              alpha)
+    return y, {"ckv": ckv_c, "kr": kr_c}
+
+
+def mla_init_cache(cfg, block, batch: int, seq_len: int, dtype,
+                   device=None) -> dict:
+    _check_block(block)
+    return {"ckv": torch.zeros((batch, seq_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, seq_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device)}

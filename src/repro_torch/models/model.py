@@ -2,12 +2,12 @@
 functions.
 
 The port's counterpart of the JAX package's ``repro.models.model``, for
-decoder-only stacks of the blocks the port has (``transformer``: GQA
-attention with the dense MLP, and Mamba2).  Entry points (pure functions of
-their arguments):
+decoder-only stacks of the blocks the port has (``transformer``: GQA or
+MLA attention with the dense MLP or the MoE, and Mamba2).  Entry points
+(pure functions of their arguments):
 
   forward(params, adapters, batch, mode, capacity)  -> (logits, caches|None)
-  loss(params, adapters, batch)                     -> scalar CE
+  loss(params, adapters, batch)                     -> scalar CE (+ MTP)
   prefill(params, adapters, batch, capacity)        -> (last_logits, caches)
   decode_step(params, adapters, caches, token, pos) -> (logits, caches)
 
@@ -17,8 +17,11 @@ Parameters live on the device of the generator given to :meth:`Model.init`;
 ``"ref"``: the plain version everywhere).  Attention, RoPE and the MLP are
 plain PyTorch, so ``loss`` is differentiable by autograd; the ``ssd_scan``
 kernel has no backward, so a mamba model trains on the card with
-``scan_backend="ref"``.  The encoder-decoder, vision front-end and
-multi-token-prediction branches wait for ROADMAP item 19b.
+``scan_backend="ref"``.  ``mla_absorbed`` picks MLA's absorbed decode.
+With ``cfg.mtp_depth`` (deepseek-v3) ``init`` adds the ``mtp`` subtree
+and ``loss`` adds ``0.3 *`` the multi-token-prediction term, as the
+reference writes it (:meth:`Model._mtp_loss`).  The encoder-decoder and
+the front-ends wait for ROADMAP item 19b.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ from repro_torch.tree import tree_map
 
 from .common import (dense, dense_init, dtype_of, embed, embed_init, norm,
                      norm_init, softcap, unembed)
-from .transformer import (block_init_cache, stage_forward, stage_init,
-                          stage_lora_init)
+from .transformer import (block_forward, block_init, block_init_cache,
+                          stage_forward, stage_init, stage_lora_init)
 
 PyTree = Any
 
@@ -49,6 +52,7 @@ class Model:
     remat: Any = True            # accepted; autograd keeps what it needs
     alpha: float = 16.0
     scan_backend: str = "auto"   # auto | kernel | ref
+    mla_absorbed: bool = False   # MLA's absorbed decode
 
     def __post_init__(self):
         cfg = self.cfg
@@ -56,8 +60,6 @@ class Model:
             raise _not_ported(f"{cfg.name}: the encoder-decoder branch")
         if cfg.frontend != "none":
             raise _not_ported(f"{cfg.name}: the {cfg.frontend} front-end")
-        if cfg.mtp_depth:
-            raise _not_ported(f"{cfg.name}: multi-token prediction")
         runtime.resolve_backend(self.scan_backend, "cpu")
 
     # ------------------------------------------------------------ params ----
@@ -69,6 +71,12 @@ class Model:
         p["final_ln"] = norm_init(cfg, device=gen.device)
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+        if cfg.mtp_depth:
+            p["mtp"] = {
+                "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dt),
+                "block": block_init(gen, cfg, cfg.stages[-1].unit[-1]),
+                "ln": norm_init(cfg, device=gen.device),
+            }
         return p
 
     # ---------------------------------------------------------- adapters ----
@@ -94,16 +102,19 @@ class Model:
                 positions=positions,
                 caches=None if caches is None else caches[i], pos=pos,
                 alpha=self.alpha, remat=self.remat,
-                scan_backend=self.scan_backend, capacity=capacity)
+                scan_backend=self.scan_backend,
+                mla_absorbed=self.mla_absorbed, capacity=capacity)
             new_caches.append(c)
         return x, tuple(new_caches)
+
+    def _unembed(self, params, x):
+        return (unembed(params["embed"], x) if self.cfg.tie_embeddings
+                else dense(params["lm_head"], x))
 
     def _head(self, params, x):
         cfg = self.cfg
         x = norm(params["final_ln"], x, cfg.norm_eps)
-        logits = (unembed(params["embed"], x) if cfg.tie_embeddings
-                  else dense(params["lm_head"], x))
-        return softcap(logits, cfg.final_softcap)
+        return softcap(self._unembed(params, x), cfg.final_softcap)
 
     def forward(self, params, adapters, batch, mode: str = "full",
                 capacity: int | None = None):
@@ -117,15 +128,35 @@ class Model:
 
     def loss(self, params, adapters, batch) -> torch.Tensor:
         """Mean next-token cross-entropy: fp32 log-softmax of
-        ``logits[:, :-1]`` against ``tokens[:, 1:]``."""
+        ``logits[:, :-1]`` against ``tokens[:, 1:]``; with ``mtp_depth``,
+        plus ``0.3 *`` :meth:`_mtp_loss`."""
         logits, _ = self.forward(params, adapters, batch, mode="full")
-        tok = batch["tokens"]
-        lp = torch.log_softmax(logits[:, :-1].float(), -1)
-        nll = -lp.gather(-1, tok[:, 1:, None].long())[..., 0]
-        return nll.mean()
+        main = _next_token_nll(logits[:, :-1], batch["tokens"][:, 1:])
+        if self.cfg.mtp_depth:
+            main = main + 0.3 * self._mtp_loss(params, adapters, batch,
+                                               logits)
+        return main
 
     def _mtp_loss(self, params, adapters, batch, logits):
-        raise _not_ported("the multi-token-prediction loss")
+        """DeepSeek-V3 multi-token prediction (depth 1), as the reference
+        writes it: predict token t + 2 from the normed re-embedding of
+        token t joined with the embedding of t + 1, through ``mtp/proj``
+        and one block of the last stage's last kind, run without adapters,
+        then the (unnormed, uncapped) output head."""
+        del adapters, logits
+        cfg = self.cfg
+        tok = batch["tokens"]
+        h = embed(params["embed"], tok)
+        nxt = embed(params["embed"], tok[:, 1:])
+        mtp = params["mtp"]
+        cat = torch.cat([norm(mtp["ln"], h[:, :-1], cfg.norm_eps), nxt], -1)
+        x = dense(mtp["proj"], cat)
+        x, _ = block_forward(mtp["block"], None, x, cfg,
+                             cfg.stages[-1].unit[-1], mode="full",
+                             positions=torch.arange(x.shape[1],
+                                                    device=x.device),
+                             scan_backend=self.scan_backend)
+        return _next_token_nll(self._unembed(params, x)[:, :-1], tok[:, 2:])
 
     # ------------------------------------------------------------- serve ----
     def init_cache(self, batch_size: int, seq_len: int | None = None,
@@ -170,5 +201,13 @@ class Model:
         return self._head(params, x)[:, 0], new_caches
 
 
-def make_model(cfg, remat=True, scan_backend: str = "auto") -> Model:
-    return Model(cfg=cfg, remat=remat, scan_backend=scan_backend)
+def _next_token_nll(logits: torch.Tensor, targets: torch.Tensor):
+    """Mean of ``-log_softmax(logits)`` (fp32) at ``targets``."""
+    lp = torch.log_softmax(logits.float(), -1)
+    return -lp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
+def make_model(cfg, remat=True, scan_backend: str = "auto",
+               mla_absorbed: bool = False) -> Model:
+    return Model(cfg=cfg, remat=remat, scan_backend=scan_backend,
+                 mla_absorbed=mla_absorbed)

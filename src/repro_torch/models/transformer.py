@@ -5,12 +5,15 @@ repeats: every leaf has a leading ``repeat`` axis, the JAX package's
 layout, so ``repro_torch.bridge`` carries them leaf for leaf.  Where the
 JAX package scans over that axis, :func:`stage_forward` loops: repeat ``i``
 indexes layer ``i`` of every stacked leaf, and the new caches are stacked
-again.  A block's mixer is GQA attention (``kind="gqa"``) or the Mamba2
-mixer (``"mamba"``); its feed-forward is the dense MLP (``ffn="dense"``) or
-none.  MLA, MoE feed-forwards and cross-attention arrive with ROADMAP item
-19b and raise ``NotImplementedError``.  ``remat`` is accepted and does
+again.  A block's mixer is GQA attention (``kind="gqa"``), DeepSeek's
+latent attention (``"mla"``; ``mla_absorbed`` picks its absorbed decode)
+or the Mamba2 mixer (``"mamba"``); its feed-forward is the dense MLP
+(``ffn="dense"``), the MoE (``"moe"``: the sort path, or with
+``cfg.moe_mode="ep_a2a"`` the expert-parallel all-to-all of
+:mod:`.moe_ep`) or none.  Cross-attention arrives with ROADMAP item 19b
+and raises ``NotImplementedError``.  ``remat`` is accepted and does
 nothing: autograd keeps what the backward needs.  The reference's
-``enc_out`` and ``mla_absorbed`` return with the code that reads them.
+``enc_out`` returns with the code that reads it.
 """
 from __future__ import annotations
 
@@ -21,24 +24,19 @@ import torch
 from repro_torch.lora import init_pair
 from repro_torch.tree import tree_map
 
-from .attention import (gqa_forward, gqa_init, gqa_init_cache,
-                        gqa_lora_targets)
+from .attention import (MLA_LORA_TARGETS, gqa_forward, gqa_init,
+                        gqa_init_cache, gqa_lora_targets, mla_forward,
+                        mla_init, mla_init_cache)
 from .mamba import (MAMBA_LORA_TARGETS, mamba_forward, mamba_init,
                     mamba_init_cache)
 from .mlp import mlp_forward, mlp_init, mlp_lora_targets
+from .moe import MOE_LORA_TARGETS, moe_forward, moe_init
+from .moe_ep import moe_forward_ep_wrapped
 
 PyTree = Any
 
 
 def _check_spec(spec) -> None:
-    if spec.kind == "mla":
-        raise NotImplementedError(
-            "block kind 'mla' (latent attention) is not ported yet: it "
-            "arrives with ROADMAP item 19b")
-    if spec.ffn == "moe":
-        raise NotImplementedError(
-            "ffn 'moe' is not ported yet: MoE feed-forwards arrive with "
-            "ROADMAP item 19b")
     if spec.cross_attn:
         raise NotImplementedError("cross-attention is not ported yet: it "
                                   "arrives with ROADMAP item 19b")
@@ -49,22 +47,31 @@ def block_init(gen: torch.Generator, cfg, spec) -> dict:
     _check_spec(spec)
     if spec.kind == "mamba":
         p = {"mix": mamba_init(gen, cfg)}
+    elif spec.kind == "mla":
+        p = {"mix": mla_init(gen, cfg, spec)}
     else:
         p = {"mix": gqa_init(gen, cfg, spec)}
     if spec.ffn == "dense":
         p["ffn"] = mlp_init(gen, cfg)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_init(gen, cfg)
     return p
 
 
 def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
                   cache=None, pos=None, alpha=16.0, scan_backend="auto",
-                  capacity=None):
+                  mla_absorbed=False, capacity=None):
     _check_spec(spec)
     blora = blora or {}
     if spec.kind == "mamba":
         y, c = mamba_forward(bp["mix"], blora.get("mix"), x, cfg, mode=mode,
                              cache=cache, pos=pos, alpha=alpha,
                              scan_backend=scan_backend)
+    elif spec.kind == "mla":
+        y, c = mla_forward(bp["mix"], blora.get("mix"), x, cfg, spec,
+                           mode=mode, positions=positions, cache=cache,
+                           pos=pos, alpha=alpha, absorbed=mla_absorbed,
+                           capacity=capacity)
     else:
         y, c = gqa_forward(bp["mix"], blora.get("mix"), x, cfg, spec,
                            mode=mode, positions=positions, cache=cache,
@@ -72,6 +79,10 @@ def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
     x = x + y
     if spec.ffn == "dense":
         x = x + mlp_forward(bp["ffn"], blora.get("ffn"), x, cfg, alpha)
+    elif spec.ffn == "moe":
+        moe = (moe_forward_ep_wrapped if cfg.moe_mode == "ep_a2a"
+               else moe_forward)
+        x = x + moe(bp["ffn"], blora.get("ffn"), x, cfg, alpha)
     return x, c
 
 
@@ -84,6 +95,8 @@ def block_init_cache(cfg, spec, batch: int, seq_len: int | None, dtype,
         return mamba_init_cache(cfg, batch, dtype, device)
     if seq_len is None:
         raise ValueError("an attention block's KV cache needs seq_len")
+    if spec.kind == "mla":
+        return mla_init_cache(cfg, spec, batch, seq_len, dtype, device)
     return gqa_init_cache(cfg, spec, batch, seq_len, dtype, device)
 
 
@@ -99,6 +112,18 @@ def block_lora_specs(cfg, spec) -> dict[str, tuple]:
         dims = {"in_proj": (2 * d_in + 2 * n + h, d), "out_proj": (d, d_in)}
         for t in MAMBA_LORA_TARGETS:
             out[f"mix/{t}"] = dims[t] + ((),)
+    elif spec.kind == "mla":
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        dims = {
+            "q_a": (cfg.q_lora_rank, d),
+            "q_b": (cfg.n_heads * qk, cfg.q_lora_rank),
+            "kv_a": (cfg.kv_lora_rank + cfg.qk_rope_dim, d),
+            "kv_b": (cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim),
+                     cfg.kv_lora_rank),
+            "o": (d, cfg.n_heads * cfg.v_head_dim),
+        }
+        for t in MLA_LORA_TARGETS:
+            out[f"mix/{t}"] = dims[t] + ((),)
     else:
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dims = {"q": (h * hd, d), "k": (kv * hd, d), "v": (kv * hd, d),
@@ -111,6 +136,18 @@ def block_lora_specs(cfg, spec) -> dict[str, tuple]:
                 "down": (d, f)}
         for t in mlp_lora_targets(cfg):
             out[f"ffn/{t}"] = dims[t] + ((),)
+    elif spec.ffn == "moe":
+        # per-expert pairs carry the expert axis: A (E, r, in), B (E, out, r)
+        f = cfg.moe_d_ff or cfg.d_ff
+        e = cfg.n_experts + cfg.moe_pad_experts
+        for t in MOE_LORA_TARGETS:
+            fo, fi = (d, f) if t.endswith("down") else (f, d)
+            out[f"ffn/{t}"] = (fo, fi, (e,))
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            out["ffn/shared/gate"] = (fs, d, ())
+            out["ffn/shared/up"] = (fs, d, ())
+            out["ffn/shared/down"] = (d, fs, ())
     return out
 
 
@@ -153,7 +190,7 @@ def _layer(tree, i: int):
 
 def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
                   caches=None, pos=None, alpha=16.0, remat=False,
-                  scan_backend="auto", capacity=None):
+                  scan_backend="auto", mla_absorbed=False, capacity=None):
     """Loop over the stage's repeats. Returns (x, new_caches or None), the
     caches stacked over the repeats."""
     per_layer = []
@@ -172,7 +209,8 @@ def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
             x, cnew = block_forward(
                 bp_unit[f"b{i}"], bl, x, cfg, spec, mode=mode,
                 positions=positions, cache=c, pos=pos, alpha=alpha,
-                scan_backend=scan_backend, capacity=capacity)
+                scan_backend=scan_backend, mla_absorbed=mla_absorbed,
+                capacity=capacity)
             if cnew is not None:
                 new_caches[f"b{i}"] = cnew
         per_layer.append(new_caches or None)

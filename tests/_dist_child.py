@@ -1,5 +1,6 @@
-"""One rank of a ``torch.distributed`` world for ``tests/test_torch_distributed.py``
-and the card tests in ``tests/test_torch_cuda.py``.
+"""One rank of a ``torch.distributed`` world for ``tests/test_torch_distributed.py``,
+``tests/test_torch_moe.py`` (the expert-parallel MoE) and the card tests in
+``tests/test_torch_cuda.py``.
 
     python tests/_dist_child.py INPUTS STORE RANK WORLD OUT [BACKEND DEVICE]
 
@@ -26,7 +27,7 @@ from repro_torch.core.distributed import (make_distributed_aggregator,  # noqa: 
 from repro_torch.core.strategy import stack_trees  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.lora import adapter_masks, set_ranks  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 
 def to_torch(tree, device):
@@ -87,6 +88,40 @@ def run_case(case, rank, world, device):
                                                               "model")],
                 "groups": {a: dist.get_process_group_ranks(
                     compat.client_group(mesh, a)) for a in ("data", "model")}}
+    if kind in ("moe_ep", "moe_ep_block"):   # the expert-parallel MoE
+        from repro_torch.configs import get_config
+        cfg = get_config(case["arch"]).reduced(**case["overrides"])
+        p = to_torch(case["params"], device)
+        lora = (None if case.get("lora") is None
+                else to_torch(case["lora"], device))
+        x = torch.as_tensor(case["x"]).to(device)
+        if kind == "moe_ep":
+            from repro_torch.launch.mesh import make_test_mesh
+            from repro_torch.models.moe_ep import moe_forward_ep_wrapped
+            mesh = make_test_mesh(tuple(case["mesh"]), device=device.type)
+            if case.get("cotangent") is None:
+                return {"y": moe_forward_ep_wrapped(p, lora, x, cfg,
+                                                    mesh=mesh)}
+            # the gradient of <y, cotangent> w.r.t. the params, the LoRA
+            # factors and x, which every rank must hold whole
+            wrt = {"p": p, "x": x,
+                   "lora": {k: {f: v[f] for f in ("A", "B")}
+                            for k, v in (lora or {}).items()}}
+            leaves = tree_leaves(wrt)
+            for t in leaves:
+                t.requires_grad_(True)
+            y = moe_forward_ep_wrapped(p, lora, x, cfg, mesh=mesh)
+            ct = torch.as_tensor(case["cotangent"]).to(device)
+            grads = iter(torch.autograd.grad((y * ct).sum(), leaves))
+            return {"y": y, "grad": tree_map(lambda _: next(grads), wrt)}
+        # a whole block with moe_mode="ep_a2a": the default model mesh
+        import dataclasses
+        from repro_torch.configs import BlockSpec
+        from repro_torch.models.transformer import block_forward
+        cfg = dataclasses.replace(cfg, moe_mode="ep_a2a")
+        y, _ = block_forward(p, lora, x, cfg, BlockSpec(**case["spec"]),
+                             mode="full")
+        return {"y": y}
     raise ValueError(f"unknown case kind {kind!r}")
 
 

@@ -2104,9 +2104,11 @@ def test_distributed_rounds_in_a_one_rank_nccl_group(tmp_path):
     cases = [_dist_case("rbla", "rbla", 0),
              _dist_case("flora", "flora", 1, stack_r_cap=64)]
     ((arrays, meta),) = _dist_world(tmp_path, cases, 1, "nccl")
-    assert meta["rbla"]["collectives"] == {"all_reduce": 1, "all_gather": 0}
+    assert meta["rbla"]["collectives"] == {"all_reduce": 1, "all_gather": 0,
+                                           "all_to_all": 0}
     assert meta["rbla"]["launches"] == {}
-    assert meta["flora"]["collectives"] == {"all_reduce": 0, "all_gather": 1}
+    assert meta["flora"]["collectives"] == {"all_reduce": 0, "all_gather": 1,
+                                            "all_to_all": 0}
     assert meta["flora"]["launches"] == {"flora_stack": 1}
     _dist_check(arrays, "rbla", _dist_want(cases[0]), products=False)
     _dist_check(arrays, "flora", _dist_want(cases[1]), products=True)
@@ -2121,5 +2123,6 @@ def test_distributed_round_of_two_gloo_ranks_on_one_card(tmp_path):
     want = _dist_want(case)
     for arrays, meta in _dist_world(tmp_path, [case], 2, "gloo"):
         assert meta["rbla"]["collectives"] == {"all_reduce": 1,
-                                               "all_gather": 0}
+                                               "all_gather": 0,
+                                               "all_to_all": 0}
         _dist_check(arrays, "rbla", want, products=False)

@@ -121,7 +121,8 @@ def test_world_of_one_matches_jax(method, with_prev, given):
         client_ranks=torch.as_tensor(np.asarray(ranks)) if given else None,
         prev_global=None if prev is None else port_tree(prev),
         backend="distributed")
-    assert runtime.COLLECTIVES == {"all_reduce": 0, "all_gather": 0}
+    assert runtime.COLLECTIVES == {"all_reduce": 0, "all_gather": 0,
+                                   "all_to_all": 0}
     _assert_agrees(got, want, method)
 
 
@@ -431,11 +432,14 @@ def test_gloo_world_matches_jax(world, case, gloo_world):
         msg = f"world {world} rank {rank} {case}"
         counts = meta[case]["collectives"]
         if kind in PRODUCT_SPACE or kind == "flora_prev":
-            assert counts == {"all_reduce": 0, "all_gather": 1}, msg
+            assert counts == {"all_reduce": 0, "all_gather": 1,
+                              "all_to_all": 0}, msg
         elif kind == "spmd":     # one collective a leaf: A, B, rank
-            assert counts == {"all_reduce": 3, "all_gather": 0}, msg
+            assert counts == {"all_reduce": 3, "all_gather": 0,
+                              "all_to_all": 0}, msg
         else:                    # one all_reduce a round
-            assert counts == {"all_reduce": 1, "all_gather": 0}, msg
+            assert counts == {"all_reduce": 1, "all_gather": 0,
+                              "all_to_all": 0}, msg
         if kind in ("factors", "spmd"):
             for k, p in want.items():
                 for f in ("A", "B"):

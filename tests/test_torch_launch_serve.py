@@ -2,7 +2,7 @@
 prefills, decodes greedily and prints the reference launcher's
 ``prefill:`` and ``decode:`` lines; the greedy tokens are the full
 forward's argmax; ``--device cuda`` without a card raises; an arch the
-port lacks raises.  The default arch, h2o-danube-3-4b, serves from KV
+port lacks raises; the MoE archs serve.  The default arch, h2o-danube-3-4b, serves from KV
 caches of ``prompt_len + new`` slots, its greedy tokens the full forward's
 argmax too."""
 import os
@@ -77,8 +77,31 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_serve_arch_not_ported_raises():
+    """The front-end archs still wait for item 19b (granite-moe-3b-a800m,
+    which raised here before item 19b-ii, serves: test_serve_moe_archs)."""
     with pytest.raises(NotImplementedError, match="19b"):
-        serve.main(["--arch", "granite-moe-3b-a800m", "--device", "cpu"])
+        serve.main(["--arch", "phi-3-vision-4.2b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "jamba-1.5-large-398b",
+                                  "deepseek-v3-671b"])
+def test_serve_moe_archs(arch, capsys):
+    """``--arch`` takes the three MoE archs: the reduced preset prefills
+    and decodes, its greedy tokens the full forward's argmax."""
+    res = serve.main(["--arch", arch, *ARGS[2:]])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("prefill: ") and out[1].startswith(
+        "decode: 4 steps, ")
+    cfg = get_config(arch).reduced()
+    model = make_model(cfg, remat=False)
+    params = model.init(torch.Generator().manual_seed(0))
+    adapters = model.init_adapters(torch.Generator().manual_seed(1), rank=8)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)), dtype=torch.long)
+    seq = torch.cat([prompt, res["tokens"][:, :-1]], 1)
+    full, _ = model.forward(params, adapters, {"tokens": seq})
+    assert torch.equal(full[:, 19:].argmax(-1), res["tokens"])
 
 
 def test_serve_runs_as_a_module():

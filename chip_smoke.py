@@ -176,6 +176,31 @@ Phases, each printing JSON lines:
   chatglm3-6b (half RoPE, kv 2, QKV bias) and gemma2-9b (one local and one
   global layer, query scale, both softcaps, post-block norms, GeGLU, tied
   256,000-word embeddings), each within 2e-3 of max|want|;
+* moe_main, moe_consistency, moe_zoo, moe_ep -- granite-moe-3b-a800m at
+  full depth in bf16 with one rbla round over four clients' expert pairs
+  (one packed_agg launch), its fp32 serve invariant, jamba and deepseek at
+  full width, the expert-parallel layer;
+* vlm_main -- phi-3-vision-4.2b at full depth in bf16: 576 patches before
+  a 2048-token prompt, batch 4, 16 new tokens, then Model.loss and its
+  adapter gradient; prefill ms and its device split, decode ms a step
+  and its device split, peak memory; no launch and no plain call;
+* encdec_main -- whisper-large-v3 at full depth in bf16 (32 encoder and
+  32 decoder layers): 1500 frames, a 432-token prompt, batch 4, 16 new
+  tokens, the same figures, then the loss and its gradient at 1 x 1500 x
+  256;
+* frontend_consistency -- both archs' weights upcast to fp32 in place,
+  prefill + 8 decode steps against the full forward within 2e-3 of
+  max|want|;
+* frontend_round -- one rbla round over four clients' whole whisper
+  adapter trees (``enc``, ``frontend``, ``stages``) at ranks 8-64: one
+  packed_agg launch and no plain call, enforced, against the plain
+  round, with ms against the HBM bound of the live rows;
+* train_main -- ``repro_torch.launch.train.main`` at the full preset
+  (h2o-danube-3-4b, 20 steps; mamba2-1.3b, 3 steps through the plain
+  scan) with a temporary ``--ckpt``: finite losses, ms a step, the cohort
+  upload one packed_agg launch, enforced, held against the plain round
+  and the trained adapters, the checkpoint restored equal to the
+  aggregate;
 * distributed -- ``backend="distributed"`` against kernel-path twins run
   first in the phase: (a) main_path's config under a one-rank NCCL group
   (one all_reduce a round and no launch, the accuracies within 0.01 and
@@ -215,7 +240,8 @@ SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
               "lora_kernels", "serve_main", "serve_streams", "ssd_kernels",
               "async_durable", "distributed", "attn_main",
               "attn_consistency", "attn_zoo", "moe_main", "moe_consistency",
-              "moe_zoo", "moe_ep")
+              "moe_zoo", "moe_ep", "vlm_main", "encdec_main",
+              "frontend_consistency", "frontend_round", "train_main")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -3257,10 +3283,12 @@ def _lm_rig(cfg, spec, dtype=None):
     (seeds 0 and 1) as repro_torch.launch.serve makes them (weights in
     ``dtype`` if given, else the config's), each pair's B then drawn
     nonzero on its live columns (seed 2) so the LoRA term of every dense is
-    live, and ``spec``'s prompt tokens (seed 3)."""
+    live (the encoder's and the front-end projector's too), and the batch
+    dict of ``spec``'s prompt ``tokens`` (seed 3), with a front-end's
+    frames or patches (:func:`_frontend_inputs`)."""
     import dataclasses
     import torch
-    from repro_torch.lora import mask_pair
+    from repro_torch.lora import mask_pair, tree_map_pairs
     from repro_torch.models.model import make_model
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
@@ -3270,16 +3298,34 @@ def _lm_rig(cfg, spec, dtype=None):
         torch.Generator(device="cuda").manual_seed(1),
         r_max=spec["r_max"], rank=spec["rank"])
     gen = torch.Generator(device="cuda").manual_seed(2)
-    adapters = {"stages": tuple(
-        {b: {path: mask_pair(dict(pair, B=torch.randn(
-            pair["B"].shape, generator=gen, device="cuda") * 0.02))
-            for path, pair in unit.items()} for b, unit in stage.items()}
-        for stage in adapters["stages"])}
-    tokens = torch.randint(
+    adapters = tree_map_pairs(lambda pair: mask_pair(dict(pair, B=torch.randn(
+        pair["B"].shape, generator=gen, device="cuda") * 0.02)), adapters)
+    batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (spec["batch"], spec["prompt_len"]),
         generator=torch.Generator(device="cuda").manual_seed(3),
-        device="cuda")
-    return cfg, model, params, adapters, tokens
+        device="cuda")}
+    if cfg.frontend != "none":
+        batch.update(_frontend_inputs(cfg, spec["batch"]))
+    return cfg, model, params, adapters, batch
+
+
+def _frontend_inputs(cfg, b: int) -> dict:
+    """A front-end arch's inputs on the card: whisper's frames (b,
+    encoder_seq, frontend_dim) or phi's patches (b, n_prefix_tokens,
+    frontend_dim), fp32 normal from seed 4."""
+    import torch
+    n = cfg.encoder_seq if cfg.is_encdec else cfg.n_prefix_tokens
+    x = torch.randn((b, n, cfg.frontend_dim),
+                    generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    return {"frames" if cfg.is_encdec else "patches": x}
+
+
+def _as_batch(batch: dict, b=None, s=None) -> dict:
+    """A batch dict's first ``b`` rows, its tokens cut to ``s``."""
+    out = {k: v[:b] for k, v in batch.items()}
+    out["tokens"] = out["tokens"][:, :s]
+    return out
 
 
 def _mamba_rig():
@@ -3300,11 +3346,11 @@ def _fp32_rig(rig):
     import dataclasses
     from repro_torch.models.model import make_model
     from repro_torch.tree import tree_map
-    cfg, _, params, adapters, tokens = rig
+    cfg, _, params, adapters, batch = rig
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
                    params)
-    return cfg32, make_model(cfg32, remat=False), p32, adapters, tokens
+    return cfg32, make_model(cfg32, remat=False), p32, adapters, batch
 
 
 def phase_mamba_main(rig) -> tuple[dict, "object"]:
@@ -3313,12 +3359,12 @@ def phase_mamba_main(rig) -> tuple[dict, "object"]:
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import generate
-    cfg, model, params, adapters, tokens = rig
-    generate(model, params, adapters, tokens[:, :256], 2)   # warm-up
+    cfg, model, params, adapters, batch = rig
+    generate(model, params, adapters, _as_batch(batch, s=256), 2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_counts()
-    res = generate(model, params, adapters, tokens, MAMBA_CFG["new"])
+    res = generate(model, params, adapters, batch, MAMBA_CFG["new"])
     launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(res["prefill_logits"].float()).all()
@@ -3363,10 +3409,10 @@ def _layer_walk(rig) -> tuple[list, list]:
     from repro_torch.models.common import embed
     from repro_torch.models.mamba import mamba_forward
     from repro_torch.tree import tree_map
-    cfg, _, params, adapters, tokens = rig
+    cfg, _, params, adapters, batch = rig
     mix = params["stages"][0]["b0"]["mix"]
     pairs = adapters["stages"][0]["b0"]          # {"mix/in_proj": pair, ..}
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], batch["tokens"])
     upcast, bf16 = [], []
     for i in range(cfg.stages[0].repeat):
         p = tree_map(lambda t: t[i], mix)
@@ -3395,12 +3441,12 @@ def phase_mamba_plain(rig, rig32, kernel_logits):
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.models.model import make_model
-    cfg, _, params, adapters, tokens = rig
+    cfg, _, params, adapters, batch = rig
     ref = make_model(cfg, remat=False, scan_backend="ref")
     runtime.reset_counts()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits, _ = ref.prefill(params, adapters, {"tokens": tokens})
+        logits, _ = ref.prefill(params, adapters, batch)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, plain = dict(runtime.LAUNCHES), dict(runtime.PLAIN_CALLS)
@@ -3409,8 +3455,8 @@ def phase_mamba_plain(rig, rig32, kernel_logits):
         layers, layers_bf16 = _layer_walk(rig)
         cfg32, m32, p32, _, _ = rig32
         ref32 = make_model(cfg32, remat=False, scan_backend="ref")
-        k32, _ = m32.prefill(p32, adapters, {"tokens": tokens})
-        r32, _ = ref32.prefill(p32, adapters, {"tokens": tokens})
+        k32, _ = m32.prefill(p32, adapters, batch)
+        r32, _ = ref32.prefill(p32, adapters, batch)
     err32, tol32 = _logit_err(k32, r32, MAMBA_FP32_TOL)
     worst = max(layers, key=lambda e: e[0] / e[1])
     emit({"phase": "mamba_plain", "prefill_ms": secs * 1e3,
@@ -3435,19 +3481,22 @@ def phase_mamba_plain(rig, rig32, kernel_logits):
                              f"disagree ({err32} > {tol32})")
 
 
-def _consistency(model, params, adapters, seq, pre, tol):
-    """Prefill ``pre`` tokens of ``seq`` into caches of ``len(seq)`` slots
-    (an attention layer's; a mamba layer has none), decode the rest, and
-    hold each position's logits against forward(mode="full") over
-    ``seq``."""
+def _consistency(model, params, adapters, batch, pre, tol):
+    """Prefill ``pre`` tokens of ``batch`` (with a front-end's inputs) into
+    caches of as many slots as it has tokens (with a VLM's prefix; an
+    attention layer's, a mamba layer has none), decode the rest, and hold
+    each position's logits against forward(mode="full") over ``batch``."""
+    tokens = batch["tokens"]
+    npf = model.n_prefix
     errs = []
-    full, _ = model.forward(params, adapters, {"tokens": seq})
-    last, caches = model.prefill(params, adapters, {"tokens": seq[:, :pre]},
-                                 capacity=seq.shape[1])
+    full, _ = model.forward(params, adapters, batch)
+    last, caches = model.prefill(params, adapters,
+                                 _as_batch(batch, s=pre),
+                                 capacity=tokens.shape[1] + npf)
     errs.append(_logit_err(last, full[:, pre - 1], tol))
-    for t in range(pre, seq.shape[1]):
+    for t in range(pre, tokens.shape[1]):
         logits, caches = model.decode_step(params, adapters, caches,
-                                           seq[:, t], t)
+                                           tokens[:, t], t + npf)
         errs.append(_logit_err(logits, full[:, t], tol))
     return errs
 
@@ -3460,10 +3509,10 @@ def phase_mamba_consistency(rig, rig32):
     is recorded (see MAMBA_BF16_TOL)."""
     import torch
     from repro_torch.kernels import runtime
-    cfg, model, params, adapters, tokens = rig
+    cfg, model, params, adapters, batch = rig
     b, pre, k = (MAMBA_CONSISTENCY[key] for key in
                  ("batch", "prompt_len", "decode"))
-    seq = tokens[:b, :pre + k]
+    seq = _as_batch(batch, b, pre + k)
     _, m32, p32, _, _ = rig32
     runtime.reset_counts()
     with torch.inference_mode():
@@ -3551,12 +3600,12 @@ def _serve_run(rig, spec) -> dict:
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import generate
-    cfg, model, params, adapters, tokens = rig
-    generate(model, params, adapters, tokens[:, :256], 2)   # warm-up
+    cfg, model, params, adapters, batch = rig
+    generate(model, params, adapters, _as_batch(batch, s=256), 2)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runtime.reset_counts()
-    res = generate(model, params, adapters, tokens, spec["new"])
+    res = generate(model, params, adapters, batch, spec["new"])
     res["peak"] = torch.cuda.max_memory_allocated()
     res["launches"] = {k: v for k, v in runtime.LAUNCHES.items() if v}
     res["plain_calls"] = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
@@ -3586,7 +3635,7 @@ def _loss_and_grad(rig, b, s, calls: int = 2) -> dict:
     import torch
     from repro_torch.lora import attach_ranks, strip_ranks
     from repro_torch.tree import tree_leaves, tree_map
-    cfg, model, params, adapters, tokens = rig
+    cfg, model, params, adapters, batch = rig
     factors, ranks = strip_ranks(adapters)
     factors = tree_map(lambda t: t.detach().requires_grad_(True), factors)
     ms = []
@@ -3594,7 +3643,7 @@ def _loss_and_grad(rig, b, s, calls: int = 2) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = model.loss(params, attach_ranks(factors, ranks),
-                          {"tokens": tokens[:b, :s]})
+                          _as_batch(batch, b, s))
         grads = torch.autograd.grad(loss, tree_leaves(factors))
         loss = float(loss.detach())
         torch.cuda.synchronize()
@@ -3617,14 +3666,14 @@ def _lm_main(phase, rig, spec, loss_spec, smi, **extra) -> dict:
     every count stays 0 from generate's start to the end."""
     import torch
     from repro_torch.kernels import runtime
-    cfg, model, params, adapters, tokens = rig
+    cfg, model, params, adapters, batch = rig
+    capacity = batch["tokens"].shape[1] + spec["new"] + model.n_prefix
     res = _serve_run(rig, spec)
     # where the device time goes: one prefill and one decode step
     with torch.inference_mode():
         prefill_dev = _device_split(lambda: model.prefill(
-            params, adapters, {"tokens": tokens},
-            capacity=tokens.shape[1] + spec["new"]))
-        step_pos = tokens.shape[1] + spec["new"] - 2
+            params, adapters, batch, capacity=capacity))
+        step_pos = capacity - 2
         decode_dev = _device_split(lambda: model.decode_step(
             params, adapters, res["caches"], res["tokens"][:, -1],
             step_pos))
@@ -3667,10 +3716,10 @@ def phase_attn_consistency(rig, rig32):
     recorded."""
     import torch
     from repro_torch.kernels import runtime
-    cfg, model, params, adapters, tokens = rig
+    cfg, model, params, adapters, batch = rig
     b, pre, k = (ATTN_CONSISTENCY[key] for key in
                  ("batch", "prompt_len", "decode"))
-    seq = tokens[:b, :pre + k]
+    seq = _as_batch(batch, b, pre + k)
     _, m32, p32, _, _ = rig32
     runtime.full_fp32()
     runtime.reset_counts()
@@ -3728,11 +3777,11 @@ def phase_attn_zoo() -> list:
     for arch, window, pre, k in ATTN_ZOO:
         cfg, cut = _zoo_config(arch, window)
         spec = dict(batch=1, prompt_len=pre + k, rank=8, r_max=64)
-        _, model, params, adapters, tokens = _lm_rig(cfg, spec)
+        _, model, params, adapters, batch = _lm_rig(cfg, spec)
         runtime.reset_counts()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            errs = _consistency(model, params, adapters, tokens, pre,
+            errs = _consistency(model, params, adapters, batch, pre,
                                 ATTN_FP32_TOL)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -3755,7 +3804,7 @@ def phase_attn_zoo() -> list:
                 "seconds": secs, "launches": launches, "plain_calls": plain}
         emit(line)
         lines.append(line)
-        del model, params, adapters, tokens
+        del model, params, adapters, batch
         torch.cuda.empty_cache()
         if launches or plain:
             raise AssertionError(f"attn_zoo {arch}: {launches} launches, "
@@ -3851,14 +3900,8 @@ def phase_moe_main(rig, smi: str) -> dict:
 def _moe_expert_round(cfg, smi: str) -> dict:
     """The paper's aggregation over the new family's expert pairs: four
     clients' granite expert adapters at full depth (leading (32, 40)) at
-    MOE_ROUND_RANKS through ``aggregate_adapters(method="rbla")`` on the
-    card -- one packed_agg launch -- held against the plain round on the
-    same inputs within 2e-5 of max|want|; the kernel round's and the plain
-    round's ms and the HBM bound of the live rows, the weights and the
-    output."""
+    MOE_ROUND_RANKS through :func:`_rbla_round`."""
     import torch
-    from repro_torch.core import plan, strategy
-    from repro_torch.kernels import runtime
     from repro_torch.lora import mask_pair
     from repro_torch.models.model import make_model
     model = make_model(cfg, remat=False)
@@ -3873,6 +3916,22 @@ def _moe_expert_round(cfg, smi: str) -> dict:
                 if path.startswith("ffn/experts/")}
              for b, unit in stage.items()} for stage in full["stages"])})
         del full
+    return _rbla_round("moe_round", clients, MOE_ROUND_RANKS, smi,
+                       pairs="ffn/experts/*", leading=list(
+                           clients[0]["stages"][0]["b0"]["ffn/experts/gate"]
+                           ["A"].shape[:2]))
+
+
+def _rbla_round(phase, clients, ranks, smi: str, **extra) -> dict:
+    """``clients``' adapter trees (at ``ranks`` of r_max 64, weighted 1..n)
+    through ``aggregate_adapters(method="rbla")`` on the card -- one
+    packed_agg launch, enforced -- held against the plain round on the
+    same inputs within 2e-5 of max|want|; the kernel round's and the plain
+    round's ms and the HBM bound of the live rows, the weights and the
+    output.  Frees the clients."""
+    import torch
+    from repro_torch.core import plan, strategy
+    from repro_torch.kernels import runtime
     w = torch.arange(1.0, len(clients) + 1, device="cuda")
     # a copy: its cached plans go with it, not with the shared registry's
     strat = strategy.get_strategy("rbla").with_options()
@@ -3882,13 +3941,13 @@ def _moe_expert_round(cfg, smi: str) -> dict:
     launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
     plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
     stacked = strategy.stack_trees(clients)
-    ranks = torch.tensor(MOE_ROUND_RANKS, dtype=torch.int32, device="cuda")
+    client_ranks = torch.tensor(ranks, dtype=torch.int32, device="cuda")
     rounds = {kind: strat.plan(None, plan.build_cohort_spec(
-        stacked, kind=kind, r_max=64, client_ranks=ranks))
+        stacked, kind=kind, r_max=64, client_ranks=client_ranks))
         for kind in ("kernel", "ref")}
     want = rounds["ref"](stacked, w, None)
     err, scale = _rel_err(got, want)
-    client_bytes = _live_pair_bytes(clients, MOE_ROUND_RANKS, 64)
+    client_bytes = _live_pair_bytes(clients, ranks, 64)
     # the global's rank is the largest client's, r_max: every row written
     out_bytes = sum(t.numel() * t.element_size()
                     for t in _float_leaves(got))
@@ -3896,21 +3955,20 @@ def _moe_expert_round(cfg, smi: str) -> dict:
     ms = time_ms(lambda: rounds["kernel"](stacked, w, None), reps=10)
     plain_ms = time_ms(lambda: rounds["ref"](stacked, w, None), reps=5)
     bound_ms, bound_by = bound(bytes_moved, 0.0)
-    row = {"phase": "moe_round", "card": smi, "clients": len(clients),
-           "ranks": list(MOE_ROUND_RANKS), "pairs": "ffn/experts/*",
-           "leading": list(clients[0]["stages"][0]["b0"][
-               "ffn/experts/gate"]["A"].shape[:2]),
-           "launches": launches, "plain_calls": plain, "max_abs_err": err,
+    row = {"phase": phase, "card": smi, "clients": len(clients),
+           "ranks": list(ranks), **extra, "launches": launches,
+           "plain_calls": plain, "max_abs_err": err,
            "tol": 2e-5 * max(scale, 1.0), "ms": ms, "plain_ms": plain_ms,
            "bytes": bytes_moved, "bound_ms": bound_ms, "bound_by": bound_by}
     emit(row)
-    del clients, stacked, got, want, rounds, strat
+    clients.clear()
+    del stacked, got, want, rounds, strat
     torch.cuda.empty_cache()
     if launches != {"packed_agg": 1} or plain:
-        raise AssertionError(f"moe_round: launches {launches}, plain "
+        raise AssertionError(f"{phase}: launches {launches}, plain "
                              f"{plain}: one packed_agg launch expected")
     if not err <= 2e-5 * max(scale, 1.0):
-        raise AssertionError(f"moe_round: the kernel round disagrees with "
+        raise AssertionError(f"{phase}: the kernel round disagrees with "
                              f"the plain round ({err})")
     return row
 
@@ -3920,16 +3978,17 @@ def _live_pair_bytes(clients, ranks, r_max) -> int:
     live A rows and B columns (rank / r_max of each factor; the rest are
     zero, and the plan is built with the client ranks) and its rank
     leaves."""
-    from repro_torch.tree import tree_leaves
+    from repro_torch.lora import tree_map_pairs
     total = 0
+
+    def count(pair, r):
+        nonlocal total
+        total += sum(pair[f].numel() * pair[f].element_size()
+                     for f in ("A", "B")) * r // r_max
+        total += pair["rank"].numel() * pair["rank"].element_size()
+        return pair
     for c, r in zip(clients, ranks):
-        for stage in c["stages"]:
-            for unit in stage.values():
-                for pair in unit.values():
-                    total += sum(pair[f].numel() * pair[f].element_size()
-                                 for f in ("A", "B")) * r // r_max
-                    total += sum(t.numel() * t.element_size()
-                                 for t in tree_leaves(pair["rank"]))
+        tree_map_pairs(lambda pair, r=r: count(pair, r), c)
     return total
 
 
@@ -3948,7 +4007,7 @@ def phase_moe_consistency(rig) -> dict:
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.models.model import make_model
-    cfg, _, params, adapters, tokens = rig
+    cfg, _, params, adapters, batch = rig
     _to_fp32_in_place(params)
     cfg32, cut = _no_drop(dataclasses.replace(cfg, dtype="float32"))
     model = make_model(cfg32, remat=False)
@@ -3957,8 +4016,8 @@ def phase_moe_consistency(rig) -> dict:
     runtime.full_fp32()
     runtime.reset_counts()
     with torch.inference_mode():
-        errs = _consistency(model, params, adapters, tokens[:b, :pre + k],
-                            pre, MOE_FP32_TOL)
+        errs = _consistency(model, params, adapters,
+                            _as_batch(batch, b, pre + k), pre, MOE_FP32_TOL)
     torch.cuda.synchronize()
     launches = sum(runtime.LAUNCHES.values())
     plain = sum(runtime.PLAIN_CALLS.values())
@@ -4082,7 +4141,7 @@ def phase_moe_zoo(smi: str) -> list:
                              f"plain {res['plain_calls']}: one ssd_scan a "
                              "mamba layer expected in the prefill")
     del res
-    _, _, params, adapters, tokens = rig
+    _, _, params, adapters, batch = rig
     del rig
     cfg32, drop_cut = _no_drop(dataclasses.replace(cfg, dtype="float32"))
     walk = {}
@@ -4093,7 +4152,7 @@ def phase_moe_zoo(smi: str) -> list:
         with torch.inference_mode():
             walk[dtype] = _jamba_mixer_walk(
                 cfg32 if dtype == "float32" else cfg, params, adapters,
-                tokens, tol)
+                batch["tokens"], tol)
     line = {"phase": "moe_zoo", "arch": spec["arch"], "card": smi,
             "check": "ssd_scan against the plain scan, each mamba mixer",
             "scan_shape": [spec["batch"], spec["prompt_len"],
@@ -4112,7 +4171,7 @@ def phase_moe_zoo(smi: str) -> list:
     runtime.reset_counts()
     with torch.inference_mode():
         errs = _consistency(make_model(cfg32, remat=False), params,
-                            adapters, tokens[:1, :pre + k], pre,
+                            adapters, _as_batch(batch, 1, pre + k), pre,
                             MOE_FP32_TOL)
     torch.cuda.synchronize()
     launches = {k_: v for k_, v in runtime.LAUNCHES.items() if v}
@@ -4125,7 +4184,7 @@ def phase_moe_zoo(smi: str) -> list:
                      launches=launches)
     emit(line)
     lines.append(line)
-    del params, adapters, tokens
+    del params, adapters, batch
     torch.cuda.empty_cache()
     # the full forward's and the prefill's mamba layers, none in decode
     if launches != {"ssd_scan": 2 * n_mamba}:
@@ -4157,9 +4216,9 @@ def phase_moe_zoo(smi: str) -> list:
                                n_experts=spec["fp32_experts"])
     cfg, drop_cut = _no_drop(cfg)
     rig = _lm_rig(cfg, spec)
-    _, model, params, adapters, tokens = rig
+    _, model, params, adapters, batch = rig
     pre, k = spec["check_pre"], spec["check_decode"]
-    seq = tokens[:1, :pre + k]
+    seq = batch["tokens"][:1, :pre + k]
     absorbed = make_model(cfg, remat=False, mla_absorbed=True)
     # the absorbed form folds kv_b's weight and skips its adapter, as the
     # reference: both decodes run without that one pair
@@ -4169,7 +4228,8 @@ def phase_moe_zoo(smi: str) -> list:
         for stage in adapters["stages"])}
     runtime.reset_counts()
     with torch.inference_mode():
-        errs = _consistency(model, params, adapters, seq, pre, MOE_FP32_TOL)
+        errs = _consistency(model, params, adapters, {"tokens": seq}, pre,
+                            MOE_FP32_TOL)
         _, caches = model.prefill(params, no_kv_b, {"tokens": seq[:, :pre]},
                                   capacity=pre + k)
         abs_caches = caches
@@ -4191,7 +4251,7 @@ def phase_moe_zoo(smi: str) -> list:
                      launches=launches)
     emit(line)
     lines.append(line)
-    del rig, model, params, adapters, no_kv_b, tokens, caches, abs_caches
+    del rig, model, params, adapters, no_kv_b, batch, caches, abs_caches
     torch.cuda.empty_cache()
     if launches:
         raise AssertionError(f"moe_zoo deepseek fp32: {launches} launches")
@@ -4354,6 +4414,267 @@ def phase_moe_ep(smi: str) -> dict:
                   **ranks[-1]})
     return {**out, "two_rank_wall_ms": [r["dispatch_round_wall_ms"]
                                         for r in ranks]}
+
+
+# ---------------------------------------------- front-ends and training --
+#: phi-3-vision-4.2b's serving path as chip_smoke drives it: the full config
+#: (32 layers, d_model 3072, 32 heads x 96, d_ff 8192, vocab 32064, bf16),
+#: 576 patches of width 1024 before a 2048-token prompt, batch 4, 16 new
+#: tokens, adapters at rank 8 of r_max 64 (the projector's too); nothing cut
+VLM_CFG = dict(arch="phi-3-vision-4.2b", batch=4, prompt_len=2048, new=16,
+               rank=8, r_max=64)
+#: Model.loss and its adapter gradient once on the card, in bf16, after the
+#: 576 patches
+VLM_LOSS = dict(batch=1, seq=512)
+#: whisper-large-v3's: the full config (32 encoder and 32 decoder layers,
+#: d_model 1280, 20 heads x 64, d_ff 5120, vocab 51866, bf16), 1500 frames
+#: of width 1280, a 432-token prompt and 16 new tokens (448, whisper's text
+#: context), batch 4; nothing cut
+ENCDEC_CFG = dict(arch="whisper-large-v3", batch=4, prompt_len=432, new=16,
+                  rank=8, r_max=64)
+#: Model.loss and its adapter gradient at 1 x 1500 frames x 256 tokens
+ENCDEC_LOSS = dict(batch=1, seq=256)
+#: the serve invariant at full width and depth in fp32, the bf16 weights
+#: upcast in place: (batch, prompt, decode steps) per arch
+FRONTEND_CONSISTENCY = {
+    "phi-3-vision-4.2b": dict(batch=1, prompt_len=512, decode=8),
+    "whisper-large-v3": dict(batch=1, prompt_len=256, decode=8)}
+#: prefill + decode against the full forward in fp32, as moe_consistency
+FRONTEND_FP32_TOL = 2e-3
+#: the front-end rbla round: four clients' whole whisper adapter trees
+#: (``enc``, ``frontend``, ``stages``) at full depth, at these ranks of
+#: r_max 64, weighted 1..4
+FRONTEND_ROUND_RANKS = (8, 16, 32, 64)
+#: repro_torch.launch.train's arguments for each run of train_main, a
+#: temporary ``--ckpt`` added: h2o-danube-3-4b (the default arch), then
+#: mamba2-1.3b, whose mamba layers train through the plain scan
+TRAIN_RUNS = (("--preset", "full", "--steps", "20"),
+              ("--arch", "mamba2-1.3b", "--preset", "full", "--steps", "3"))
+
+
+def _frontend_rig(spec, dtype=None):
+    """``spec``'s front-end arch at full width and depth on the card
+    (:func:`_lm_rig`: its batch is the tokens and the frames or
+    patches)."""
+    from repro_torch.configs import get_config
+    return _lm_rig(get_config(spec["arch"]), spec, dtype)
+
+
+def _check_kv(phase, line, model, spec) -> None:
+    """The decoder's self-attention cache: prompt + new (+ the VLM's
+    prefix) slots a layer."""
+    cfg = model.cfg
+    want = [cfg.n_layers, spec["batch"],
+            spec["prompt_len"] + spec["new"] + model.n_prefix,
+            cfg.n_kv_heads, cfg.head_dim]
+    if line["kv_cache_shape"] != want:
+        raise AssertionError(f"{phase}: KV cache {line['kv_cache_shape']}, "
+                             f"want {want}")
+
+
+def phase_vlm_main(rig, smi: str) -> dict:
+    """:func:`_lm_main` for phi-3-vision-4.2b at full width and depth
+    (VLM_CFG, VLM_LOSS): the projected patches before every prompt, the
+    decode positions after them."""
+    cfg = rig[0]
+    line = _lm_main("vlm_main", rig, VLM_CFG, VLM_LOSS, smi,
+                    n_prefix=cfg.n_prefix_tokens,
+                    frontend_dim=cfg.frontend_dim)
+    _check_kv("vlm_main", line, rig[1], VLM_CFG)
+    return line
+
+
+def phase_encdec_main(rig, smi: str) -> dict:
+    """:func:`_lm_main` for whisper-large-v3 at full width and depth
+    (ENCDEC_CFG, ENCDEC_LOSS): the encoder once a prefill over the
+    frames, every decoder layer's cross-attention keys and values cached,
+    decode reading them back; then the loss and its adapter gradient
+    through the decoder and the encoder."""
+    cfg = rig[0]
+    line = _lm_main("encdec_main", rig, ENCDEC_CFG, ENCDEC_LOSS, smi,
+                    encoder_layers=sum(s.n_layers
+                                       for s in cfg.encoder_stages),
+                    encoder_seq=cfg.encoder_seq,
+                    frontend_dim=cfg.frontend_dim)
+    _check_kv("encdec_main", line, rig[1], ENCDEC_CFG)
+    return line
+
+
+def phase_frontend_consistency(rig) -> dict:
+    """The serve invariant at full width and depth for a front-end arch:
+    the rig's bf16 weights upcast to fp32 in place, FRONTEND_CONSISTENCY's
+    prompt prefilled (after phi's patches; whisper's encoder over its 1500
+    frames) and decoded, each position's logits against forward(mode=
+    "full") within FRONTEND_FP32_TOL, TF32 off; no kernel and no plain
+    twin.  The rig's bf16 model is spent."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.models.model import make_model
+    cfg, _, params, adapters, batch = rig
+    _to_fp32_in_place(params)
+    model = make_model(dataclasses.replace(cfg, dtype="float32"),
+                       remat=False)
+    spec = FRONTEND_CONSISTENCY[cfg.name]
+    b, pre, k = (spec[key] for key in ("batch", "prompt_len", "decode"))
+    runtime.full_fp32()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        errs = _consistency(model, params, adapters,
+                            _as_batch(batch, b, pre + k), pre,
+                            FRONTEND_FP32_TOL)
+    torch.cuda.synchronize()
+    launches = sum(runtime.LAUNCHES.values())
+    plain = sum(runtime.PLAIN_CALLS.values())
+    line = {"phase": "frontend_consistency", "arch": cfg.name,
+            "layers": cfg.n_layers, **spec, "cut": ["dtype bfloat16 -> "
+                                                    "float32"],
+            "n_prefix": model.n_prefix, "encoder_seq": cfg.encoder_seq,
+            "fp32_max_abs_err": [e for e, _ in errs],
+            "fp32_tol": [t for _, t in errs],
+            "rel_err": [e / t * FRONTEND_FP32_TOL for e, t in errs],
+            "seconds": time.perf_counter() - t0, "launches": launches,
+            "plain_calls": plain}
+    emit(line)
+    if launches or plain:
+        raise AssertionError(f"frontend_consistency {cfg.name}: {launches} "
+                             f"launches, {plain} plain calls")
+    if not all(e <= t for e, t in errs):
+        raise AssertionError(f"frontend_consistency {cfg.name}: decode "
+                             f"diverges from the full forward: {errs}")
+    return line
+
+
+def phase_frontend_round(smi: str) -> dict:
+    """The paper's aggregation over an encoder-decoder's whole adapter
+    tree: four clients' whisper adapters at full depth (the encoder's and
+    the decoder's 32 layers each and the front-end projector's pair) at
+    FRONTEND_ROUND_RANKS, each B live on its rank, through
+    :func:`_rbla_round` (one packed_agg launch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lora import mask_pair, tree_map_pairs
+    from repro_torch.models.model import make_model
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(ENCDEC_CFG["arch"])
+    model = make_model(cfg, remat=False)
+    clients = []
+    for i, r in enumerate(FRONTEND_ROUND_RANKS):
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+        clients.append(tree_map_pairs(
+            lambda pair, gen=gen: mask_pair(dict(pair, B=torch.randn(
+                pair["B"].shape, generator=gen, device="cuda") * 0.02)),
+            model.init_adapters(gen, r_max=64, rank=r)))
+    n_pairs = len(tree_leaves(tree_map_pairs(lambda p: p["rank"],
+                                             clients[0])))
+    return _rbla_round("frontend_round", clients, FRONTEND_ROUND_RANKS, smi,
+                       arch=cfg.name, subtrees=sorted(clients[0]),
+                       pair_leaves=n_pairs)
+
+
+def _train_run(argv, smi: str) -> dict:
+    """``repro_torch.launch.train.main(argv)`` with a temporary ``--ckpt``:
+    the losses finite, the ms a step, the cohort upload one packed_agg
+    launch (enforced: nothing else launches; the only plain calls are a
+    mamba layer's scan, one a layer a step), held against the plain round
+    (``backend="ref"``) on the same trained adapters and, a cohort of one
+    at r_max = rank, against those adapters themselves, each within 2e-5
+    of max|want|; and the saved adapters restored equal to the aggregate,
+    bit for bit."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.core.strategy import get_strategy
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "adapters")
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        res = train.main([*argv, "--ckpt", ckpt])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+        back = restore(ckpt, res["adapters"])
+        same = all(torch.equal(g, w) for g, w in zip(
+            tree_leaves(back), tree_leaves(res["adapters"]), strict=True))
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    cfg = res["cfg"]
+    rank = res["rank"]
+    want = get_strategy("rbla").with_options().aggregate_adapters(
+        [res["trained"]], torch.ones(1, device="cuda"), r_max=rank,
+        client_ranks=torch.tensor([rank], dtype=torch.int32, device="cuda"),
+        backend="ref")
+    err, scale = _rel_err(res["adapters"], want)
+    err_trained, scale_trained = _rel_err(res["adapters"], res["trained"])
+    tol = 2e-5 * max(scale, 1.0)
+    tol_trained = 2e-5 * max(scale_trained, 1.0)
+    n_mamba = sum(st.repeat * sum(b.kind == "mamba" for b in st.unit)
+                  for st in cfg.stages)
+    want_plain = {"ssd_scan": n_mamba * len(step_ms)} if n_mamba else {}
+    line = {"phase": "train_main", "card": smi, "argv": list(argv),
+            "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "losses": res["losses"], "step_ms": step_ms,
+            "ms_per_step": statistics.median(step_ms[1:]),
+            "seconds": secs, "peak_device_bytes":
+            torch.cuda.max_memory_allocated(), "launches": launches,
+            "plain_calls": plain, "max_abs_err": err, "tol": tol,
+            "max_abs_err_vs_trained": err_trained,
+            "tol_vs_trained": tol_trained, "restored_equal": same}
+    emit(line)
+    del res, back, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != {"packed_agg": 1} or plain != want_plain:
+        raise AssertionError(f"train_main {cfg.name}: launches {launches}, "
+                             f"plain {plain}: the cohort upload is one "
+                             f"packed_agg launch, the plain calls "
+                             f"{want_plain}")
+    if not (err <= tol and err_trained <= tol_trained):
+        raise AssertionError(f"train_main {cfg.name}: the cohort upload "
+                             f"disagrees with the plain round ({err}, "
+                             f"tolerance {tol}) or with the trained "
+                             f"adapters ({err_trained}, tolerance "
+                             f"{tol_trained})")
+    if not (all(math.isfinite(v) for v in line["losses"]) and same):
+        raise AssertionError(f"train_main {cfg.name}: a loss is not finite "
+                             "or the restored adapters differ from the "
+                             "aggregate")
+    return line
+
+
+def phase_train_main(smi: str) -> list:
+    """:func:`_train_run` for each of TRAIN_RUNS: h2o-danube-3-4b at full
+    width and depth in bf16, 20 Adam steps of its adapters through
+    autograd (batch 4 x 128 tokens), then mamba2-1.3b's 48 layers for 3
+    steps through the plain scan (the ssd_scan kernel has no backward)."""
+    return [_train_run(argv, smi) for argv in TRAIN_RUNS]
+
+
+def phase_frontends(smi: str) -> dict:
+    """vlm_main and phi's frontend_consistency on one rig, then encdec_main
+    and whisper's on another, then frontend_round and train_main; each rig
+    freed before the next."""
+    import gc
+    import torch
+    out = {}
+    for spec, run in ((VLM_CFG, phase_vlm_main),
+                      (ENCDEC_CFG, phase_encdec_main)):
+        rig = _frontend_rig(spec)
+        out[spec["arch"]] = run(rig, smi)
+        phase_frontend_consistency(rig)      # upcasts the weights in place
+        del rig
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["round"] = phase_frontend_round(smi)
+    out["train"] = phase_train_main(smi)
+    return out
 
 
 # ------------------------------------------------------------- distributed --
@@ -4742,6 +5063,24 @@ def run_selected(names, smi: str) -> dict:
             phase_moe_zoo(smi)
         elif name == "moe_ep":
             phase_moe_ep(smi)
+        elif name in ("vlm_main", "encdec_main"):
+            spec = VLM_CFG if name == "vlm_main" else ENCDEC_CFG
+            rig = _frontend_rig(spec)
+            (phase_vlm_main if name == "vlm_main" else phase_encdec_main)(
+                rig, smi)
+            del rig
+            torch.cuda.empty_cache()
+        elif name == "frontend_consistency":
+            for spec in (VLM_CFG, ENCDEC_CFG):
+                rig = _frontend_rig(spec)
+                phase_frontend_consistency(rig)
+                del rig
+                torch.cuda.empty_cache()
+        elif name == "frontend_round":
+            summary["packed_agg"] = {"frontend_round":
+                                     phase_frontend_round(smi)}
+        elif name == "train_main":
+            phase_train_main(smi)
         emit({"phase": name, "ok": True})
     return summary
 
@@ -4885,6 +5224,15 @@ def main(argv=None) -> int:
     emit({"phase": "moe", "ok": True, "ep_ms": ep["ep_ms"],
           "sort_ms": ep["sort_ms"],
           "two_rank_wall_ms": ep["two_rank_wall_ms"]})
+
+    fe = phase_frontends(smi)
+    summary["packed_agg"]["frontend_round"] = {
+        k: fe["round"][k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err", "bytes")}
+    summary["packed_agg"]["train_upload_launches"] = {
+        t["arch"]: t["launches"]["packed_agg"] for t in fe["train"]}
+    emit({"phase": "frontends", "ok": True, "train_ms_per_step": {
+        t["arch"]: t["ms_per_step"] for t in fe["train"]}})
 
     dist_path = phase_distributed(smi)
     emit({"phase": "distributed", "ok": True, **dist_path})

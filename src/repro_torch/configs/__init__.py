@@ -1,14 +1,13 @@
-"""Config registry of the archs the port runs.
+"""Config registry: the port's copies of the JAX package's ten archs.
 
-The port copies the JAX package's ``ArchConfig`` schema (``base``) and the
-archs whose blocks it has: ``mamba2-1.3b`` (the attention-free model whose
-serving path runs the ``ssd_scan`` kernel), the four dense GQA archs
-(``h2o-danube-3-4b``, ``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``) and the
+The port copies the JAX package's ``ArchConfig`` schema (``base``) and
+every arch: ``mamba2-1.3b`` (the attention-free model whose serving path
+runs the ``ssd_scan`` kernel), the four dense GQA archs
+(``h2o-danube-3-4b``, ``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``), the
 three MoE archs (``granite-moe-3b-a800m``; ``jamba-1.5-large-398b``, mamba
 and GQA blocks with MoE; ``deepseek-v3-671b``, MLA with MoE and multi-token
-prediction).  The JAX package's other two need a front-end and the
-encoder-decoder, which the port does not have yet; asking for one raises
-``NotImplementedError``.
+prediction), the encoder-decoder ``whisper-large-v3`` (audio frames) and
+the VLM ``phi-3-vision-4.2b`` (vision patches).
 """
 from __future__ import annotations
 
@@ -20,24 +19,21 @@ from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from .h2o_danube_3_4b import CONFIG as h2o_danube_3_4b
 from .jamba_1_5_large_398b import CONFIG as jamba_1_5_large_398b
 from .mamba2_1_3b import CONFIG as mamba2_1_3b
+from .phi_3_vision_4_2b import CONFIG as phi_3_vision_4_2b
+from .whisper_large_v3 import CONFIG as whisper_large_v3
 from .yi_34b import CONFIG as yi_34b
 
 ARCHS: dict[str, ArchConfig] = {
     c.name: c for c in [h2o_danube_3_4b, deepseek_v3_671b, mamba2_1_3b,
-                        jamba_1_5_large_398b, granite_moe_3b_a800m,
-                        gemma2_9b, yi_34b, chatglm3_6b]}
+                        whisper_large_v3, jamba_1_5_large_398b,
+                        granite_moe_3b_a800m, phi_3_vision_4_2b, gemma2_9b,
+                        yi_34b, chatglm3_6b]}
 
-#: archs of the JAX package that wait for the front-ends and the
-#: encoder-decoder in the port (ROADMAP item 19b)
-NOT_PORTED = ("whisper-large-v3", "phi-3-vision-4.2b")
+#: archs of the JAX package that the port has no config for: none
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def get_config(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it needs a front-end or the "
-            "encoder-decoder, which arrive with ROADMAP item 19b; ported: "
-            f"{sorted(ARCHS)}")
     try:
         return ARCHS[name]
     except KeyError:

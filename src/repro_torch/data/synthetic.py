@@ -13,7 +13,8 @@ with per-sample amplitude jitter, a shared distractor field (makes classes
 non-orthogonal), and per-dataset noise levels.  Labels are balanced.
 
 A numpy copy of the JAX package's ``repro.data.synthetic`` (same seed,
-bit-identical arrays); the token-stream LM task waits for the LLM slice.
+bit-identical arrays), with its token-stream LM task
+(:func:`make_lm_dataset`).
 """
 from __future__ import annotations
 
@@ -77,3 +78,24 @@ def make_dataset(name: str, n_per_class: int, seed: int = 42,
     x = (amp * templates[y] + distract * damp * distractor[None]
          + noise * eps)
     return Dataset(x.astype(np.float32), y)
+
+
+# ------------------------------------------------------------ LM stream ----
+def make_lm_dataset(vocab: int, seq_len: int, n_seqs: int,
+                    seed: int = 42, p_follow: float = 0.9) -> np.ndarray:
+    """Bigram-table token streams: tokens (n_seqs, seq_len) int32.
+
+    next = T[prev] with prob ``p_follow`` (T a fixed random permutation),
+    else uniform.  A LM that learns the table reaches cross-entropy
+    ~= H(p_follow) + (1-p_follow) * ln(vocab), far below ln(vocab) -- a
+    measurable target for the fine-tuning examples.
+    """
+    rng = np.random.default_rng(seed)
+    table = rng.permutation(vocab)
+    toks = np.zeros((n_seqs, seq_len), np.int64)
+    toks[:, 0] = rng.integers(0, vocab, n_seqs)
+    for t in range(1, seq_len):
+        follow = rng.random(n_seqs) < p_follow
+        toks[:, t] = np.where(follow, table[toks[:, t - 1]],
+                              rng.integers(0, vocab, n_seqs))
+    return toks.astype(np.int32)

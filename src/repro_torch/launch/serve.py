@@ -5,18 +5,24 @@
         --batch 4 --prompt-len 2048 --new 16 --rank 8
 
 The JAX package's ``repro.launch.serve`` path without its mesh (one
-device; the sharding rules come with the rest of the zoo, ROADMAP item
-19b): weights from ``Model.init`` and adapters from ``Model.init_adapters``
-(seeds 0 and 1), random prompt tokens from ``numpy.random.default_rng(0)``,
-one prefill into KV caches of ``prompt_len + new`` slots, then ``new - 1``
-decode steps each feeding back the argmax token.  Prints the reference's
-``prefill:`` and ``decode:`` lines.  ``--arch`` defaults to the reference's
-``h2o-danube-3-4b``; the port serves it and the other dense GQA archs
-(``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``), ``mamba2-1.3b`` and the MoE
-archs (``granite-moe-3b-a800m``; ``jamba-1.5-large-398b``, whose mamba
-layers launch ``ssd_scan``; ``deepseek-v3-671b``, MLA with a latent
-cache).  At a full config's ``capacity_factor`` (1.25) a prompt's
-capacity can drop tokens that a one-token decode step keeps.
+device; the sharding rules wait for their own slice): weights from
+``Model.init`` and adapters from ``Model.init_adapters`` (seeds 0 and 1),
+then from one ``numpy.random.default_rng(0)``, in the reference's order,
+random prompt tokens, an encoder-decoder's ``frames`` (batch,
+encoder_seq, frontend_dim) and a VLM's ``patches`` (batch,
+n_prefix_tokens, frontend_dim); one prefill into KV caches of
+``prompt_len + new + n_prefix`` slots, then ``new - 1`` decode steps each
+feeding back the argmax token at position ``prompt_len + n_prefix + i``.
+Prints the reference's ``prefill:`` and ``decode:`` lines.  ``--arch``
+defaults to the reference's ``h2o-danube-3-4b`` and takes all ten archs:
+the dense GQA ones (also ``yi-34b``, ``chatglm3-6b``, ``gemma2-9b``),
+``mamba2-1.3b``, the MoE archs (``granite-moe-3b-a800m``;
+``jamba-1.5-large-398b``, whose mamba layers launch ``ssd_scan``;
+``deepseek-v3-671b``, MLA with a latent cache), ``whisper-large-v3``
+(the encoder runs once in the prefill, whose caches keep its keys and
+values) and ``phi-3-vision-4.2b`` (576 patches before the prompt).  At a
+full config's ``capacity_factor`` (1.25) a prompt's capacity can drop
+tokens that a one-token decode step keeps.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the plain path.
 """
@@ -38,22 +44,42 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, params, adapters, tokens: torch.Tensor,
-             new: int) -> dict:
-    """Prefill ``tokens`` (B, S), then ``new - 1`` greedy decode steps.
+def make_batch(cfg, batch: int, prompt_len: int, device) -> dict:
+    """The reference's serving batch from ``default_rng(0)``: tokens, then
+    an encoder-decoder's ``frames``, then a VLM's ``patches`` (fp32)."""
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(size=(batch, cfg.encoder_seq,
+                                         cfg.frontend_dim))
+    if cfg.frontend == "vision_patches":
+        out["patches"] = rng.normal(size=(batch, cfg.n_prefix_tokens,
+                                          cfg.frontend_dim))
+    return {k: torch.as_tensor(v, dtype=torch.long if k == "tokens"
+                               else torch.float32, device=device)
+            for k, v in out.items()}
 
-    The prefill's KV caches have ``S + new`` slots (a mamba model has
-    none).  Returns the generated tokens (B, new) -- the prefill's argmax
-    first -- the prefill's last-position logits, the last step's logits,
-    the caches after the last step and the host seconds of the prefill and
-    the decode loop (each ending in a synchronise)."""
+
+def generate(model: Model, params, adapters, batch: dict, new: int) -> dict:
+    """Prefill ``batch`` (the prompt ``tokens`` (B, S), with an
+    encoder-decoder's ``frames`` or a VLM's ``patches``), then ``new - 1``
+    greedy decode steps.
+
+    The prefill's KV caches have ``S + new + n_prefix`` slots (a mamba
+    model has none), and decode positions count the VLM's ``n_prefix``
+    patches.  Returns the generated tokens (B, new) -- the prefill's
+    argmax first -- the prefill's last-position logits, the last step's
+    logits, the caches after the last step and the host seconds of the
+    prefill and the decode loop (each ending in a synchronise)."""
+    tokens = batch["tokens"]
     device = tokens.device
     prompt_len = tokens.shape[1]
+    n_prefix = model.n_prefix
     _sync(device)
     t0 = time.perf_counter()
     with torch.inference_mode():
         prefill_logits, caches = model.prefill(
-            params, adapters, {"tokens": tokens}, capacity=prompt_len + new)
+            params, adapters, batch, capacity=prompt_len + new + n_prefix)
         tok = prefill_logits.argmax(-1)
         _sync(device)
         prefill_s = time.perf_counter() - t0
@@ -61,7 +87,7 @@ def generate(model: Model, params, adapters, tokens: torch.Tensor,
         t0 = time.perf_counter()
         for i in range(new - 1):
             logits, caches = model.decode_step(params, adapters, caches, tok,
-                                               prompt_len + i)
+                                               prompt_len + n_prefix + i)
             tok = logits.argmax(-1)
             out.append(tok)
         _sync(device)
@@ -92,12 +118,9 @@ def main(argv=None) -> dict:
     params = model.init(torch.Generator(device=device).manual_seed(0))
     adapters = model.init_adapters(
         torch.Generator(device=device).manual_seed(1), rank=args.rank)
-    rng = np.random.default_rng(0)
-    tokens = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
-        dtype=torch.long, device=device)
+    batch = make_batch(cfg, args.batch, args.prompt_len, device)
 
-    res = generate(model, params, adapters, tokens, args.new)
+    res = generate(model, params, adapters, batch, args.new)
     print(f"prefill: {res['prefill_s']:.2f}s")
     steps = args.new - 1
     print(f"decode: {steps} steps, "

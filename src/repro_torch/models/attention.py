@@ -1,6 +1,7 @@
 """Attention token mixers on tensor dicts: grouped-query attention (GQA:
-SWA windows, softcaps, QKV bias, query scale and post-block norms) and
-DeepSeek's multi-head latent attention (MLA).
+SWA windows, softcaps, QKV bias, query scale and post-block norms, and
+the encoder-decoder's cross-attention) and DeepSeek's multi-head latent
+attention (MLA).
 
 The JAX package's ``repro.models.attention`` GQA and MLA paths, in plain
 PyTorch ops and the reference's formulation.  Three modes share one
@@ -23,7 +24,15 @@ holds an (S, S) score matrix per head group.  No kernel lies on this path:
 ``scaled_dot_product_attention`` has no score softcap and masks otherwise.
 MLA's values are narrower than its queries and keys (``v_head_dim``
 against ``qk_nope_dim + qk_rope_dim``): the products take each operand's
-own head dim.  Cross-attention arrives with ROADMAP item 19b.
+own head dim.
+
+A GQA block with ``cross_attn`` (whisper's decoder) attends to the
+encoder's output after its self-attention: ``xk``/``xv`` project
+``enc_out`` (full and prefill; prefill caches them, decode reads them
+back), the queries ``xq`` project ``norm(xln, x + y)``, every encoder
+position is valid, and ``xo``'s output is added to ``y`` before the
+post-block norm.  MLA and a mamba block ignore the flag, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -46,16 +55,9 @@ def _choose_q_chunk(s: int, target: int = 1024) -> int:
     return s
 
 
-def _check_block(block) -> None:
-    if block.cross_attn:
-        raise NotImplementedError("cross-attention is not ported yet: it "
-                                  "arrives with ROADMAP item 19b")
-
-
 # =================================================================== GQA ====
 def gqa_init(gen: torch.Generator, cfg, block,
              d_model: int | None = None) -> dict:
-    _check_block(block)
     d = d_model or cfg.d_model
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = dtype_of(cfg)
@@ -66,14 +68,20 @@ def gqa_init(gen: torch.Generator, cfg, block,
         "v": dense_init(gen, d, kv * hd, dt, bias=cfg.qkv_bias),
         "o": dense_init(gen, h * hd, d, dt),
     }
+    if block.cross_attn:
+        p["xk"] = dense_init(gen, d, kv * hd, dt, bias=cfg.qkv_bias)
+        p["xv"] = dense_init(gen, d, kv * hd, dt, bias=cfg.qkv_bias)
+        p["xq"] = dense_init(gen, d, h * hd, dt, bias=cfg.qkv_bias)
+        p["xo"] = dense_init(gen, h * hd, d, dt)
+        p["xln"] = norm_init(cfg, d, device=gen.device)
     if cfg.post_block_norm:
         p["post_ln"] = norm_init(cfg, d, device=gen.device)
     return p
 
 
 def gqa_lora_targets(block) -> tuple[str, ...]:
-    _check_block(block)
-    return ("q", "k", "v", "o")
+    t = ("q", "k", "v", "o")
+    return t + ("xq", "xk", "xv", "xo") if block.cross_attn else t
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -125,28 +133,30 @@ def _attend_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
                 block, *, mode: str, positions: torch.Tensor | None = None,
-                cache: Mapping | None = None, pos=None, alpha: float = 16.0,
+                cache: Mapping | None = None, pos=None,
+                enc_out: torch.Tensor | None = None, alpha: float = 16.0,
                 capacity: int | None = None):
     """Returns (y, new_cache or None).
 
     mode: 'full' | 'prefill' | 'decode'.  ``positions``: (S,) absolute
     positions for full/prefill.  ``pos``: the current index for decode (an
-    int or a 0-d tensor).  ``capacity``: the prefill cache's length (>= S)
-    so that decode can continue in it."""
-    _check_block(block)
+    int or a 0-d tensor).  ``enc_out``: (B, T_enc, d) the encoder's output,
+    which a ``cross_attn`` block reads in full and prefill modes.
+    ``capacity``: the prefill cache's length (>= S) so that decode can
+    continue in it."""
     lora = lora or {}
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
     scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
     hx = norm(p["ln"], x, cfg.norm_eps)
 
-    def proj(name):
-        return dense(p[name], hx, lora.get(name), alpha)
+    def proj(name, inp):
+        return dense(p[name], inp, lora.get(name), alpha)
 
-    q = _split_heads(proj("q"), h)
-    kk = _split_heads(proj("k"), kv)
-    vv = _split_heads(proj("v"), kv)
-    new_cache = None
+    q = _split_heads(proj("q", hx), h)
+    kk = _split_heads(proj("k", hx), kv)
+    vv = _split_heads(proj("v", hx), kv)
+    new_cache = {}
     if mode in ("full", "prefill"):
         s = x.shape[1]
         if positions is None:
@@ -193,9 +203,31 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
                          "decode")
     out = out.reshape(x.shape[:2] + (h * hd,))
     y = dense(p["o"], out, lora.get("o"), alpha)
+
+    # ---------------- cross attention (encoder-decoder) ----------------
+    if block.cross_attn:
+        if mode == "decode":
+            xk, xv = cache["xk"], cache["xv"]
+            new_cache["xk"], new_cache["xv"] = xk, xv
+        else:
+            if enc_out is None:
+                raise ValueError("a cross_attn block needs the encoder's "
+                                 "output (enc_out)")
+            xk = _split_heads(proj("xk", enc_out), kv)
+            xv = _split_heads(proj("xv", enc_out), kv)
+            if mode == "prefill":
+                new_cache["xk"], new_cache["xv"] = xk, xv
+        hx2 = norm(p["xln"], x + y, cfg.norm_eps)
+        xq = _split_heads(proj("xq", hx2), h)
+        xqg = xq.reshape(xq.shape[:2] + (kv, g, hd))
+        every = torch.ones(xk.shape[1], dtype=torch.bool, device=x.device)
+        xout = _attend_decode(xqg, xk, xv, every, scale, cfg.attn_softcap)
+        xout = xout.reshape(x.shape[:2] + (h * hd,))
+        y = y + dense(p["xo"], xout, lora.get("xo"), alpha)
+
     if cfg.post_block_norm:
         y = norm(p["post_ln"], y, cfg.norm_eps)
-    return y, new_cache
+    return y, (new_cache or None)
 
 
 def _write_slot(cache: torch.Tensor, new: torch.Tensor,
@@ -226,16 +258,19 @@ def _ring_from_tail(kk: torch.Tensor, vv: torch.Tensor,
 
 def gqa_init_cache(cfg, block, batch: int, seq_len: int, dtype,
                    device=None) -> dict:
-    _check_block(block)
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     t = min(block.window, seq_len) if block.window > 0 else seq_len
-    return {"k": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device),
-            "v": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device)}
+    c = {"k": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device),
+         "v": torch.zeros((batch, t, kv, hd), dtype=dtype, device=device)}
+    if block.cross_attn:
+        for name in ("xk", "xv"):
+            c[name] = torch.zeros((batch, cfg.encoder_seq, kv, hd),
+                                  dtype=dtype, device=device)
+    return c
 
 
 # =================================================================== MLA ====
 def mla_init(gen: torch.Generator, cfg, block) -> dict:
-    _check_block(block)
     d = cfg.d_model
     h = cfg.n_heads
     dt = dtype_of(cfg)
@@ -289,7 +324,6 @@ def mla_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
     K half into the query and its V half into the output, attending in the
     latent space (``kv_b``'s adapter is then not applied, as in the
     reference)."""
-    _check_block(block)
     lora = lora or {}
     h = cfg.n_heads
     nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -371,7 +405,6 @@ def mla_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
 
 def mla_init_cache(cfg, block, batch: int, seq_len: int, dtype,
                    device=None) -> dict:
-    _check_block(block)
     return {"ckv": torch.zeros((batch, seq_len, cfg.kv_lora_rank),
                                dtype=dtype, device=device),
             "kr": torch.zeros((batch, seq_len, cfg.qk_rope_dim), dtype=dtype,

@@ -10,10 +10,11 @@ latent attention (``"mla"``; ``mla_absorbed`` picks its absorbed decode)
 or the Mamba2 mixer (``"mamba"``); its feed-forward is the dense MLP
 (``ffn="dense"``), the MoE (``"moe"``: the sort path, or with
 ``cfg.moe_mode="ep_a2a"`` the expert-parallel all-to-all of
-:mod:`.moe_ep`) or none.  Cross-attention arrives with ROADMAP item 19b
-and raises ``NotImplementedError``.  ``remat`` is accepted and does
-nothing: autograd keeps what the backward needs.  The reference's
-``enc_out`` returns with the code that reads it.
+:mod:`.moe_ep`) or none.  A GQA block with ``cross_attn`` attends to
+``enc_out``, the encoder's output, which :func:`stage_forward` hands to
+every block (a mamba or MLA block ignores the flag, as the reference's
+does).  ``remat`` is accepted and does nothing: autograd keeps what the
+backward needs.
 """
 from __future__ import annotations
 
@@ -36,15 +37,8 @@ from .moe_ep import moe_forward_ep_wrapped
 PyTree = Any
 
 
-def _check_spec(spec) -> None:
-    if spec.cross_attn:
-        raise NotImplementedError("cross-attention is not ported yet: it "
-                                  "arrives with ROADMAP item 19b")
-
-
 # ============================================================ block level ====
 def block_init(gen: torch.Generator, cfg, spec) -> dict:
-    _check_spec(spec)
     if spec.kind == "mamba":
         p = {"mix": mamba_init(gen, cfg)}
     elif spec.kind == "mla":
@@ -59,9 +53,8 @@ def block_init(gen: torch.Generator, cfg, spec) -> dict:
 
 
 def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
-                  cache=None, pos=None, alpha=16.0, scan_backend="auto",
-                  mla_absorbed=False, capacity=None):
-    _check_spec(spec)
+                  cache=None, pos=None, enc_out=None, alpha=16.0,
+                  scan_backend="auto", mla_absorbed=False, capacity=None):
     blora = blora or {}
     if spec.kind == "mamba":
         y, c = mamba_forward(bp["mix"], blora.get("mix"), x, cfg, mode=mode,
@@ -75,7 +68,8 @@ def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
     else:
         y, c = gqa_forward(bp["mix"], blora.get("mix"), x, cfg, spec,
                            mode=mode, positions=positions, cache=cache,
-                           pos=pos, alpha=alpha, capacity=capacity)
+                           pos=pos, enc_out=enc_out, alpha=alpha,
+                           capacity=capacity)
     x = x + y
     if spec.ffn == "dense":
         x = x + mlp_forward(bp["ffn"], blora.get("ffn"), x, cfg, alpha)
@@ -89,8 +83,8 @@ def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
 def block_init_cache(cfg, spec, batch: int, seq_len: int | None, dtype,
                      device=None) -> dict:
     """One block's zero decode state; an attention block's KV cache has
-    ``seq_len`` slots (``min(window, seq_len)`` for an SWA layer)."""
-    _check_spec(spec)
+    ``seq_len`` slots (``min(window, seq_len)`` for an SWA layer); a
+    cross-attention block's also ``xk``/``xv`` of ``cfg.encoder_seq``."""
     if spec.kind == "mamba":
         return mamba_init_cache(cfg, batch, dtype, device)
     if seq_len is None:
@@ -102,7 +96,6 @@ def block_init_cache(cfg, spec, batch: int, seq_len: int | None, dtype,
 
 def block_lora_specs(cfg, spec) -> dict[str, tuple]:
     """{relpath: (fan_out, fan_in, extra_leading)} for one block."""
-    _check_spec(spec)
     d = cfg.d_model
     out: dict[str, tuple] = {}
     if spec.kind == "mamba":
@@ -127,7 +120,8 @@ def block_lora_specs(cfg, spec) -> dict[str, tuple]:
     else:
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dims = {"q": (h * hd, d), "k": (kv * hd, d), "v": (kv * hd, d),
-                "o": (d, h * hd)}
+                "o": (d, h * hd), "xq": (h * hd, d), "xk": (kv * hd, d),
+                "xv": (kv * hd, d), "xo": (d, h * hd)}
         for t in gqa_lora_targets(spec):
             out[f"mix/{t}"] = dims[t] + ((),)
     if spec.ffn == "dense":
@@ -189,10 +183,11 @@ def _layer(tree, i: int):
 
 
 def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
-                  caches=None, pos=None, alpha=16.0, remat=False,
-                  scan_backend="auto", mla_absorbed=False, capacity=None):
+                  caches=None, pos=None, enc_out=None, alpha=16.0,
+                  remat=False, scan_backend="auto", mla_absorbed=False,
+                  capacity=None):
     """Loop over the stage's repeats. Returns (x, new_caches or None), the
-    caches stacked over the repeats."""
+    caches stacked over the repeats; ``enc_out`` goes to every block."""
     per_layer = []
     for r in range(stage.repeat):
         bp_unit = _layer(sp, r)
@@ -208,8 +203,8 @@ def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
             c = cache_unit[f"b{i}"] if cache_unit is not None else None
             x, cnew = block_forward(
                 bp_unit[f"b{i}"], bl, x, cfg, spec, mode=mode,
-                positions=positions, cache=c, pos=pos, alpha=alpha,
-                scan_backend=scan_backend, mla_absorbed=mla_absorbed,
+                positions=positions, cache=c, pos=pos, enc_out=enc_out,
+                alpha=alpha, scan_backend=scan_backend, mla_absorbed=mla_absorbed,
                 capacity=capacity)
             if cnew is not None:
                 new_caches[f"b{i}"] = cnew

@@ -1,5 +1,6 @@
-from .optimizers import Optimizer, adam, adamw, apply_updates, sgd
+from .optimizers import (Optimizer, adam, adamw, apply_updates,
+                         clip_by_global_norm, sgd)
 from .schedules import constant, cosine, exponential
 
-__all__ = ["Optimizer", "adam", "adamw", "apply_updates", "sgd", "constant",
-           "cosine", "exponential"]
+__all__ = ["Optimizer", "adam", "adamw", "apply_updates",
+           "clip_by_global_norm", "sgd", "constant", "cosine", "exponential"]

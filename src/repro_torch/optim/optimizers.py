@@ -14,7 +14,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -86,3 +86,19 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def adamw(lr, weight_decay: float = 0.01, **kw) -> Optimizer:
     return adam(lr, weight_decay=weight_decay, **kw)
+
+
+def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
+    """``opt`` after scaling the gradients by ``min(1, max_norm / (norm +
+    1e-12))``, ``norm`` the fp32 global L2 norm over every leaf."""
+    def init(params):
+        return opt.init(params)
+
+    def update(grads, state, params=None):
+        sq = sum(g.float().square().sum() for g in tree_leaves(grads))
+        norm = torch.sqrt(sq)
+        scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+        return opt.update(grads, state, params)
+
+    return Optimizer(init, update)

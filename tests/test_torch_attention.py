@@ -288,12 +288,27 @@ def test_gqa_init_matches_jax_layout(over):
 
 
 def test_gqa_cross_attention_raises():
-    cfg, _ = _cfgs()
-    block = BlockSpec(kind="gqa", cross_attn=True)
-    with pytest.raises(NotImplementedError, match="19b"):
-        ta.gqa_init(torch.Generator().manual_seed(0), cfg, block)
-    with pytest.raises(NotImplementedError, match="19b"):
-        ta.gqa_init_cache(cfg, block, 1, 4, torch.float32)
+    """A cross-attention block (whisper's decoder) builds as JAX's: the
+    cross leaves ``xq``/``xk``/``xv`` (with ``qkv_bias``), ``xo`` and
+    ``xln``, the LoRA targets with the ``x*`` projections, and a cache with
+    zero ``xk``/``xv`` of ``(batch, encoder_seq, kv, hd)``."""
+    for over in ({}, dict(qkv_bias=True, post_block_norm=True)):
+        cfg = get_config("whisper-large-v3").reduced(**over)
+        jcfg = jax_get_config("whisper-large-v3").reduced(**over)
+        block = BlockSpec(kind="gqa", cross_attn=True)
+        jblock = JBlockSpec(kind="gqa", cross_attn=True)
+        got = ta.gqa_init(torch.Generator().manual_seed(0), cfg, block)
+        _same_layout(got, ja.gqa_init(jax.random.PRNGKey(0), jcfg, jblock))
+        assert {"xq", "xk", "xv", "xo", "xln"} <= set(got)
+        assert ("b" in got["xk"]) == cfg.qkv_bias and "b" not in got["xo"]
+        cache = ta.gqa_init_cache(cfg, block, 3, 8, torch.float32)
+        _same_layout(cache, ja.gqa_init_cache(jcfg, jblock, 3, 8,
+                                              jnp.float32))
+        assert cache["xk"].shape == (3, cfg.encoder_seq, cfg.n_kv_heads,
+                                     cfg.head_dim)
+        assert not any(t.any() for t in tree_leaves(cache))
+    assert ta.gqa_lora_targets(block) == ja.gqa_lora_targets(jblock) == (
+        "q", "k", "v", "o", "xq", "xk", "xv", "xo")
 
 
 # ------------------------------------------------------------------- mlp --

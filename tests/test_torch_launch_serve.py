@@ -1,8 +1,8 @@
 """``repro_torch.launch.serve`` on the CPU: the reduced mamba2-1.3b preset
 prefills, decodes greedily and prints the reference launcher's
 ``prefill:`` and ``decode:`` lines; the greedy tokens are the full
-forward's argmax; ``--device cuda`` without a card raises; an arch the
-port lacks raises; the MoE archs serve.  The default arch, h2o-danube-3-4b, serves from KV
+forward's argmax; ``--device cuda`` without a card raises; an unknown arch
+raises; the MoE and the front-end archs serve.  The default arch, h2o-danube-3-4b, serves from KV
 caches of ``prompt_len + new`` slots, its greedy tokens the full forward's
 argmax too."""
 import os
@@ -76,11 +76,28 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
         serve.main(["--preset", "reduced"])
 
 
-def test_serve_arch_not_ported_raises():
-    """The front-end archs still wait for item 19b (granite-moe-3b-a800m,
-    which raised here before item 19b-ii, serves: test_serve_moe_archs)."""
-    with pytest.raises(NotImplementedError, match="19b"):
-        serve.main(["--arch", "phi-3-vision-4.2b", "--device", "cpu"])
+def test_serve_arch_not_ported_raises(capsys):
+    """The front-end archs serve with item 19b-iii: phi-3-vision-4.2b's
+    greedy tokens are the full forward's argmax over the same patches
+    (positions after the 8-patch prefix); an arch the port does not know
+    raises ``KeyError``."""
+    res = serve.main(["--arch", "phi-3-vision-4.2b", *ARGS[2:]])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("prefill: ") and out[1].startswith(
+        "decode: 4 steps, ")
+    cfg = get_config("phi-3-vision-4.2b").reduced()
+    cache = res["caches"][0]["b0"]
+    assert cache["k"].shape == (1, 2, 20 + 5 + cfg.n_prefix_tokens,
+                                cfg.n_kv_heads, cfg.head_dim)
+    model = make_model(cfg, remat=False)
+    params = model.init(torch.Generator().manual_seed(0))
+    adapters = model.init_adapters(torch.Generator().manual_seed(1), rank=8)
+    batch = serve.make_batch(cfg, 2, 20, "cpu")
+    seq = torch.cat([batch["tokens"], res["tokens"][:, :-1]], 1)
+    full, _ = model.forward(params, adapters, dict(batch, tokens=seq))
+    assert torch.equal(full[:, 19:].argmax(-1), res["tokens"])
+    with pytest.raises(KeyError):
+        serve.main(["--arch", "no-such-arch", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",

@@ -91,13 +91,10 @@ OTHER_ARCHS = ("chatglm3-6b", "deepseek-v3-671b", "gemma2-9b",
 
 @pytest.mark.parametrize("name", OTHER_ARCHS)
 def test_other_archs_raise_not_implemented(name):
-    """A ported arch equals the JAX config field by field, full and
-    reduced; the others still raise, naming item 19b."""
-    if name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="19b"):
-            get_config(name)
-        return
-    assert name in ARCHS
+    """Every other arch of the JAX package is ported (the front-end archs
+    with item 19b-iii): its config equals JAX's field by field, full and
+    reduced."""
+    assert name in ARCHS and name not in NOT_PORTED
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(jax_get_config(name))
     assert dataclasses.asdict(get_config(name).reduced()) == \
@@ -105,14 +102,13 @@ def test_other_archs_raise_not_implemented(name):
 
 
 def test_not_ported_holds_the_five_archs_still_missing():
-    """Of the five archs that waited for item 19b, the three MoE archs are
-    ported (19b-ii); the two that need a front-end or the encoder-decoder
-    are left."""
-    assert sorted(NOT_PORTED) == ["phi-3-vision-4.2b", "whisper-large-v3"]
-    assert sorted(ARCHS) == sorted(set(OTHER_ARCHS) - set(NOT_PORTED)
-                                   | {ARCH})
-    assert {"deepseek-v3-671b", "granite-moe-3b-a800m",
-            "jamba-1.5-large-398b"} <= set(ARCHS)
+    """Of the five archs that waited for item 19b, the three MoE archs came
+    with 19b-ii and the two front-end archs with 19b-iii: none is left, and
+    the port registers the JAX package's ten."""
+    assert NOT_PORTED == ()
+    assert sorted(ARCHS) == sorted(JAX_ARCHS) == sorted(OTHER_ARCHS
+                                                        + (ARCH,))
+    assert {"phi-3-vision-4.2b", "whisper-large-v3"} <= set(ARCHS)
 
 
 def test_unknown_arch_raises_key_error():
@@ -155,23 +151,40 @@ def test_unported_blocks_raise():
                                 capacity=8)
         assert y.shape == x.shape and torch.isfinite(y).all()
         assert _shapes(c) == _shapes(cache)
-    cfg = _port_cfg()
-    for spec in (BlockSpec(kind="mamba", ffn="none", cross_attn=True),
-                 BlockSpec(kind="gqa", ffn="dense", cross_attn=True)):
-        with pytest.raises(NotImplementedError, match="19b"):
-            tt.block_init(gen, cfg, spec)
-        with pytest.raises(NotImplementedError, match="19b"):
-            tt.block_lora_specs(cfg, spec)
-        with pytest.raises(NotImplementedError, match="19b"):
-            tt.block_init_cache(cfg, spec, 1, 8, torch.float32)
+    # cross-attention (item 19b-iii): a GQA block gains its cross leaves; a
+    # mamba block ignores the flag, as the reference's does
+    for arch, kw in (("whisper-large-v3", dict(kind="gqa", ffn="dense",
+                                               cross_attn=True)),
+                     (ARCH, dict(kind="mamba", ffn="none",
+                                 cross_attn=True))):
+        cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+        spec, jspec = BlockSpec(**kw), JBlockSpec(**kw)
+        assert tt.block_lora_specs(cfg, spec) == jt.block_lora_specs(jcfg,
+                                                                     jspec)
+        bp = tt.block_init(gen, cfg, spec)
+        assert _shapes(bp) == _shapes(jt.block_init(jax.random.PRNGKey(0),
+                                                    jcfg, jspec))
+        cache = tt.block_init_cache(cfg, spec, 1, 8, torch.float32)
+        assert _shapes(cache) == _shapes(jt.block_init_cache(
+            jcfg, jspec, 1, 8, jnp.float32))
+        x = torch.randn((1, 8, cfg.d_model), generator=gen)
+        enc = torch.randn((1, cfg.encoder_seq or 4, cfg.d_model),
+                          generator=gen)
+        y, c = tt.block_forward(bp, None, x, cfg, spec, mode="prefill",
+                                capacity=8, enc_out=enc)
+        assert y.shape == x.shape and torch.isfinite(y).all()
+        assert _shapes(c) == _shapes(cache)
+    assert "mix/xq" in tt.block_lora_specs(
+        get_config("whisper-large-v3").reduced(),
+        BlockSpec(kind="gqa", cross_attn=True))
 
 
 def test_model_loss_waits_for_training():
     """Model.loss runs (tests/test_torch_dense_zoo.py); multi-token
     prediction, its extra term, builds with item 19b-ii and equals JAX's
     (a mamba MTP block here; deepseek's MLA + MoE one in
-    tests/test_torch_mla_zoo.py); the encoder-decoder and the front-ends
-    still wait for item 19b."""
+    tests/test_torch_mla_zoo.py); the encoder-decoder and the vision
+    front-end build with item 19b-iii, their loss equal to JAX's."""
     jcfg = dataclasses.replace(_jax_cfg(), mtp_depth=1)
     cfg = dataclasses.replace(_port_cfg(), mtp_depth=1)
     jmodel = jax_make_model(jcfg, remat=False)
@@ -186,12 +199,27 @@ def test_model_loss_waits_for_training():
     assert_close(got.detach(), np.float32(want), F32_TOL, "loss with MTP")
     assert float(model._mtp_loss(p, a, {"tokens": torch.from_numpy(
         tokens)}, None)) > 0.0
-    enc = Stage(unit=(BlockSpec(kind="gqa", ffn="dense", causal=False),),
-                repeat=1)
-    for bad in (dataclasses.replace(_port_cfg(), encoder_stages=(enc,)),
-                dataclasses.replace(_port_cfg(), frontend="vision_patches")):
-        with pytest.raises(NotImplementedError, match="19b"):
-            make_model(bad)
+    for arch in ("whisper-large-v3", "phi-3-vision-4.2b"):
+        jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+        jmodel, model = jax_make_model(jcfg, remat=False), make_model(cfg)
+        jp = jmodel.init(jax.random.PRNGKey(0))
+        ja = jmodel.init_adapters(jax.random.PRNGKey(1), rank=4)
+        rng = _rng(6)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(
+            np.int32)}
+        if cfg.is_encdec:
+            batch["frames"] = rng.normal(size=(2, cfg.encoder_seq,
+                                               cfg.frontend_dim))
+        else:
+            batch["patches"] = rng.normal(size=(2, cfg.n_prefix_tokens,
+                                                cfg.frontend_dim))
+        batch = {k: v.astype(np.float32) if k != "tokens" else v
+                 for k, v in batch.items()}
+        want = jmodel.loss(jp, ja, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        got = model.loss(port_tree(jp), port_tree(ja),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert_close(got.detach(), np.float32(want), F32_TOL, f"{arch} loss")
 
 
 # ----------------------------------------------------------------- common --

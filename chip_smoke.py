@@ -201,6 +201,28 @@ Phases, each printing JSON lines:
   upload one packed_agg launch, enforced, held against the plain round
   and the trained adapters, the checkpoint restored equal to the
   aggregate;
+* sharded_train -- ``launch.train.train`` at the full preset
+  (h2o-danube-3-4b, bf16, 4 x 128, 10 steps) unplaced, then on a one-rank
+  NCCL (1, 1) mesh with the weights placed by the sharding rules: ms a
+  step of each, peak memory, the sharded upload one packed_agg launch
+  (enforced); then a one-unit fp32 twin on both paths, its losses,
+  trained adapters and upload within 2e-5 of max|want|;
+* sharded_gloo -- Model.loss and its adapter gradient of h2o-danube-3-4b
+  at full width one unit deep in fp32 on 2 gloo ranks on cuda:0 (a (1, 2)
+  mesh, spawned), each within 2e-5 of max|want| of the one-rank run; the
+  collectives' bytes a step by kind and the step's wall;
+* sharded_mamba -- mamba2-1.3b's prefill (4 x 2048) in fp32 on a
+  one-rank NCCL (1, 1) mesh, every scan through ``local_map``: 48
+  ssd_scan launches (enforced), each held against the plain version on
+  its inputs, the logits against the unplaced plain-scan prefill within
+  2e-3 of max|want|;
+* dryrun -- ``launch.dryrun`` for h2o-danube-3-4b x train_4k and
+  mamba2-1.3b x prefill_32k on the (16, 16) mesh of 256 fake ranks: the
+  trace's seconds, per-device flops, bytes and collectives, the roofline
+  terms on the H100 constants (estimates, not times);
+* hetero_ranks -- ``examples/heterogeneous_ranks_torch.py`` on the card
+  (FLoRA's stack kernel; the rbla aggregate over 8 gloo ranks on cuda:0
+  against the host's);
 * distributed -- ``backend="distributed"`` against kernel-path twins run
   first in the phase: (a) main_path's config under a one-rank NCCL group
   (one all_reduce a round and no launch, the accuracies within 0.01 and
@@ -241,7 +263,9 @@ SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
               "async_durable", "distributed", "attn_main",
               "attn_consistency", "attn_zoo", "moe_main", "moe_consistency",
               "moe_zoo", "moe_ep", "vlm_main", "encdec_main",
-              "frontend_consistency", "frontend_round", "train_main")
+              "frontend_consistency", "frontend_round", "train_main",
+              "sharded_train", "sharded_gloo", "sharded_mamba", "dryrun",
+              "hetero_ranks")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -4677,6 +4701,490 @@ def phase_frontends(smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- sharding --
+#: sharded_train: repro_torch.launch.train.train at full width and depth in
+#: bf16 (the launcher's full preset: h2o-danube-3-4b, batch 4 x 128, rank
+#: 8), first with nothing placed, then on a one-rank NCCL (1, 1) mesh with
+#: the weights placed by the rules; steps a run
+SHARDED_TRAIN = dict(arch="h2o-danube-3-4b", steps=10, batch=4, seq=128,
+                     rank=8)
+#: its fp32 twin: one unit of the same config (every width kept), 3 steps,
+#: the losses, trained adapters and upload within SHARDED_TOL of max|want|
+#: of the unsharded launcher's
+SHARDED_TWIN_STEPS = 3
+SHARDED_TOL = 2e-5
+#: sharded_gloo: 2 gloo ranks, a (1, 2) mesh, h2o-danube-3-4b at full width
+#: one unit deep in fp32: Model.loss and its adapter gradient on a batch of
+#: 4 x 128.  The ranks' tensors lie on the host: gloo's all-gather of CUDA
+#: tensors (``_allgather_base``, which every DTensor all-gather takes)
+#: kills both ranks with SIGSEGV under the card's torch 2.11; the phase
+#: probes that first and records the exit codes
+SHARDED_GLOO = dict(arch="h2o-danube-3-4b", batch=4, seq=128, rank=8,
+                    mesh=(1, 2), reps=3, device="cpu")
+#: dryrun: (arch, shape) on the (16, 16) production mesh of 256 fake ranks
+DRYRUN_CASES = (("h2o-danube-3-4b", "train_4k"),
+                ("mamba2-1.3b", "prefill_32k"))
+
+
+def _nccl_world():
+    """A one-rank NCCL group on cuda:0 for the ``with`` block."""
+    import contextlib
+    import tempfile
+    import torch
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def world():
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                rank=0, world_size=1, device_id=torch.device("cuda", 0))
+            try:
+                yield
+            finally:
+                dist.destroy_process_group()
+    return world()
+
+
+def _one_unit(cfg, **over):
+    """``cfg`` with every stage one repeat deep, widths kept."""
+    import dataclasses
+    return dataclasses.replace(cfg, stages=tuple(
+        dataclasses.replace(s, repeat=1) for s in cfg.stages), **over)
+
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_train(smi: str) -> dict:
+    """``launch.train.train`` (SHARDED_TRAIN) unplaced, then on a one-rank
+    NCCL (1, 1) mesh with the weights placed by ``rules.param_specs``, the
+    factors and Adam state replicated: ms a step (median after the first),
+    peak device memory, and the upload of the sharded run, one packed_agg
+    launch and nothing else (enforced).  Then the fp32 one-unit twin on
+    the same two paths: losses, trained adapters and upload within
+    SHARDED_TOL of max|want|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    spec = dict(SHARDED_TRAIN)
+    cfg = get_config(spec.pop("arch"))
+    steps = spec.pop("steps")
+
+    def run(mesh, cfg=cfg, steps=steps):
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        res = train.train(cfg, mesh, steps=steps, device="cuda",
+                          remat=True, **spec)
+        res["seconds"] = time.perf_counter() - t0
+        res["peak"] = torch.cuda.max_memory_allocated()
+        res["launches"] = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        res["plain_calls"] = {k: v for k, v in runtime.PLAIN_CALLS.items()
+                              if v}
+        return res
+    plain = run(None)
+    plain_line = {k: plain[k] for k in ("losses", "seconds", "peak",
+                                        "launches")}
+    plain_ms = [t * 1e3 for t in plain["step_s"]]
+    del plain
+    _free()
+    with _nccl_world():
+        mesh = make_test_mesh((1, 1))
+        got = run(mesh)
+        ms = [t * 1e3 for t in got["step_s"]]
+        line = {"phase": "sharded_train", "card": smi, "arch": cfg.name,
+                "layers": cfg.n_layers, "dtype": cfg.dtype,
+                "mesh": [1, 1], "steps": steps, **spec,
+                "ms_per_step": statistics.median(ms[1:]), "step_ms": ms,
+                "unsharded_ms_per_step": statistics.median(plain_ms[1:]),
+                "unsharded_step_ms": plain_ms,
+                "peak_device_bytes": got["peak"],
+                "unsharded_peak_device_bytes": plain_line["peak"],
+                "losses": got["losses"],
+                "unsharded_losses": plain_line["losses"],
+                "launches": got["launches"],
+                "plain_calls": got["plain_calls"],
+                "seconds": got["seconds"]}
+        del got
+        _free()
+        # the fp32 twin, one unit deep
+        cfg1 = _one_unit(cfg, dtype="float32")
+        twin = run(mesh, cfg1, SHARDED_TWIN_STEPS)
+    want = run(None, cfg1, SHARDED_TWIN_STEPS)
+    errs = {}
+    for key in ("trained", "adapters"):
+        err, scale = _rel_err(twin[key], want[key])
+        errs[key] = (err, SHARDED_TOL * max(scale, 1.0))
+    lw = torch.tensor(want["losses"])
+    errs["losses"] = (float((torch.tensor(twin["losses"]) - lw).abs().max()),
+                      SHARDED_TOL * max(float(lw.abs().max()), 1.0))
+    line.update(twin_layers=cfg1.n_layers, twin_steps=SHARDED_TWIN_STEPS,
+                twin_losses=twin["losses"], twin_want=want["losses"],
+                twin_max_abs_err={k: e for k, (e, _) in errs.items()},
+                twin_tol={k: t for k, (_, t) in errs.items()},
+                twin_launches=twin["launches"])
+    emit(line)
+    del twin, want
+    _free()
+    if line["launches"] != {"packed_agg": 1} or line["plain_calls"]:
+        raise AssertionError(f"sharded_train: launches {line['launches']}, "
+                             f"plain calls {line['plain_calls']}: the "
+                             "upload is one packed_agg launch")
+    if not all(math.isfinite(v) for v in line["losses"]):
+        raise AssertionError("sharded_train: a loss is not finite")
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"sharded_train: the fp32 twin on the mesh "
+                             f"disagrees with the unsharded launcher: {bad}")
+    return line
+
+
+def _gloo_rig(device="cuda"):
+    """SHARDED_GLOO's one-unit fp32 h2o-danube-3-4b at full width on
+    ``device``: weights (seed 0), adapters at rank 8 with a live B (seeds
+    1, 2), tokens (seed 3), each drawn on the card and copied there.
+    Returns (model, params, factors, ranks, tokens)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lora import mask_pair, strip_ranks, tree_map_pairs
+    from repro_torch.models.model import make_model
+    from repro_torch.tree import tree_map
+    spec = SHARDED_GLOO
+    cfg = _one_unit(get_config(spec["arch"]), dtype="float32")
+    model = make_model(cfg, remat=False, scan_backend="ref")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    adapters = tree_map_pairs(lambda pair: mask_pair(dict(pair, B=torch.randn(
+        pair["B"].shape, generator=gen, device="cuda") * 0.02)),
+        model.init_adapters(torch.Generator(device="cuda").manual_seed(1),
+                            rank=spec["rank"]))
+    factors, ranks = strip_ranks(adapters)
+    tokens = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["seq"]),
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(3), device="cuda")
+    return (model,) + tree_map(lambda t: t.to(device),
+                               (params, factors, ranks, tokens))
+
+
+def _loss_grad(model, params, factors, ranks, tokens):
+    """Model.loss and its gradient with respect to the factors, each whole
+    (a DTensor gradient first in its factor's placement)."""
+    import torch
+    from repro_torch.launch.train import _like, full
+    from repro_torch.lora import attach_ranks
+    from repro_torch.tree import tree_leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(True), factors)
+    loss = model.loss(params, attach_ranks(live, ranks), {"tokens": tokens})
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    return full(loss.detach()), [full(_like(g, f)) for g, f in
+                                 zip(grads, tree_leaves(factors))]
+
+
+def _gather_probe_rank(rank, store):
+    """One of two gloo ranks on cuda:0 all-gathering a CUDA tensor through
+    the functional collective DTensor uses."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        fc.wait_tensor(fc.all_gather_tensor(x, 0, dist.group.WORLD))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(target, args_of, world, timeout) -> list:
+    """``world`` spawned processes of ``target(*args_of(k))``, joined; their
+    exit codes."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(k))
+             for k in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        for proc in procs:
+            proc.join(timeout)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [proc.exitcode for proc in procs]
+
+
+def _sharded_rank(rank, world, store, out_path, src):
+    """One rank of sharded_gloo on SHARDED_GLOO["device"]: the rig placed by
+    the rules on a (1, 2) mesh, one counted step (roofline.DeviceCounts:
+    its collectives' bytes by kind), then SHARDED_GLOO["reps"] timed ones.
+    Saves the loss, the gradients and its row."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.roofline import DeviceCounts
+    from repro_torch.sharding import rules
+    device = SHARDED_GLOO["device"]
+    runtime.full_fp32()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_test_mesh(SHARDED_GLOO["mesh"], device=device)
+        model, params, factors, ranks, tokens = _gloo_rig(device)
+        params = rules.place(params, rules.param_specs(params, mesh), mesh)
+        factors = rules.place(factors, rules.replicated_specs(factors), mesh)
+        tokens = rules.place(tokens, rules.batch_specs(tokens, mesh), mesh)
+        with implicit_replication():
+            with DeviceCounts() as counts:
+                loss, grads = _loss_grad(model, params, factors, ranks,
+                                         tokens)
+            walls = []
+            for _ in range(SHARDED_GLOO["reps"]):
+                dist.barrier()
+                t0 = time.perf_counter()
+                _loss_grad(model, params, factors, ranks, tokens)
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    torch.save({"loss": loss.cpu(), "grads": [g.cpu() for g in grads]},
+               out_path + ".pt")
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "device": str(loss.device),
+                   "collective_bytes": counts.collectives,
+                   "flops": counts.flops, "bytes": counts.bytes,
+                   "step_wall_ms": walls}, f)
+
+
+def phase_sharded_gloo(smi: str) -> dict:
+    """Model.loss and its adapter gradient for SHARDED_GLOO's rig: first on
+    the card on this process alone (nothing placed), then on 2 spawned
+    gloo ranks on a (1, 2) ("data", "model") mesh, the weights placed by
+    the rules; every rank's loss and gradient within SHARDED_TOL of
+    max|want|; the collectives' bytes a step by kind and the step's wall
+    on each rank.  First, 2 gloo ranks all-gather a CUDA tensor through
+    the functional collective DTensor takes, and their exit codes are
+    recorded: the reason the ranks' tensors lie on the host."""
+    import tempfile
+    import torch
+    import repro_torch
+    from repro_torch.kernels import runtime
+    runtime.full_fp32()
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = _spawn_ranks(_gather_probe_rank,
+                             lambda k: (k, str(Path(tmp) / "probe")), 2,
+                             DIST_CHILD_TIMEOUT)
+    emit({"phase": "sharded_gloo", "leg": "cuda_all_gather_probe",
+          "card": smi, "exit_codes": probe})
+    model, params, factors, ranks, tokens = _gloo_rig()
+    want_loss, want_grads = _loss_grad(model, params, factors, ranks, tokens)
+    want_loss, want_grads = want_loss.cpu(), [g.cpu() for g in want_grads]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _loss_grad(model, params, factors, ranks, tokens)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    del model, params, factors, tokens
+    _free()
+    world = SHARDED_GLOO["mesh"][0] * SHARDED_GLOO["mesh"][1]
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"rank{k}.json") for k in range(world)]
+        codes = _spawn_ranks(_sharded_rank, lambda k: (
+            k, world, str(Path(tmp) / "store"), outs[k], src), world,
+            DIST_CHILD_TIMEOUT)
+        for k, code in enumerate(codes):
+            if code != 0:
+                raise AssertionError(f"sharded_gloo: rank {k} exited {code}")
+            with open(outs[k]) as f:
+                row = json.load(f)
+            got = torch.load(outs[k] + ".pt")
+            scale = max([float(want_loss.abs())] +
+                        [float(g.abs().max()) for g in want_grads])
+            row["max_abs_err"] = max(
+                [float((got["loss"] - want_loss).abs())] +
+                [float((g - w).abs().max())
+                 for g, w in zip(got["grads"], want_grads, strict=True)])
+            row["tol"] = SHARDED_TOL * max(scale, 1.0)
+            rows.append(row)
+            emit({"phase": "sharded_gloo", "card": smi,
+                  "mesh": list(SHARDED_GLOO["mesh"]), "leg": "gloo_rank",
+                  "one_rank_card_ms": one_ms, **row})
+    bad = [r for r in rows if not r["max_abs_err"] <= r["tol"]]
+    if bad:
+        raise AssertionError(f"sharded_gloo: a rank disagrees with the "
+                             f"one-rank run: {bad}")
+    if not all(r["collective_bytes"] for r in rows):
+        raise AssertionError("sharded_gloo: a (1, 2) step moved nothing")
+    return {"one_rank_card_ms": one_ms, "probe_exit_codes": probe,
+            "step_wall_ms": [statistics.median(r["step_wall_ms"])
+                             for r in rows],
+            "collective_bytes": rows[0]["collective_bytes"]}
+
+
+def phase_sharded_mamba(smi: str) -> dict:
+    """mamba2-1.3b's prefill (MAMBA_CFG's batch and prompt) in fp32 on a
+    one-rank NCCL (1, 1) mesh, the weights placed by the rules, every
+    mixer's scan through ``local_map`` on the rank's heads: 48 ssd_scan
+    launches (enforced), each launch's outputs held against the plain
+    version on the same inputs (2e-3 of max|want|), and the last logits
+    against the same prefill on the plain scan, unplaced (mamba_plain's
+    fp32 path), within MAMBA_FP32_TOL of max|want|."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    import repro_torch.models.mamba as mm
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import full
+    from repro_torch.models.model import make_model
+    from repro_torch.sharding import rules
+    rig = _mamba_rig()
+    cfg32, model32, p32, adapters, batch = _fp32_rig(rig)
+    del rig
+    _free()
+    runtime.full_fp32()
+    plain_model = make_model(cfg32, remat=False, scan_backend="ref")
+    with torch.inference_mode():
+        want, _ = plain_model.prefill(p32, adapters, batch)
+    checks = []
+    kernel = mm.ssd_scan
+
+    def checked(xdt, dta, bm, cm, chunk, backend="auto"):
+        y, h = kernel(xdt, dta, bm, cm, chunk, backend=backend)
+        wy, wh = ssd_scan_ref(xdt, dta, bm, cm, chunk)
+        checks.append(_logit_err(torch.cat([y.flatten(), h.flatten()]),
+                                 torch.cat([wy.flatten(), wh.flatten()]),
+                                 2e-3))
+        return y, h
+    with _nccl_world():
+        mesh = make_test_mesh((1, 1))
+        pp = rules.place(p32, rules.param_specs(p32, mesh), mesh)
+        ap = rules.place(adapters, rules.adapter_specs(adapters, mesh), mesh)
+        tok = rules.place(batch["tokens"],
+                          rules.batch_specs(batch["tokens"], mesh), mesh)
+        # no_grad, not inference_mode: DTensor's views set version counters
+        with implicit_replication(), torch.no_grad():
+            model32.prefill(pp, ap, {"tokens": tok[:, :256]})   # warm-up
+            torch.cuda.synchronize()
+            runtime.reset_counts()
+            t0 = time.perf_counter()
+            got, caches = model32.prefill(pp, ap, {"tokens": tok})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+            plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+            mm.ssd_scan = checked
+            try:
+                model32.prefill(pp, ap, {"tokens": tok})
+            finally:
+                mm.ssd_scan = kernel
+            got = full(got)
+            ssm = caches[0]["b0"]["ssm"]
+            ssm_place = [str(p) for p in ssm.placements]
+    err, tol = _logit_err(got, want, MAMBA_FP32_TOL)
+    line = {"phase": "sharded_mamba", "card": smi, "mesh": [1, 1],
+            "arch": cfg32.name, "layers": cfg32.n_layers,
+            "batch": MAMBA_CFG["batch"], "prompt_len": MAMBA_CFG["prompt_len"],
+            "dtype": "float32", "prefill_ms": ms, "launches": launches,
+            "plain_calls": plain, "launch_checks": len(checks),
+            "launch_max_abs_err": max(e for e, _ in checks),
+            "launch_tol": min(t for _, t in checks),
+            "max_abs_err": err, "tol": tol, "ssm_cache_placements": ssm_place}
+    emit(line)
+    del p32, pp, ap, caches
+    _free()
+    if launches != {"ssd_scan": cfg32.n_layers} or plain:
+        raise AssertionError(f"sharded_mamba: launches {launches}, plain "
+                             f"calls {plain}: {cfg32.n_layers} ssd_scan "
+                             "launches and nothing else")
+    if len(checks) != cfg32.n_layers or not all(e <= t for e, t in checks):
+        raise AssertionError(f"sharded_mamba: a launch disagrees with the "
+                             f"plain version: {checks}")
+    if not err <= tol:
+        raise AssertionError(f"sharded_mamba: logits {err} from the plain "
+                             f"path (tolerance {tol})")
+    return line
+
+
+def phase_dryrun(smi: str) -> list:
+    """``repro_torch.launch.dryrun.run_one`` for each of DRYRUN_CASES on the
+    (16, 16) production mesh of 256 fake ranks (this process; no card):
+    its seconds, rank 0's traced flops and bytes, the collectives' bytes
+    by kind, the roofline terms on the H100 constants and the dominant
+    one, and the traced ssd_scan calls and their formula's flops.
+    Estimates from traced shapes, not times.  Records go to
+    ``build/dryrun/``."""
+    from repro_torch.launch import dryrun
+    out = []
+    for arch, shape in DRYRUN_CASES:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, False,
+                             str(ROOT / "build" / "dryrun"))
+        roof = rec["roofline"]
+        line = {"phase": "dryrun", "card": smi, "arch": arch,
+                "shape": shape, "mesh": rec["mesh"], "chips": roof["chips"],
+                "seconds": time.perf_counter() - t0,
+                "flops_per_device": rec["flops_per_device"],
+                "bytes_per_device": rec["bytes_per_device"],
+                "collectives": rec["collectives"],
+                "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+                "collective_s": roof["collective_s"],
+                "dominant": roof["dominant"],
+                "model_flops": roof["model_flops"],
+                "useful_flops_ratio": roof["useful_flops_ratio"],
+                "ssd_scan_calls": rec["calls_by_op"].get(
+                    "repro_torch.ssd_scan", 0),
+                "ssd_scan_flops": rec["flops_by_op"].get(
+                    "repro_torch.ssd_scan", 0),
+                "argument_bytes": rec["memory_analysis"][
+                    "argument_size_in_bytes"]}
+        emit(line)
+        out.append(line)
+    return out
+
+
+def phase_hetero_ranks(smi: str) -> dict:
+    """``examples/heterogeneous_ranks_torch.py`` on the card: Alg. 2's
+    slices, zero-padding against RBLA, FLoRA's stacking round (its stack
+    kernel's launches, the served update against the clients' mean), and
+    the rbla aggregate over 8 gloo ranks on cuda:0 held against the host's
+    at rtol 1e-5, atol 1e-6 (the example raises otherwise)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import heterogeneous_ranks_torch as ex
+    t0 = time.perf_counter()
+    res = ex.main([])
+    line = {"phase": "hetero_ranks", "card": smi,
+            "seconds": time.perf_counter() - t0,
+            "live_rows": res["live_rows"], "flora_rank": res["flora_rank"],
+            "flora_next_rank": res["next_rank"],
+            "flora_capped_rank": res["capped_rank"],
+            "flora_max_abs_diff": res["flora_diff"],
+            "flora_launches": res["flora_launches"],
+            "collective_max_abs_diff": res["collective_diff"]}
+    emit(line)
+    if not res["flora_launches"] or res["flora_diff"] > 1e-5:
+        raise AssertionError(f"hetero_ranks: flora's round launched "
+                             f"{res['flora_launches']}, its update "
+                             f"{res['flora_diff']} from the clients' mean")
+    return line
+
+
 # ------------------------------------------------------------- distributed --
 #: (d)'s strategies through aggregate_adapters(backend="distributed")
 DIST_METHODS = ("fedavg", "zeropad", "rbla", "rbla_ranked")
@@ -5081,6 +5589,18 @@ def run_selected(names, smi: str) -> dict:
                                      phase_frontend_round(smi)}
         elif name == "train_main":
             phase_train_main(smi)
+        elif name == "sharded_train":
+            summary["packed_agg"] = {"sharded_train_upload_launches":
+                                     phase_sharded_train(smi)["launches"]}
+        elif name == "sharded_gloo":
+            phase_sharded_gloo(smi)
+        elif name == "sharded_mamba":
+            summary["ssd_scan"] = {"sharded_prefill_launches":
+                                   phase_sharded_mamba(smi)["launches"]}
+        elif name == "dryrun":
+            phase_dryrun(smi)
+        elif name == "hetero_ranks":
+            phase_hetero_ranks(smi)
         emit({"phase": name, "ok": True})
     return summary
 
@@ -5233,6 +5753,26 @@ def main(argv=None) -> int:
         t["arch"]: t["launches"]["packed_agg"] for t in fe["train"]}
     emit({"phase": "frontends", "ok": True, "train_ms_per_step": {
         t["arch"]: t["ms_per_step"] for t in fe["train"]}})
+
+    sharded = phase_sharded_train(smi)
+    gloo = phase_sharded_gloo(smi)
+    sharded_mamba = phase_sharded_mamba(smi)
+    dry = phase_dryrun(smi)
+    hetero = phase_hetero_ranks(smi)
+    summary["packed_agg"]["sharded_train_upload_launches"] = \
+        sharded["launches"]["packed_agg"]
+    summary["ssd_scan"]["sharded_prefill_launches"] = \
+        sharded_mamba["launches"]["ssd_scan"]
+    summary["ssd_scan"]["dryrun_traced_calls"] = {
+        f"{d['arch']} x {d['shape']} x {d['mesh']}": d["ssd_scan_calls"]
+        for d in dry}
+    summary["packed_stack"]["hetero_ranks_launches"] = \
+        hetero["flora_launches"]
+    emit({"phase": "sharding", "ok": True,
+          "sharded_ms_per_step": sharded["ms_per_step"],
+          "unsharded_ms_per_step": sharded["unsharded_ms_per_step"],
+          "gloo_step_wall_ms": gloo["step_wall_ms"],
+          "dryrun_seconds": [d["seconds"] for d in dry]})
 
     dist_path = phase_distributed(smi)
     emit({"phase": "distributed", "ok": True, **dist_path})

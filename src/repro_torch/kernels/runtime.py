@@ -59,11 +59,16 @@ def use_kernel(backend: str, x: torch.Tensor, name: str) -> bool:
     """A wrapper's choice for tensor ``x``: launch the kernel (True) or run
     the plain version (False, only ever for a CPU tensor).  A CUDA tensor
     always launches; asking for the kernel on a CPU tensor raises, and so
-    does ``"distributed"``, which names a strategy path, not a kernel's."""
+    does ``"distributed"``, which names a strategy path, not a kernel's.
+    A fake tensor (``FakeTensorMode``: the dry run's trace) holds no data
+    on any device: asked for the kernel, it takes the kernel's registered
+    op, which traces through its fake implementation."""
     kind = resolve_backend(backend, x.device)
     if kind == "distributed":
         raise ValueError(f"{name}: backend='distributed' is a strategy path; "
                          "a kernel wrapper takes 'auto', 'ref' or 'kernel'")
+    if kind == "kernel" and _is_fake(x):
+        return True
     if x.is_cuda:
         if kind != "kernel":
             raise ValueError(f"{name}: a CUDA tensor always takes the kernel; "
@@ -74,6 +79,11 @@ def use_kernel(backend: str, x: torch.Tensor, name: str) -> bool:
         raise ValueError(f"{name}: backend={backend!r} needs CUDA tensors; "
                          f"got a tensor on {x.device}")
     return False
+
+
+def _is_fake(x: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
 
 
 def check_launch(err: int, name: str, lib) -> None:

@@ -6,6 +6,15 @@ reference's rule (:func:`~.ref.chunk_len`); the kernel
 takes any length that divides L and masks its ragged tiles, so nothing is
 padded.  A CUDA tensor launches the kernel (or the wrapper raises); a CPU
 tensor runs the plain version in ``ref.py``.
+
+The launch is the body of the registered op ``torch.ops.repro_torch.
+ssd_scan`` (:func:`_ssd_op`): its fake implementation gives the outputs'
+shapes and dtype, so the op traces under ``FakeTensorMode`` and on the
+meta device without a card, and its flop formula (:func:`flops`, the
+chunked SSD's products) is registered with ``torch.utils.flop_counter``,
+so the dry run counts the kernel's work where the reference's lowers its
+Pallas kernel.  A sharded mamba mixer calls the wrapper on each rank's
+heads through ``local_map`` (``repro_torch.models.mamba``).
 """
 from __future__ import annotations
 
@@ -13,6 +22,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import build, runtime
 from .ref import chunk_len, ssd_scan_ref
@@ -70,13 +80,51 @@ def _check_operands(xdt, dta, bm, cm) -> None:
                              f"{tuple(t.shape)}, strides {t.stride()})")
 
 
-def _ssd_cuda(xdt, dta, bm, cm, q):
+def flops(b: int, l: int, h: int, p: int, n: int, q: int) -> int:
+    """The chunked SSD's products for (B, L, H, P) inputs, state N and chunk
+    Q, one multiply-add two: C B^T and ((C B^T) o L) @ xdt on the causal
+    triangle with its diagonal, Q (Q + 1) / 2 of the Q^2 pairs (Q (Q + 1) N
+    once a (batch, chunk), Q (Q + 1) P a head), and a chunk's state and
+    C h_prev^T, 2 Q N P each a head; the carry over chunks is not counted."""
+    nc = l // q
+    return b * nc * q * (q + 1) * n \
+        + b * h * nc * (q * (q + 1) * p + 4 * q * n * p)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_op(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
+            cm: torch.Tensor, q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch as a registered op: (y, h_final)."""
+    return _ssd_cuda(xdt, dta, bm, cm, q)
+
+
+@_ssd_op.register_fake
+def _ssd_fake(xdt, dta, bm, cm, q):
+    b, _, h, p = xdt.shape
+    return (torch.empty_like(xdt),
+            xdt.new_empty((b, h, p, bm.shape[-1])))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_flop_formula(xdt_shape, dta_shape, bm_shape, cm_shape, q, *args,
+                      out_shape=None, **kwargs) -> int:
+    return flops(*xdt_shape, bm_shape[-1], q)
+
+
+def _check_launch(xdt, dta, bm, cm) -> None:
+    """The operands' checks, then the refusal of a backward: made before
+    the op is called, since autograd hands the op's body detached
+    tensors."""
     _check_operands(xdt, dta, bm, cm)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xdt, dta, bm, cm)):
         raise NotImplementedError(
             "ssd_scan: the kernel has no backward; differentiate through "
             "the plain version (a mamba Model with scan_backend='ref')")
+
+
+def _ssd_cuda(xdt, dta, bm, cm, q):
+    _check_launch(xdt, dta, bm, cm)
     b, l, h, p = xdt.shape
     n = bm.shape[-1]
     dev = xdt.device
@@ -108,5 +156,6 @@ def ssd_scan(xdt, dta, bm, cm, chunk: int = 256, *, backend: str = "auto"):
     with CUDA's "invalid argument"."""
     _check_shapes(xdt, dta, bm, cm)
     if runtime.use_kernel(backend, xdt, "ssd_scan"):
-        return _ssd_cuda(xdt, dta, bm, cm, chunk_len(xdt.shape[1], chunk))
+        _check_launch(xdt, dta, bm, cm)
+        return _ssd_op(xdt, dta, bm, cm, chunk_len(xdt.shape[1], chunk))
     return ssd_scan_ref(xdt, dta, bm, cm, chunk)

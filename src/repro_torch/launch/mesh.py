@@ -41,4 +41,33 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
     return _mesh(tuple(shape), tuple(axes), device)
 
 
-__all__ = ["make_production_mesh", "make_test_mesh"]
+def launcher_mesh(preset: str, multi_pod: bool = False,
+                  device: str = "cuda") -> DeviceMesh | None:
+    """The mesh ``launch.train`` and ``launch.serve`` run on, by the
+    reference's rule: the reduced preset a ``(1, 1)`` test mesh; the full
+    preset the ``(16, 16)`` production mesh, or with ``multi_pod`` the
+    ``(2, 16, 16)`` one, each raising without the ranks it needs.  One
+    difference: with no process group initialised, the reduced preset and
+    the full one without ``multi_pod`` run on this process's one device,
+    the reference's ``(1, 1)`` mesh, and get ``None``: every placement over
+    a ``(1, 1)`` mesh is the whole tensor, so nothing is placed and no
+    group is started."""
+    if preset == "reduced":
+        return (make_test_mesh((1, 1), device=device)
+                if dist.is_initialized() else None)
+    if multi_pod or dist.is_initialized():
+        return make_production_mesh(multi_pod=multi_pod, device=device)
+    return None
+
+
+def describe(mesh: DeviceMesh | None, device) -> str:
+    """One line naming the mesh a launcher runs on."""
+    if mesh is None:
+        return (f"mesh (1, 1) ('data', 'model') on {device}: no process "
+                "group, a world of one, nothing placed")
+    return (f"mesh {tuple(mesh.shape)} {tuple(mesh.mesh_dim_names)} on "
+            f"{mesh.device_type}, {dist.get_world_size()} ranks")
+
+
+__all__ = ["make_production_mesh", "make_test_mesh", "launcher_mesh",
+           "describe"]

@@ -1,11 +1,15 @@
-"""Serving launcher: batched prefill, then greedy decode, on one device.
+"""Serving launcher: batched prefill, then greedy decode.
 
     python -m repro_torch.launch.serve --preset full --prompt-len 2048
     python -m repro_torch.launch.serve --arch mamba2-1.3b --preset full \\
         --batch 4 --prompt-len 2048 --new 16 --rank 8
 
-The JAX package's ``repro.launch.serve`` path without its mesh (one
-device; the sharding rules wait for their own slice): weights from
+The JAX package's ``repro.launch.serve`` path.  Its mesh follows the
+training launcher's rule (``launch.mesh.launcher_mesh``: a ``(1, 1)`` test
+mesh for the reduced preset, the ``(16, 16)`` production mesh for the full
+one under a process group, this process's one device without a group),
+and ``generate`` runs within it; like the reference, nothing is placed by
+the rules, so every rank serves the whole batch.  Weights from
 ``Model.init`` and adapters from ``Model.init_adapters`` (seeds 0 and 1),
 then from one ``numpy.random.default_rng(0)``, in the reference's order,
 random prompt tokens, an encoder-decoder's ``frames`` (batch,
@@ -29,6 +33,7 @@ cpu`` runs the plain path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import runtime
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models.model import Model, make_model
 
 
@@ -113,6 +119,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.preset == "reduced":
         cfg = cfg.reduced()
+    mesh = launcher_mesh(args.preset, device=device.type)
     runtime.full_fp32()
     model = make_model(cfg, remat=False)
     params = model.init(torch.Generator(device=device).manual_seed(0))
@@ -120,7 +127,8 @@ def main(argv=None) -> dict:
         torch.Generator(device=device).manual_seed(1), rank=args.rank)
     batch = make_batch(cfg, args.batch, args.prompt_len, device)
 
-    res = generate(model, params, adapters, batch, args.new)
+    with mesh if mesh is not None else contextlib.nullcontext():
+        res = generate(model, params, adapters, batch, args.new)
     print(f"prefill: {res['prefill_s']:.2f}s")
     steps = args.new - 1
     print(f"decode: {steps} steps, "

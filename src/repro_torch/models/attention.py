@@ -39,6 +39,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .common import (apply_rope, dense, dense_init, dtype_of, norm,
                      norm_init, softcap)
@@ -85,7 +86,51 @@ def gqa_lora_targets(block) -> tuple[str, ...]:
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    x = _whole_unless_even(x, x.ndim - 1, n)
     return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+
+
+def _group_heads(q: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, KV, H / KV, D)."""
+    q = _whole_unless_even(q, 2, kv)
+    return q.reshape(q.shape[:2] + (kv, q.shape[2] // kv, q.shape[3]))
+
+
+def _merge_heads(out: torch.Tensor, lead) -> torch.Tensor:
+    """(..., heads, ...) -> ``lead + (features,)``.  On a mesh the gradient
+    coming back is made to lie as the merged tensor does before the merge's
+    backward views it apart: a row-parallel projection hands back a
+    gradient sharded on the features, which 24 heads (in 8 groups) cannot
+    split over 16 ranks."""
+    out = out.reshape(tuple(lead) + (-1,))
+    if not isinstance(out, DTensor):
+        return out
+    mesh, places = out.device_mesh, out.placements
+    return DTensor.from_local(out.to_local(grad_placements=places), mesh,
+                              places, run_check=False, shape=out.shape,
+                              stride=out.stride())
+
+
+def _whole_unless_even(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """A DTensor ``x`` about to split its dimension ``dim`` into ``n`` heads
+    and the rest: gathered whole on ``dim`` unless ``n`` divides the ranks
+    that shard it (a sharded reshape must split evenly: 24 heads do not
+    split over 16 ranks, though their 1536 columns do); anything else as
+    it is."""
+    if not isinstance(x, DTensor):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    on_dim = [i for i, pl in enumerate(x.placements)
+              if isinstance(pl, Shard) and pl.dim == dim]
+    ranks = 1
+    for i in on_dim:
+        ranks *= mesh.size(i)
+    if n % ranks == 0:
+        return x
+    return x.redistribute(mesh, tuple(
+        Replicate() if i in on_dim else pl
+        for i, pl in enumerate(x.placements)))
 
 
 def _masked_softmax_av(scores: torch.Tensor, mask: torch.Tensor,
@@ -106,7 +151,14 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,K,G,D); k/v: (B,T,K,D); positions give absolute indices.
 
     Loops over query chunks; masks built from absolute positions so the
-    same path serves training (q_pos == k_pos) and prefill."""
+    same path serves training (q_pos == k_pos) and prefill.  On a mesh
+    each rank attends with its own batch rows and KV heads."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _heads_on_mesh(
+            lambda q, k, v: _attend_chunked(
+                q, k, v, causal=causal, window=window,
+                q_positions=q_positions, k_positions=k_positions,
+                scale=scale, cap=cap), q, k, v)
     b, s, kh, g, d = q.shape
     qc = _choose_q_chunk(s)
     outs = []
@@ -126,9 +178,54 @@ def _attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _attend_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    valid: torch.Tensor, scale: float,
                    cap: float) -> torch.Tensor:
-    """q: (B,1,K,G,D); k/v: (B,T,K,D); valid: (T,) bool."""
+    """q: (B,1,K,G,D); k/v: (B,T,K,D); valid: (T,) bool.  On a mesh
+    (DTensor operands) each rank attends with its own batch rows and KV
+    heads (:func:`_decode_on_mesh`)."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _heads_on_mesh(
+            lambda q, k, v: _attend_decode(q, k, v, valid, scale, cap),
+            q, k, v)
     scores = torch.einsum("bqkgd,btkd->bkgqt", q, k) * scale
     return _masked_softmax_av(scores, valid, v, cap)
+
+
+def _heads_on_mesh(attend, q, k, v):
+    """``attend(q, k, v)`` (q (B,S,K,G,D), k/v (B,T,K,D) -> (B,S,K,G,D))
+    through ``local_map``: the batch over the data axes and the KV heads
+    over ``"model"`` where they divide them (the caches' layout by
+    ``rules.cache_specs``), every operand redistributed to that first.
+    Attention is local to a batch row and a head; DTensor's own strategies
+    fail on the strided shardings the einsums' reshapes give."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import P, rules
+    mesh = next(t for t in (q, k, v) if isinstance(t, DTensor)).device_mesh
+    bax = rules.batch_axes(mesh, q.shape[0])
+    hax = rules.maybe(mesh, k.shape[2], "model")
+    q_pl = rules.placements(P(bax, None, hax, None, None), mesh)
+    kv_pl = rules.placements(P(bax, None, hax, None), mesh)
+
+    def local(q, k, v):
+        # the einsums' results and gradients are permuted views; DTensor
+        # views its shards when it reshapes (the heads' merge, the
+        # projections' backward), so both must be contiguous
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return attend(q, k, v).contiguous()
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
@@ -146,7 +243,6 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
     continue in it."""
     lora = lora or {}
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // kv
     scale = cfg.query_scale if cfg.query_scale is not None else hd ** -0.5
     hx = norm(p["ln"], x, cfg.norm_eps)
 
@@ -163,7 +259,7 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
             positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions[None], cfg.rope_theta, cfg.rope_kind)
         kk = apply_rope(kk, positions[None], cfg.rope_theta, cfg.rope_kind)
-        qg = q.reshape(q.shape[:2] + (kv, g, hd))
+        qg = _group_heads(q, kv)
         out = _attend_chunked(qg, kk, vv, causal=block.causal,
                               window=block.window, q_positions=positions,
                               k_positions=positions, scale=scale,
@@ -195,13 +291,13 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
         cv = _write_slot(cache["v"], vv, slot)
         iota = torch.arange(t, device=x.device)
         valid = iota < min(pos + 1, t) if block.window > 0 else iota <= pos
-        qg = q.reshape(q.shape[:2] + (kv, g, hd))
+        qg = _group_heads(q, kv)
         out = _attend_decode(qg, ck, cv, valid, scale, cfg.attn_softcap)
         new_cache = {"k": ck, "v": cv}
     else:
         raise ValueError(f"unknown mode {mode!r}; options: full | prefill | "
                          "decode")
-    out = out.reshape(x.shape[:2] + (h * hd,))
+    out = _merge_heads(out, x.shape[:2])
     y = dense(p["o"], out, lora.get("o"), alpha)
 
     # ---------------- cross attention (encoder-decoder) ----------------
@@ -219,10 +315,10 @@ def gqa_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
                 new_cache["xk"], new_cache["xv"] = xk, xv
         hx2 = norm(p["xln"], x + y, cfg.norm_eps)
         xq = _split_heads(proj("xq", hx2), h)
-        xqg = xq.reshape(xq.shape[:2] + (kv, g, hd))
+        xqg = _group_heads(xq, kv)
         every = torch.ones(xk.shape[1], dtype=torch.bool, device=x.device)
         xout = _attend_decode(xqg, xk, xv, every, scale, cfg.attn_softcap)
-        xout = xout.reshape(x.shape[:2] + (h * hd,))
+        xout = _merge_heads(xout, x.shape[:2])
         y = y + dense(p["xo"], xout, lora.get("xo"), alpha)
 
     if cfg.post_block_norm:
@@ -336,7 +432,7 @@ def mla_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
 
     # query path
     cq = norm(p["q_ln"], proj("q_a", hx), cfg.norm_eps)
-    q = proj("q_b", cq).reshape(hx.shape[:2] + (h, qk_dim))
+    q = _split_heads(proj("q_b", cq), h)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
     # latent kv path
@@ -357,7 +453,7 @@ def mla_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
         out = _attend_chunked(qg, k, v, causal=block.causal, window=0,
                               q_positions=positions, k_positions=positions,
                               scale=scale, cap=0.0)
-        y = dense(p["o"], out.reshape(x.shape[:2] + (h * vd,)),
+        y = dense(p["o"], _merge_heads(out, x.shape[:2]),
                   lora.get("o"), alpha)
         new_cache = None
         if mode == "prefill":
@@ -398,7 +494,7 @@ def mla_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
         qg = torch.cat([q_nope, q_rope], -1).reshape(
             x.shape[:2] + (h, 1, qk_dim))
         out = _attend_decode(qg, k, v, valid, scale, 0.0)
-    y = dense(p["o"], out.reshape(x.shape[:2] + (h * vd,)), lora.get("o"),
+    y = dense(p["o"], _merge_heads(out, x.shape[:2]), lora.get("o"),
               alpha)
     return y, {"ckv": ckv_c, "kr": kr_c}
 

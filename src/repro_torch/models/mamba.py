@@ -9,7 +9,10 @@ Shapes (n_groups fixed to 1), as in the JAX package:
 ``full`` and ``prefill`` run the chunked SSD through the ``ssd_scan``
 wrapper (the hand-written kernel for a CUDA tensor, :func:`ssd_chunked`
 on the CPU); ``scan_backend="ref"`` calls the plain version directly,
-also on the card.  Decode carries (conv_state (B, conv_w-1, d_conv_ch),
+also on the card.  Under a mesh (DTensor activations) the scan runs
+through ``local_map`` on each rank's heads: the heads sharded over
+``"model"`` and the batch over the data axes where they divide, the
+layout ``rules.cache_specs`` gives the ``ssm`` state (:func:`_mesh_scan`).  Decode carries (conv_state (B, conv_w-1, d_conv_ch),
 ssm_state (B, H, P, N)) and is plain PyTorch, as in the reference.
 """
 from __future__ import annotations
@@ -18,10 +21,11 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd_scan import chunk_len, ssd_scan, ssd_scan_ref
 
-from .common import dense, dense_init, dtype_of, norm_init, rmsnorm
+from .common import dense, dense_init, dtype_of, norm_init, rmsnorm, settle
 
 
 def _dims(cfg):
@@ -122,6 +126,74 @@ def ssd_chunked(xdt: torch.Tensor, dtA: torch.Tensor, Bm: torch.Tensor,
     return y, hcur
 
 
+def _ssd_core(zxbcdt: torch.Tensor, p: Mapping, cfg, scan, heads=None):
+    """The mixer between its projections for full and prefill modes: from
+    the fused projection ``zxbcdt`` (B, S, 2 d_in + 2N + H), the causal
+    conv over [x, B, C], then ``scan`` over heads ``heads = (h0, h1)``
+    (all by default) and the D skip.  Returns (y (B, S, h1 - h0, P),
+    h_last (B, h1 - h0, P, N), the conv's last K - 1 inputs)."""
+    d_in, h, n, pd = _dims(cfg)
+    _, xin, Bm, Cm, dt = torch.split(zxbcdt, [d_in, d_in, n, n, h], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])             # (B,S,H)
+    A = -torch.exp(p["A_log"])                             # (H,)
+    conv_in = torch.cat([xin, Bm, Cm], -1)
+    conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+    xc, Bc, Cc = torch.split(conv_out, [d_in, n, n], dim=-1)
+    xh = xc.reshape(xc.shape[:2] + (h, pd))
+    h0, h1 = heads or (0, h)
+    xh, dt, A, D = xh[:, :, h0:h1], dt[..., h0:h1], A[h0:h1], p["D"][h0:h1]
+    xdt = xh * dt[..., None].to(xh.dtype)
+    dtA = dt * A[None, None, :]
+    y, h_last = scan(xdt, dtA, Bc, Cc)
+    y = y + D[None, None, :, None].to(y.dtype) * xh
+    return y, h_last, conv_in[:, -(cfg.ssm_conv - 1):, :]
+
+
+def _core_on_mesh(zxbcdt, p: Mapping, cfg, scan):
+    """:func:`_ssd_core` through ``local_map`` for a DTensor ``zxbcdt``:
+    each rank takes its batch rows (over the data axes, by
+    ``rules.batch_axes``) of the whole projection, runs the conv whole and
+    scans its own heads (over ``"model"`` where they divide it, the layout
+    ``rules.cache_specs`` gives the ``ssm`` state).  A rank's gradient of
+    the projection and of the conv and scan parameters is a partial sum
+    over the ranks that split the heads or the batch."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import P, rules
+    _, h, _, _ = _dims(cfg)
+    mesh = zxbcdt.device_mesh
+    names = rules.axis_names(mesh)
+    bax = rules.batch_axes(mesh, zxbcdt.shape[0])
+    hax = rules.maybe(mesh, h, "model")
+    hl, h0 = h, 0
+    if hax:
+        dim = names.index("model")
+        hl = h // mesh.size(dim)
+        h0 = mesh.get_local_rank(dim) * hl
+
+    def pl(*spec):
+        return rules.placements(P(*spec), mesh)
+    split = {a for a in names if (a == "model" and hax) or a in (bax or ())}
+    keys = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+    leaves = [p[k] for k in keys]
+    ins = (pl(bax, None, None),) + tuple(pl(*[None] * t.ndim)
+                                         for t in leaves)
+    grads = (tuple(Partial() if a == "model" and hax else q
+                   for a, q in zip(names, ins[0])),) + tuple(
+        tuple(Partial() if a in split else q for a, q in zip(names, pl_))
+        for pl_ in ins[1:])
+
+    def core(zx, *leaves):
+        return _ssd_core(zx, dict(zip(keys, leaves)), cfg, scan,
+                         (h0, h0 + hl))
+    return local_map(
+        core, out_placements=(pl(bax, None, hax, None),
+                              pl(bax, hax, None, None), pl(bax, None, None)),
+        in_placements=ins, in_grad_placements=grads, device_mesh=mesh,
+        redistribute_inputs=True)(zxbcdt, *leaves)
+
+
 def mamba_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg, *,
                   mode: str, cache: Mapping | None = None, pos=None,
                   alpha: float = 16.0, scan_backend: str = "auto",
@@ -133,39 +205,35 @@ def mamba_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg, *,
     lora = lora or {}
     d_in, h, n, pd = _dims(cfg)
     hx = rmsnorm(p["ln"], x, cfg.norm_eps)
-    zxbcdt = dense(p["in_proj"], hx, lora.get("in_proj"), alpha)
+    # on a mesh: the fused projection whole on every rank of "model" before
+    # it splits into five uneven parts (the scan then takes its heads)
+    zxbcdt = settle(dense(p["in_proj"], hx, lora.get("in_proj"), alpha))
     z, xin, Bm, Cm, dt = torch.split(zxbcdt, [d_in, d_in, n, n, h], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])             # (B,S,H)
-    A = -torch.exp(p["A_log"])                             # (H,)
 
     if mode in ("full", "prefill"):
-        conv_in = torch.cat([xin, Bm, Cm], -1)
-        conv_out = F.silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
-        xc, Bc, Cc = torch.split(conv_out, [d_in, n, n], dim=-1)
-        xh = xc.reshape(xc.shape[:2] + (h, pd))
-        xdt = xh * dt[..., None].to(xh.dtype)
-        dtA = dt * A[None, None, :]
         if scan_backend == "ref":
-            y, h_last = plain_scan(xdt, dtA, Bc, Cc, cfg.ssm_chunk)
+            def scan(xdt, dtA, Bc, Cc):
+                return plain_scan(xdt, dtA, Bc, Cc, cfg.ssm_chunk)
         else:
-            y, h_last = ssd_scan(xdt, dtA, Bc.contiguous(), Cc.contiguous(),
-                                 cfg.ssm_chunk, backend=scan_backend)
-        y = y + p["D"][None, None, :, None].to(y.dtype) * xh
+            def scan(xdt, dtA, Bc, Cc):
+                return ssd_scan(xdt.contiguous(), dtA.contiguous(),
+                                Bc.contiguous(), Cc.contiguous(),
+                                cfg.ssm_chunk, backend=scan_backend)
+        core = _core_on_mesh if isinstance(zxbcdt, DTensor) else _ssd_core
+        y, h_last, tail = core(zxbcdt, p, cfg, scan)
         y = y.reshape(x.shape[:2] + (d_in,))
         y = rmsnorm(p["gn"], y * F.silu(z), cfg.norm_eps)
         out = dense(p["out_proj"], y, lora.get("out_proj"), alpha)
-        new_cache = None
-        if mode == "prefill":
-            k = cfg.ssm_conv
-            tail = conv_in[:, -(k - 1):, :]
-            new_cache = {"conv": tail, "ssm": h_last}
-        return out, new_cache
+        return out, ({"conv": tail, "ssm": h_last} if mode == "prefill"
+                     else None)
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}; options: full | prefill | "
                          "decode")
 
     # ------------------------------ decode ------------------------------
     # x: (B,1,d); cache: conv (B,K-1,C), ssm (B,H,P,N)
+    dt = F.softplus(dt.float() + p["dt_bias"])             # (B,S,H)
+    A = -torch.exp(p["A_log"])                             # (H,)
     conv_in = torch.cat([xin, Bm, Cm], -1)                 # (B,1,C)
     hist = torch.cat([cache["conv"], conv_in], 1)          # (B,K,C)
     conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"]

@@ -48,7 +48,7 @@ from repro_torch.lora import init_pair
 from repro_torch.tree import tree_map
 
 from .common import (dense, dense_init, dtype_of, embed, embed_init, norm,
-                     norm_init, softcap, unembed)
+                     norm_init, settle, softcap, unembed)
 from .transformer import (block_forward, block_init, block_init_cache,
                           stage_forward, stage_init, stage_lora_init)
 
@@ -282,8 +282,10 @@ class Model:
 
 
 def _next_token_nll(logits: torch.Tensor, targets: torch.Tensor):
-    """Mean of ``-log_softmax(logits)`` (fp32) at ``targets``."""
-    lp = torch.log_softmax(logits.float(), -1)
+    """Mean of ``-log_softmax(logits)`` (fp32) at ``targets``; on a mesh
+    the logits are gathered whole over the vocabulary first (``settle``):
+    DTensor's gather has no strategy for a vocabulary-sharded backward."""
+    lp = torch.log_softmax(settle(logits).float(), -1)
     return -lp.gather(-1, targets[..., None].long())[..., 0].mean()
 
 

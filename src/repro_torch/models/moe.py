@@ -26,6 +26,13 @@ reference's formulation:
 dispatch tensor's expert axis to the mesh's ``model`` axis so that XLA
 moves slots with an all-to-all): on one device it computes the sort path,
 and so it does here.  ``"ep_a2a"`` is :mod:`repro_torch.models.moe_ep`.
+Under a mesh (DTensor activations and the rules' placements) the
+sort path runs as :func:`_moe_on_mesh`: the routing, dispatch and combine
+(``argsort``, ``searchsorted``, the accumulating ``index_put``, which have
+no DTensor sharding strategy) in ``local_map`` on each data shard's own
+routing groups, and the experts in ``local_map`` on each rank's own
+experts where the rules shard the expert axis over ``"model"``; their
+outputs are gathered back over ``"model"`` before the combine.
 Padded experts (``moe_pad_experts``) are never routed to.  The indices are
 int64 (torch's), the reference's int32; the accumulating ``index_put``
 sums in another order on the card (atomics), so the port is held to the
@@ -39,6 +46,7 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .common import dense, dense_init, dtype_of, norm, norm_init
 
@@ -204,6 +212,8 @@ def moe_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
     cap = expert_capacity(cfg, ng)
 
     h = norm(p["ln"], x, cfg.norm_eps)
+    if isinstance(h, DTensor):
+        return _moe_on_mesh(p, lora, h, cfg, alpha, g, cap)
     flat = h.reshape(g, ng, d)
     logits = torch.einsum("gnd,de->gne", flat.float(), p["router"]["w"])
     w, ix = route(cfg, logits)                        # (g, ng, K)
@@ -212,6 +222,89 @@ def moe_forward(p: Mapping, lora: Mapping | None, x: torch.Tensor, cfg,
     y = combine(eo, w, plan, ng)
     return shared_and_norm(p, lora, y.reshape(n, d), flat.reshape(n, d),
                            (b, s, d), cfg, alpha)
+
+
+def _moe_on_mesh(p: Mapping, lora: Mapping, h, cfg, alpha: float, g: int,
+                 cap: int):
+    """:func:`moe_forward` after the norm, for a DTensor ``h`` (B, S, d) on
+    its mesh.  Each data shard routes its own groups (the batch over the
+    data axes where it holds whole groups, else every rank routes every
+    group), the routing and slot plan alike on every rank of ``"model"``;
+    the experts run where their weights lie (``Shard`` of the expert axis
+    over ``"model"``, or replicated; a weight sharded on ``d`` by ``fsdp``
+    is gathered), each rank on its own experts' slots; their outputs are
+    gathered over ``"model"`` before the combine."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import P, rules
+    if cfg.moe_mode == "ep_a2a":
+        raise NotImplementedError(
+            "moe_mode='ep_a2a' takes whole tensors on every rank; under a "
+            "mesh the sort path's experts are sharded by the rules")
+    mesh = h.device_mesh
+    b, s, d = h.shape
+    n, e = b * s, cfg.n_experts + cfg.moe_pad_experts
+    ng = n // g
+    dax = rules.batch_axes(mesh, b)
+    if dax is not None and g % rules.axis_size(mesh, dax):
+        dax = None
+    n_data = rules.axis_size(mesh, dax) if dax else 1
+    gl, nl = g // n_data, n // n_data          # this data shard's share
+
+    def pl(*spec):
+        return rules.placements(P(*spec), mesh)
+    tok, rows = pl(dax, None, None), pl(dax, None)
+    slots, weights = pl(dax, None, None, None), pl(dax, None, None)
+    router = p["router"]["w"]
+
+    # every reshape of the tokens happens on local tensors: a DTensor view
+    # of n = B S tokens into (g, ng) groups fails where a gradient comes
+    # back sharded unevenly
+    def plan_local(h, router):
+        flat = h.reshape(gl, ng, d)
+        logits = torch.einsum("gnd,de->gne", flat.float(), router)
+        w, ix = route(cfg, logits)
+        einp, plan = dispatch(flat, ix, e, cap)
+        return (einp, w, h.reshape(nl, d)) + plan
+    einp, w, flat, *plan = local_map(
+        plan_local, out_placements=(slots, weights, rows) + (rows,) * 5,
+        in_placements=(tok, pl(None, None)), device_mesh=mesh,
+        redistribute_inputs=True)(h, router)
+
+    # the experts where their weights lie: the expert axis (Shard(0) of an
+    # expert leaf) kept, anything else gathered; einp's expert axis (1)
+    # sharded as theirs
+    pe = p["experts"]
+    keys = [k for k in MOE_LORA_TARGETS if k in lora]
+    ws = [pe[k]["w"] for k in ("gate", "up", "down")]
+    pairs = [lora[k][f] for k in keys for f in ("A", "B", "rank")]
+    by_e = tuple(pl_ if isinstance(pl_, Shard) and pl_.dim == 0
+                 else Replicate() for pl_ in ws[0].placements)
+    # the pairs' factors split by expert as the weights are (a replicated
+    # factor is sliced, nothing sent); the live rank whole
+    pair_place = [by_e if f != "rank" else pl(None)
+                  for _ in keys for f in ("A", "B", "rank")]
+    einp_place = tuple(Shard(1) if isinstance(we, Shard) else sl
+                       for we, sl in zip(by_e, slots))
+
+    def experts_local(einp, *leaves):
+        pe_l = {k: {"w": t} for k, t in zip(("gate", "up", "down"), leaves)}
+        it = iter(leaves[3:])
+        lora_l = {k: {f: next(it) for f in ("A", "B", "rank")} for k in keys}
+        return experts_forward(pe_l, lora_l, einp, alpha)
+    eo = local_map(
+        experts_local, out_placements=list(einp_place),
+        in_placements=(einp_place, by_e, by_e, by_e, *pair_place),
+        device_mesh=mesh, redistribute_inputs=True)(einp, *ws, *pairs)
+    eo = eo.redistribute(mesh, slots)
+
+    def combine_local(eo, w, *plan):
+        return combine(eo, w, tuple(plan), ng).reshape(nl, d)
+    y = local_map(combine_local, out_placements=list(rows),
+                  in_placements=(slots, weights) + (rows,) * 5,
+                  device_mesh=mesh, redistribute_inputs=True)(eo, w, *plan)
+    return shared_and_norm(p, lora, y, flat, (b, s, d), cfg, alpha)
 
 
 __all__ = ["MOE_LORA_TARGETS", "moe_init", "expert_dense", "route",

@@ -25,6 +25,7 @@ import torch
 from repro_torch.lora import init_pair
 from repro_torch.tree import tree_map
 
+from .common import settle
 from .attention import (MLA_LORA_TARGETS, gqa_forward, gqa_init,
                         gqa_init_cache, gqa_lora_targets, mla_forward,
                         mla_init, mla_init_cache)
@@ -56,6 +57,7 @@ def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
                   cache=None, pos=None, enc_out=None, alpha=16.0,
                   scan_backend="auto", mla_absorbed=False, capacity=None):
     blora = blora or {}
+    x = settle(x)
     if spec.kind == "mamba":
         y, c = mamba_forward(bp["mix"], blora.get("mix"), x, cfg, mode=mode,
                              cache=cache, pos=pos, alpha=alpha,
@@ -70,14 +72,14 @@ def block_forward(bp, blora, x, cfg, spec, *, mode, positions=None,
                            mode=mode, positions=positions, cache=cache,
                            pos=pos, enc_out=enc_out, alpha=alpha,
                            capacity=capacity)
-    x = x + y
+    x = settle(x + y)
     if spec.ffn == "dense":
         x = x + mlp_forward(bp["ffn"], blora.get("ffn"), x, cfg, alpha)
     elif spec.ffn == "moe":
         moe = (moe_forward_ep_wrapped if cfg.moe_mode == "ep_a2a"
                else moe_forward)
         x = x + moe(bp["ffn"], blora.get("ffn"), x, cfg, alpha)
-    return x, c
+    return settle(x), c
 
 
 def block_init_cache(cfg, spec, batch: int, seq_len: int | None, dtype,

@@ -1,6 +1,7 @@
 """One rank of a ``torch.distributed`` world for ``tests/test_torch_distributed.py``,
-``tests/test_torch_moe.py`` (the expert-parallel MoE) and the card tests in
-``tests/test_torch_cuda.py``.
+``tests/test_torch_moe.py`` (the expert-parallel MoE),
+``tests/test_torch_train.py`` (the training launcher on a test mesh) and the
+card tests in ``tests/test_torch_cuda.py``.
 
     python tests/_dist_child.py INPUTS STORE RANK WORLD OUT [BACKEND DEVICE]
 
@@ -122,7 +123,26 @@ def run_case(case, rank, world, device):
         y, _ = block_forward(p, lora, x, cfg, BlockSpec(**case["spec"]),
                              mode="full")
         return {"y": y}
+    if kind == "train":         # launch.train's loop on a test mesh
+        from repro_torch.configs import get_config
+        from repro_torch.launch import train
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh(tuple(case["mesh"]), device=device.type)
+        res = train.train(get_config(case["arch"]).reduced(), mesh,
+                          device=device, **case["kw"])
+        return {"losses": torch.tensor(res["losses"]),
+                "trained": _dictify(res["trained"]),
+                "adapters": _dictify(res["adapters"])}
     raise ValueError(f"unknown case kind {kind!r}")
+
+
+def _dictify(tree):
+    """A tree's tuples as dicts keyed by their indices (for :func:`flat`)."""
+    if isinstance(tree, dict):
+        return {k: _dictify(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return {str(i): _dictify(v) for i, v in enumerate(tree)}
+    return tree
 
 
 def main(argv):

@@ -257,3 +257,52 @@ def test_ssd_scan_phases_in_bf16_match_the_plain_version():
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert_close(g, w, 2e-2)
+
+
+# ------------------------------------------------------ the registered op --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD_SHAPES)
+def test_registered_op_fake_matches_the_plain_shapes(b, l, h, p, n, chunk,
+                                                     dtype):
+    """The kernel's launch is ``torch.ops.repro_torch.ssd_scan``: traced
+    under ``FakeTensorMode`` (CUDA fakes, as on the card, and CPU fakes
+    asking for the kernel) its fake implementation gives the plain
+    version's output shapes in xdt's dtype, launches nothing, and the
+    flop counter charges it the chunked SSD's products (``ops.flops``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.ssd_scan import ops
+    xdt, dta, bm, cm = _torch(*_inputs(b, l, h, p, n, 7))
+    runtime.reset_counts()
+    want_y, want_h = ssd_scan_ref(xdt, dta, bm, cm, chunk)
+    for device, backend in (("cuda", "auto"), ("cpu", "kernel")):
+        with FakeTensorMode():
+            x = torch.empty(xdt.shape, dtype=dtype, device=device)
+            d = torch.empty(dta.shape, device=device)
+            bc = torch.empty(bm.shape, dtype=dtype, device=device)
+            with FlopCounterMode(display=False) as fc:
+                y, hl = ssd_scan(x, d, bc, bc, chunk, backend=backend)
+        assert y.shape == want_y.shape and hl.shape == want_h.shape
+        assert y.dtype == hl.dtype == dtype and y.device.type == device
+        assert fc.get_total_flops() == ops.flops(
+            b, l, h, p, n, chunk_len(l, chunk))
+    assert runtime.LAUNCHES["ssd_scan"] == 0
+    assert runtime.PLAIN_CALLS["ssd_scan"] == 1
+
+
+def test_registered_op_keeps_the_wrappers_checks():
+    """Before the op is called: a backward is refused, and a wrong dtype
+    or a strided operand raises, on fakes that ask for the kernel too."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        x = torch.empty(1, 16, 2, 4)
+        d = torch.empty(1, 16, 2)
+        bm = torch.empty(1, 16, 8)
+        strided = torch.empty(1, 8, 16).transpose(1, 2)
+        with pytest.raises(NotImplementedError, match="scan_backend='ref'"):
+            ssd_scan(x.requires_grad_(), d, bm, bm, 8, backend="kernel")
+        with pytest.raises(TypeError, match="float32"):
+            ssd_scan(x.detach(), d.bfloat16(), bm, bm, 8, backend="kernel")
+        with pytest.raises(ValueError, match="contiguous"):
+            ssd_scan(x.detach(), d, strided, bm, 8, backend="kernel")

@@ -15,7 +15,11 @@ the JAX package on the CPU:
   at their smallest sizes.
 """
 import importlib.util
+import os
+import pickle
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -312,13 +316,99 @@ def test_train_main_front_end_archs_need_their_inputs(arch, key):
 
 
 def test_train_main_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train.main([*MAIN, "--multi-pod"])
+    """``--multi-pod`` takes the (2, 16, 16) production mesh, which raises
+    without a world of 512 ranks, as the reference's does without 512
+    devices (before any weight is built); a typo in ``--method`` and a
+    missing card raise too."""
+    with pytest.raises(RuntimeError, match="need 512 ranks"):
+        train.main(["--preset", "full", "--device", "cpu", "--multi-pod",
+                    "--steps", "1"])
     with pytest.raises(ValueError, match="unknown aggregation strategy"):
         train.main([*MAIN, "--method", "no-such-method"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         train.main(["--preset", "reduced", "--steps", "1"])
+
+
+# ------------------------------------------------------- on a test mesh --
+CHILD = ROOT / "tests" / "_dist_child.py"
+CHILD_TIMEOUT = 120            # seconds, each rank of a spawned world
+MESH_KW = dict(steps=2, batch=4, seq=16, rank=4)
+
+
+def _spawn(cases, world, tmp):
+    """``world`` gloo ranks of ``tests/_dist_child.py`` over ``cases`` (a
+    ``FileStore`` under ``tmp``); each rank's result arrays."""
+    inputs = tmp / "inputs.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump(cases, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(CHILD), str(inputs), str(tmp / "store"),
+         str(k), str(world), str(tmp / f"out{k}.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(world)]
+    errs = []
+    try:
+        for k, p in enumerate(procs):
+            _, err = p.communicate(timeout=CHILD_TIMEOUT)
+            if p.returncode != 0:
+                errs.append(f"rank {k} exited {p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert not errs, "\n".join(errs)
+    return [dict(np.load(tmp / f"out{k}.npz")) for k in range(world)]
+
+
+def _flat_np(tree, prefix, out):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat_np(v, f"{prefix}|{k}", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            _flat_np(v, f"{prefix}|{i}", out)
+    else:
+        out[prefix] = tree.detach().float().numpy()
+    return out
+
+
+MESH_ARCHS = (ARCH, "granite-moe-3b-a800m", "mamba2-1.3b")
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    """4 gloo ranks spawned once, each running ``launch.train.train`` for
+    every arch of MESH_ARCHS on a (2, 2) mesh."""
+    cases = [dict(name=arch, kind="train", arch=arch, mesh=[2, 2],
+                  kw=MESH_KW) for arch in MESH_ARCHS]
+    return _spawn(cases, 4, tmp_path_factory.mktemp("mesh_train"))
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_train_on_a_2x2_gloo_world_matches_one_device(arch, mesh_world):
+    """``launch.train.train`` on a (2, 2) ("data", "model") mesh of 4
+    spawned gloo ranks: the weights placed by the rules (q/k/v/gate/up
+    column- and o/down row-parallel over "model", granite's experts and
+    their adapters by expert, mamba's scan on its heads), the factors and
+    the Adam state replicated, each batch split over "data".  On every
+    rank, 2 steps' losses, the trained adapters and the upload equal the
+    one-device run's within 2e-5 of max|want|."""
+    want = train.train(get_config(arch).reduced(), None, device="cpu",
+                       **MESH_KW)
+    flat = _flat_np({"trained": want["trained"],
+                     "adapters": want["adapters"]}, arch, {})
+    assert len(flat) > 10
+    for rank, arrays in enumerate(mesh_world):
+        got = {k: v for k, v in arrays.items()
+               if k.split("|")[0] == arch}
+        assert_close(got[f"{arch}|losses"], np.asarray(want["losses"]),
+                     F32_TOL, f"losses on rank {rank}")
+        assert set(got) == set(flat) | {f"{arch}|losses"}
+        for key, w in flat.items():
+            assert_close(got[key], w, F32_TOL, f"{key} on rank {rank}")
 
 
 # ------------------------------------------------------------- examples --
@@ -353,3 +443,33 @@ def test_serve_lora_example_runs_at_its_smallest_size(arch, capsys):
     assert gen.shape == (2, 3)
     cfg = get_config(arch).reduced()
     assert bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+
+
+def test_heterogeneous_ranks_example_runs_on_the_cpu(monkeypatch, capsys):
+    """``examples/heterogeneous_ranks_torch.py --device cpu``: Alg. 2's live
+    rows, zero-padding and RBLA against JAX's leaves on the same cohort,
+    FLoRA's stacked ranks (10, 20, then 8 under the cap) and its exact
+    mean update, and the rbla aggregate over 8 spawned gloo ranks equal to
+    the host's (the example holds it at rtol 1e-5, atol 1e-6)."""
+    import importlib
+
+    from repro.core import rbla_leaf as jax_rbla_leaf
+    from repro.core import zeropad_leaf as jax_zeropad_leaf
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    ex = importlib.import_module("heterogeneous_ranks_torch")
+    res = ex.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "matches the host result" in out
+    assert res["live_rows"] == {2: 2, 5: 5, 8: 8}
+    stacked, masks = res["stacked"].numpy(), res["masks"].numpy()
+    w = jnp.ones(stacked.shape[0])
+    assert_close(res["zp"], jax_zeropad_leaf(jnp.asarray(stacked),
+                                             jnp.asarray(masks), w),
+                 F32_TOL, "zeropad")
+    assert_close(res["rbla"], jax_rbla_leaf(jnp.asarray(stacked),
+                                            jnp.asarray(masks), w),
+                 F32_TOL, "rbla")
+    assert (res["flora_rank"], res["next_rank"], res["capped_rank"]) == \
+        (10, 20, 8)
+    assert res["flora_diff"] < 1e-6 and res["flora_launches"] == {}
+    assert_close(res["collective"], res["rbla"], F32_TOL, "collective")

@@ -68,6 +68,18 @@ Phases, each printing JSON lines:
   (one grouped packed_robust launch a round), each against its plain round;
   then rbla_clipped's cohort again at a clip that fires on half its rows;
 * svd -- one svd round, against its plain round in product space;
+* examples -- ``examples/quickstart_torch.py`` on the card, then
+  ``examples/paper_repro_torch.py`` at its defaults (mnist/mlp, rbla,
+  zeropad and fft, 30 rounds, target 0.90), each method with fresh
+  counts: rounds to target, best accuracy, wall, time to target, one
+  packed_agg launch a round (none for fft), enforced; the methods are cut
+  to rbla, and the cut printed, where the quickstart's rounds predict more
+  than 120 s;
+* donate -- an rbla, an rbla_trimmed and a flora stacking round on the
+  main path's cohort with and without ``donate``: bit for bit, the
+  outputs in prev's storage, one grouped launch (enforced), the ms of
+  each; then frontend_round's whisper tree with its peak device memory
+  with and without ``donate``;
 * per_pair -- the last main-path cohort again through the per-pair
   rbla_agg path and the last flora cohort within the cap through
   flora_stack (one grouped launch a round, and one device kernel in a
@@ -191,13 +203,25 @@ Phases, each printing JSON lines:
 * frontend_consistency -- both archs' weights upcast to fp32 in place,
   prefill + 8 decode steps against the full forward within 2e-3 of
   max|want|;
+* remat -- h2o-danube-3-4b at full width and depth in bf16, Model.loss and
+  its adapter gradient on 4 x 512 tokens, 3 steps for each ``remat`` in
+  {False, "full", "dots"}: ms a step, peak device memory, the loss, and
+  the loss and gradient against ``remat=False``'s (2e-2 of max|want|,
+  enforced);
+* ep_mesh -- reduced granite-moe-3b-a800m with ``moe_mode="ep_a2a"`` on a
+  one-rank NCCL (1, 1) mesh of DTensors: Model.loss and its adapter
+  gradient against the sort path's (2e-5 of max|want|) and the
+  collectives a step (two all_to_all a MoE layer forward), enforced; then
+  2 gloo ranks on host tensors, a (1, 2) mesh, each against the card's
+  sort path;
 * frontend_round -- one rbla round over four clients' whole whisper
   adapter trees (``enc``, ``frontend``, ``stages``) at ranks 8-64: one
   packed_agg launch and no plain call, enforced, against the plain
   round, with ms against the HBM bound of the live rows;
 * train_main -- ``repro_torch.launch.train.main`` at the full preset
   (h2o-danube-3-4b, 20 steps; mamba2-1.3b, 3 steps through the plain
-  scan) with a temporary ``--ckpt``: finite losses, ms a step, the cohort
+  scan; both with ``remat="full"``, as the preset sets it) with a
+  temporary ``--ckpt``: finite losses, ms a step, the cohort
   upload one packed_agg launch, enforced, held against the plain round
   and the trained adapters, the checkpoint restored equal to the
   aggregate;
@@ -265,7 +289,7 @@ SELECTABLE = ("kernels", "agg_rounds", "robust_large", "per_pair_rounds",
               "moe_zoo", "moe_ep", "vlm_main", "encdec_main",
               "frontend_consistency", "frontend_round", "train_main",
               "sharded_train", "sharded_gloo", "sharded_mamba", "dryrun",
-              "hetero_ranks")
+              "hetero_ranks", "examples", "donate", "remat", "ep_mesh")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -645,13 +669,16 @@ def check_group_round(kernel, kw, mode=None):
     kernels of one call."""
     import torch
     from repro_torch.kernels import runtime
-    from repro_torch.kernels import rbla_agg as ra
+    from repro_torch.kernels.rbla_agg import (packed_agg_group,
+                                              packed_agg_group_ref,
+                                              packed_robust_group,
+                                              packed_robust_group_ref)
     extra = {} if mode is None else dict(mode=mode, clip_norm=2.5,
                                          trim_frac=0.2)
-    group = ra.packed_agg_group if kernel == "packed_agg" \
-        else ra.packed_robust_group
-    plain = ra.packed_agg_group_ref if kernel == "packed_agg" \
-        else ra.packed_robust_group_ref
+    group = packed_agg_group if kernel == "packed_agg" \
+        else packed_robust_group
+    plain = packed_agg_group_ref if kernel == "packed_agg" \
+        else packed_robust_group_ref
 
     def call():
         return group(**kw, **extra)
@@ -1636,19 +1663,29 @@ class Recorder:
     the configured copies a run makes with ``with_options`` are seen too).
     Keeps the strategy instance, the last round's (incoming state, updates,
     returned state), and per round the kernel launches it made and the
-    plan it ran (its launches and the pairs it re-projected)."""
+    plan it ran (its launches and the pairs it re-projected).  A donated
+    round writes the incoming global in place, so the incoming state kept
+    is a copy taken before the round (outside the launch counts)."""
 
     def __init__(self):
+        import dataclasses
+        import torch
         from repro_torch.core.strategy import AggregationStrategy
         from repro_torch.kernels import runtime
+        from repro_torch.tree import tree_map
         self.cls, self.orig = AggregationStrategy, AggregationStrategy.aggregate
         self.strategy, self.last, self.rounds = None, None, []
         orig = self.orig
 
         def spy(strategy, state, updates, *a, **k):
             updates = list(updates)
+            if k.get("donate"):
+                state_in = dataclasses.replace(state, adapters=tree_map(
+                    torch.clone, state.adapters))
             before = dict(runtime.LAUNCHES)
             out = orig(strategy, state, updates, *a, **k)
+            if k.get("donate"):
+                state = state_in
             plans = list(strategy.__dict__.get("_plan_cache", {}).values())
             self.rounds.append({
                 "launches": {n: runtime.LAUNCHES[n] - before[n]
@@ -4601,7 +4638,8 @@ def _train_run(argv, smi: str) -> dict:
     """``repro_torch.launch.train.main(argv)`` with a temporary ``--ckpt``:
     the losses finite, the ms a step, the cohort upload one packed_agg
     launch (enforced: nothing else launches; the only plain calls are a
-    mamba layer's scan, one a layer a step), held against the plain round
+    mamba layer's scan, one a layer a step, twice under the full preset's
+    remat), held against the plain round
     (``backend="ref"``) on the same trained adapters and, a cohort of one
     at r_max = rank, against those adapters themselves, each within 2e-5
     of max|want|; and the saved adapters restored equal to the aggregate,
@@ -4640,8 +4678,13 @@ def _train_run(argv, smi: str) -> dict:
     tol_trained = 2e-5 * max(scale_trained, 1.0)
     n_mamba = sum(st.repeat * sum(b.kind == "mamba" for b in st.unit)
                   for st in cfg.stages)
-    want_plain = {"ssd_scan": n_mamba * len(step_ms)} if n_mamba else {}
+    # the full preset trains with remat="full": the backward reruns each
+    # layer's forward, its scan included
+    runs = 2 if "full" in argv else 1
+    want_plain = ({"ssd_scan": runs * n_mamba * len(step_ms)} if n_mamba
+                  else {})
     line = {"phase": "train_main", "card": smi, "argv": list(argv),
+            "remat": "full" if runs == 2 else False,
             "arch": cfg.name, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "dtype": cfg.dtype,
             "losses": res["losses"], "step_ms": step_ms,
@@ -5185,6 +5228,414 @@ def phase_hetero_ranks(smi: str) -> dict:
     return line
 
 
+# ------------------------------------ examples, donation, remat, ep on a mesh --
+#: examples: the main path's two drivers; the phase's budget, past which
+#: paper_repro_torch's methods are cut to rbla (the cut is printed)
+EXAMPLES_BUDGET_S = 120.0
+PAPER_METHODS = ("rbla", "zeropad", "fft")
+PAPER_ROUNDS = 30               # examples/paper_repro_torch.py's defaults
+PAPER_TARGET = 0.90
+PAPER_N_PER_CLASS = 400         # twice the quickstart's 200: twice the work
+
+
+def phase_examples(smi: str) -> dict:
+    """``examples/quickstart_torch.py`` (6 rbla rounds of the MNIST MLP at
+    full width, 10 staircase clients, r_max 64) and
+    ``examples/paper_repro_torch.py`` at its defaults (mnist/mlp, rbla,
+    zeropad and fft, 30 rounds, target 0.90) on the card, each method on
+    its own with fresh counts: rounds to target, best accuracy, wall, the
+    time to the target (the rounds' own clocks) and the packed_agg
+    launches, one a round for a LoRA method and none for fft (enforced),
+    no plain call.  The quickstart's rounds predict the three methods'
+    wall (a round's time scaled by the examples' data sizes); past
+    EXAMPLES_BUDGET_S the methods are cut to rbla."""
+    import torch
+    from repro_torch.kernels import runtime
+    sys.path.insert(0, str(ROOT / "examples"))
+    import paper_repro_torch
+    import quickstart_torch
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    hist = quickstart_torch.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    q_secs = time.perf_counter() - t0
+    launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+    per_round = (statistics.median(hist.round_time_s[1:])
+                 * PAPER_N_PER_CLASS / quickstart_torch.cfg.n_per_class)
+    predicted = per_round * PAPER_ROUNDS * len(PAPER_METHODS)
+    methods = PAPER_METHODS if predicted <= EXAMPLES_BUDGET_S else ("rbla",)
+    emit({"phase": "examples", "example": "quickstart_torch", "card": smi,
+          "test_acc": hist.test_acc, "round_time_s": hist.round_time_s,
+          "seconds": q_secs, "launches": launches, "plain_calls": plain,
+          "predicted_paper_repro_s": predicted, "methods": list(methods)})
+    if launches != {"packed_agg": len(hist.test_acc)} or plain:
+        raise AssertionError(f"examples: the quickstart launched {launches}"
+                             f", plain {plain}: one packed_agg a round")
+    if methods != PAPER_METHODS:
+        print(f"examples: paper_repro_torch --methods cut to rbla: "
+              f"{predicted:.1f} s predicted > {EXAMPLES_BUDGET_S} s",
+              flush=True)
+    rows = {}
+    for method in methods:
+        runtime.reset_counts()
+        res = paper_repro_torch.main(["--device", "cuda", "--methods",
+                                      method])[method]
+        launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+        r2t = res["rounds_to_target"]
+        row = {"phase": "examples", "example": "paper_repro_torch",
+               "method": method, "card": smi, "rounds": PAPER_ROUNDS,
+               "target": PAPER_TARGET, "rounds_to_target": r2t,
+               "best_acc": res["best"], "wall_s": res["wall_s"],
+               "time_to_target_s": (sum(res["round_time_s"][:r2t])
+                                    if r2t else None),
+               "round_time_s": res["round_time_s"],
+               "test_acc": res["test_acc"], "launches": launches,
+               "plain_calls": plain}
+        emit(row)
+        rows[method] = row
+        want = {} if method == "fft" else {"packed_agg": PAPER_ROUNDS}
+        if launches != want or plain:
+            raise AssertionError(f"examples: {method} launched {launches}, "
+                                 f"plain {plain}; expected {want}")
+    return {"quickstart_launches": len(hist.test_acc), "paper": rows}
+
+
+#: donate: the main-path cohort's rounds, each with and without donation
+DONATE_ROUNDS = (("rbla", "rbla", {}, "packed_agg"),
+                 ("robust", "rbla_trimmed", {}, "packed_robust"),
+                 ("stack", "flora", {"stack_r_cap": 512}, "packed_stack"))
+
+
+def _ab_leaves(tree) -> list:
+    from repro_torch.lora import tree_map_pairs
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree_map_pairs(lambda p: [p["A"], p["B"]], tree))
+
+
+def phase_donate(smi: str) -> list:
+    """Donated rounds on the card: an rbla, an rbla_trimmed and a flora
+    stacking round (prev at the cap of 512) on the main path's cohort,
+    each with and without ``donate``: the outputs bit for bit, every
+    output A/B's storage prev's own, one grouped launch and no plain call
+    (enforced); the ms of each.  Then frontend_round's whisper round
+    over four clients' whole adapter trees, with a global at r_max 64:
+    its peak device memory above what was allocated before the call, with
+    and without ``donate``, and the global's bytes beside them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.strategy import get_strategy
+    from repro_torch.kernels import runtime
+    from repro_torch.lora import mask_pair, tree_map_pairs
+    from repro_torch.models.model import make_model
+    from repro_torch.tree import tree_leaves, tree_map
+    clients, prev, w = _mlp_cohort(31)
+    ranks = torch.tensor(STAIRCASE, dtype=torch.int32, device="cuda")
+    rows = []
+    for label, method, options, kernel in DONATE_ROUNDS:
+        base = _flora_prev(prev) if method == "flora" else prev
+        strat = get_strategy(method).with_options(**options)
+
+        def run(target, donate, strat=strat):
+            return strat.aggregate_adapters(
+                clients, w, r_max=64, client_ranks=ranks,
+                prev_global=target, donate=donate)
+        runtime.reset_counts()
+        want = run(tree_map(torch.clone, base), False)
+        torch.cuda.synchronize()
+        fresh_launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        target = tree_map(torch.clone, base)
+        ptrs = [t.data_ptr() for t in _ab_leaves(target)]
+        runtime.reset_counts()
+        got = run(target, True)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        plain = {k: v for k, v in runtime.PLAIN_CALLS.items() if v}
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(want), tree_leaves(got), strict=True))
+        in_prev = [t.data_ptr() for t in _ab_leaves(got)] == ptrs
+        spare = tree_map(torch.clone, base)
+        ms = time_ms(lambda: run(spare, False), reps=10)
+        donated_ms = time_ms(lambda: run(target, True), reps=10)
+        row = {"phase": "donate", "round": label, "strategy": method,
+               "card": smi, "bit_identical": same, "into_prev": in_prev,
+               "launches": launches, "fresh_launches": fresh_launches,
+               "plain_calls": plain, "ms": ms, "donated_ms": donated_ms}
+        emit(row)
+        rows.append(row)
+        if not (same and in_prev) or launches != {kernel: 1} \
+                or fresh_launches != {kernel: 1} or plain:
+            raise AssertionError(f"donate {label}: bit identical {same}, "
+                                 f"into prev {in_prev}, launches "
+                                 f"{launches}, plain {plain}")
+    del clients, prev, target, spare, want, got
+    _free()
+    # whisper's adapter tree: the peak with and without donation
+    cfg = get_config(ENCDEC_CFG["arch"])
+    model = make_model(cfg, remat=False)
+    tree = []
+    for i, r in enumerate(FRONTEND_ROUND_RANKS + (64,)):
+        gen = torch.Generator(device="cuda").manual_seed(70 + i)
+        tree.append(tree_map_pairs(
+            lambda pair, gen=gen: mask_pair(dict(pair, B=torch.randn(
+                pair["B"].shape, generator=gen, device="cuda") * 0.02)),
+            model.init_adapters(gen, r_max=64, rank=r)))
+    clients, glob = tree[:-1], tree[-1]
+    w = torch.arange(1.0, len(clients) + 1, device="cuda")
+    global_bytes = sum(t.numel() * t.element_size()
+                       for t in _float_leaves(glob))
+    peaks, outs = {}, {}
+    for donate in (False, True):
+        strat = get_strategy("rbla").with_options()      # an empty memo
+        target = tree_map(torch.clone, glob)
+        _free()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_counts()
+        out = strat.aggregate_adapters(clients, w, r_max=64,
+                                       prev_global=target, donate=donate)
+        torch.cuda.synchronize()
+        peaks[donate] = torch.cuda.max_memory_allocated() - before
+        outs[donate] = (out, {k: v for k, v in runtime.LAUNCHES.items()
+                              if v})
+        del strat
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(outs[False][0]), tree_leaves(outs[True][0]),
+        strict=True))
+    row = {"phase": "donate", "round": "whisper_tree", "card": smi,
+           "arch": cfg.name, "clients": len(clients),
+           "ranks": list(FRONTEND_ROUND_RANKS), "global_bytes": global_bytes,
+           "peak_bytes": peaks[False], "donated_peak_bytes": peaks[True],
+           "peak_drop_bytes": peaks[False] - peaks[True],
+           "bit_identical": same, "launches": outs[True][1]}
+    emit(row)
+    rows.append(row)
+    del tree, clients, glob, outs, target
+    _free()
+    if not same or row["launches"] != {"packed_agg": 1}:
+        raise AssertionError(f"donate whisper_tree: bit identical {same}, "
+                             f"launches {row['launches']}")
+    return rows
+
+
+#: remat: h2o-danube-3-4b at full width and depth in bf16, Model.loss and
+#: its adapter gradient on a batch of 4 x 512 tokens, 3 steps a policy
+REMAT_CFG = dict(arch="h2o-danube-3-4b", batch=4, seq=512, steps=3, rank=8,
+                 r_max=64)
+REMAT_POLICY_NAMES = (False, "full", "dots")
+
+
+def phase_remat(smi: str) -> list:
+    """Activation checkpointing at full width: REMAT_CFG's loss and adapter
+    gradient for ``remat`` in REMAT_POLICY_NAMES on one set of weights and
+    tokens: ms a step (median after the first), peak device memory, the
+    loss, and the loss and gradient against ``remat=False``'s (bf16 at
+    2e-2 of max|want|, enforced)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lora import strip_ranks
+    spec = dict(REMAT_CFG)
+    cfg = get_config(spec["arch"])
+    rig = _lm_rig(cfg, dict(spec, prompt_len=spec["seq"]))
+    _, model, params, adapters, batch = rig
+    factors, ranks = strip_ranks(adapters)
+    tokens = batch["tokens"][:spec["batch"], :spec["seq"]]
+    rows, base = [], None
+    for remat in REMAT_POLICY_NAMES:
+        m = dataclasses.replace(model, remat=remat)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(spec["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = _loss_grad(m, params, factors, ranks, tokens)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        if base is None:
+            base = (loss, grads)
+        scale = max(float(g.float().abs().max()) for g in base[1])
+        g_err = max(float((g.float() - b.float()).abs().max())
+                    for g, b in zip(grads, base[1], strict=True))
+        l_err = float((loss.float() - base[0].float()).abs())
+        row = {"phase": "remat", "card": smi, "remat": remat,
+               "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+               "batch": spec["batch"], "seq": spec["seq"],
+               "loss": float(loss), "step_ms": step_ms,
+               "ms_per_step": statistics.median(step_ms[1:]),
+               "peak_device_bytes": peak, "loss_err": l_err,
+               "grad_max_abs_err": g_err, "grad_tol": 2e-2 * max(scale, 1.0)}
+        emit(row)
+        rows.append(row)
+        if not (math.isfinite(row["loss"]) and l_err <= 2e-2 * max(
+                abs(float(base[0])), 1.0) and g_err <= row["grad_tol"]):
+            raise AssertionError(f"remat {remat}: loss {row['loss']} "
+                                 f"({l_err}), gradient error {g_err}")
+    del rig, model, params, adapters, batch, factors, base
+    _free()
+    return rows
+
+
+#: ep_mesh: reduced granite-moe-3b-a800m (fp32), moe_mode="ep_a2a" against
+#: the sort path, Model.loss and its adapter gradient on a batch of 4 x 64
+EP_MESH = dict(arch="granite-moe-3b-a800m", batch=4, seq=64, rank=4,
+               gloo_mesh=(1, 2), device="cpu")
+EP_MESH_TOL = 2e-5
+
+
+def _ep_mesh_rig(mesh, device, moe_mode):
+    """EP_MESH's model (``moe_mode``) on ``device``, its weights placed on
+    ``mesh`` by the rules (the experts by expert over "model"), its
+    factors too, the tokens over the data axes."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.lora import mask_pair, strip_ranks, tree_map_pairs
+    from repro_torch.models.model import make_model
+    from repro_torch.sharding import rules
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(EP_MESH["arch"]).reduced(),
+                              moe_mode=moe_mode)
+    model = make_model(cfg, remat=False, scan_backend="ref")
+    params = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(2)
+    adapters = tree_map_pairs(lambda pair: mask_pair(dict(pair, B=torch.randn(
+        pair["B"].shape, generator=gen) * 0.02)),
+        model.init_adapters(torch.Generator().manual_seed(1),
+                            rank=EP_MESH["rank"]))
+    tokens = torch.randint(0, cfg.vocab_size, (EP_MESH["batch"],
+                                               EP_MESH["seq"]),
+                           generator=torch.Generator().manual_seed(3))
+    params, adapters, tokens = tree_map(lambda t: t.to(device),
+                                        (params, adapters, tokens))
+    factors, ranks = strip_ranks(adapters)
+    place = lambda tree, specs: rules.place(tree, specs, mesh)  # noqa: E731
+    return (model, place(params, rules.param_specs(params, mesh)),
+            place(factors, rules.adapter_specs(factors, mesh)), ranks,
+            place(tokens, rules.batch_specs(tokens, mesh)))
+
+
+def _ep_step(mesh, device, moe_mode):
+    """One loss and adapter gradient of :func:`_ep_mesh_rig` (whole
+    tensors), its collectives and its wall ms."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.kernels import runtime
+    model, params, factors, ranks, tokens = _ep_mesh_rig(mesh, device,
+                                                         moe_mode)
+    with implicit_replication():
+        _loss_grad(model, params, factors, ranks, tokens)     # warm
+        runtime.reset_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = _loss_grad(model, params, factors, ranks, tokens)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return (loss.cpu(), [g.cpu() for g in grads], dict(runtime.COLLECTIVES),
+            ms)
+
+
+def _ep_errs(got, want) -> tuple[float, float]:
+    loss, grads = got[:2]
+    w_loss, w_grads = want[:2]
+    err = max([float((loss - w_loss).abs())] +
+              [float((g - w).abs().max())
+               for g, w in zip(grads, w_grads, strict=True)])
+    scale = max([float(w_loss.abs())] +
+                [float(w.abs().max()) for w in w_grads])
+    return err, EP_MESH_TOL * max(scale, 1.0)
+
+
+def _ep_mesh_rank(rank, world, store, out_path, src):
+    """One of EP_MESH's gloo ranks on the host: a (1, 2) mesh, the
+    expert-parallel step and the sort path's; saves both."""
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_test_mesh(EP_MESH["gloo_mesh"], device=EP_MESH["device"])
+        out = {mode: _ep_step(mesh, EP_MESH["device"], mode)
+               for mode in ("ep_a2a", "sort")}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, out_path)
+
+
+def phase_ep_mesh(smi: str) -> dict:
+    """``moe_mode="ep_a2a"`` under DTensors: EP_MESH's reduced granite on a
+    one-rank NCCL (1, 1) mesh on the card, Model.loss and its adapter
+    gradient against the sort path's on the same mesh (EP_MESH_TOL of
+    max|want|, enforced), the collectives a step (two all_to_all a MoE
+    layer forward, enforced) and the walls; then 2 gloo ranks on host
+    tensors, a (1, 2) mesh (gloo's all-gather of CUDA tensors crashes under
+    the card's torch 2.11: sharded_gloo's probe), each rank's expert-
+    parallel step against the card's sort path."""
+    import tempfile
+    import torch
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.kernels import runtime
+    runtime.full_fp32()
+    cfg = get_config(EP_MESH["arch"]).reduced()
+    n_moe = sum(st.repeat * sum(b.ffn == "moe" for b in st.unit)
+                for st in cfg.stages)
+    with _nccl_world():
+        mesh = make_test_mesh((1, 1), device="cuda")
+        ep = _ep_step(mesh, "cuda", "ep_a2a")
+        sort = _ep_step(mesh, "cuda", "sort")
+    err, tol = _ep_errs(ep, sort)
+    row = {"phase": "ep_mesh", "leg": "nccl_1x1", "card": smi,
+           "arch": cfg.name, "moe_layers": n_moe, "max_abs_err": err,
+           "tol": tol, "loss": float(ep[0]), "sort_loss": float(sort[0]),
+           "collectives": ep[2], "sort_collectives": sort[2],
+           "ep_ms": ep[3], "sort_ms": sort[3]}
+    emit(row)
+    if not err <= tol:
+        raise AssertionError(f"ep_mesh: the expert-parallel step disagrees "
+                             f"with the sort path ({err}, tol {tol})")
+    if ep[2]["all_to_all"] < 2 * n_moe:
+        raise AssertionError(f"ep_mesh: {ep[2]} collectives for {n_moe} "
+                             "MoE layers: two all_to_all a layer forward")
+    world = EP_MESH["gloo_mesh"][0] * EP_MESH["gloo_mesh"][1]
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    ranks = []
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"rank{k}.pt") for k in range(world)]
+        codes = _spawn_ranks(_ep_mesh_rank, lambda k: (
+            k, world, str(Path(tmp) / "store"), outs[k], src), world,
+            DIST_CHILD_TIMEOUT)
+        for k, code in enumerate(codes):
+            if code != 0:
+                raise AssertionError(f"ep_mesh: gloo rank {k} exited {code}")
+            got = torch.load(outs[k])
+            err, tol = _ep_errs(got["ep_a2a"], sort)
+            s_err, _ = _ep_errs(got["sort"], sort)
+            r = {"phase": "ep_mesh", "leg": "gloo_rank", "rank": k,
+                 "mesh": list(EP_MESH["gloo_mesh"]), "card": smi,
+                 "device": EP_MESH["device"], "max_abs_err": err,
+                 "sort_max_abs_err": s_err, "tol": tol,
+                 "collectives": got["ep_a2a"][2],
+                 "ep_ms": got["ep_a2a"][3], "sort_ms": got["sort"][3]}
+            emit(r)
+            ranks.append(r)
+            if not (err <= tol and s_err <= tol):
+                raise AssertionError(f"ep_mesh: gloo rank {k} disagrees "
+                                     f"with the card's sort path ({err}, "
+                                     f"{s_err}, tol {tol})")
+    return {"nccl": row, "gloo": ranks}
+
+
 # ------------------------------------------------------------- distributed --
 #: (d)'s strategies through aggregate_adapters(backend="distributed")
 DIST_METHODS = ("fedavg", "zeropad", "rbla", "rbla_ranked")
@@ -5601,6 +6052,14 @@ def run_selected(names, smi: str) -> dict:
             phase_dryrun(smi)
         elif name == "hetero_ranks":
             phase_hetero_ranks(smi)
+        elif name == "examples":
+            phase_examples(smi)
+        elif name == "donate":
+            phase_donate(smi)
+        elif name == "remat":
+            phase_remat(smi)
+        elif name == "ep_mesh":
+            phase_ep_mesh(smi)
         emit({"phase": name, "ok": True})
     return summary
 
@@ -5686,6 +6145,16 @@ def main(argv=None) -> int:
         launches["packed_robust"] for launches, _ in robust.values())
     summary["packed_stack"]["launches"] = flora_launches["packed_stack"]
     summary["flora_stack"]["launches"] = stack_launches["flora_stack"]
+    examples = phase_examples(smi)
+    summary["packed_agg"]["examples_launches"] = {
+        "quickstart_torch": examples["quickstart_launches"],
+        **{f"paper_repro_torch {m}": sum(r["launches"].values())
+           for m, r in examples["paper"].items()}}
+    donated = {r["round"]: r for r in phase_donate(smi)}
+    for kernel, label in (("packed_agg", "rbla"), ("packed_robust", "robust"),
+                          ("packed_stack", "stack")):
+        summary[kernel]["donated_launches"] = donated[label]["launches"][kernel]
+    emit({"phase": "examples_donate", "ok": True})
 
     async_launches, async_rec = phase_async_main()
     phase_async_semi()
@@ -5736,6 +6205,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     zoo = phase_moe_zoo(smi)
     ep = phase_moe_ep(smi)
+    ep_mesh = phase_ep_mesh(smi)
     summary["packed_agg"]["moe_round"] = {
         k: moe_round[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "max_abs_err", "bytes")}
@@ -5743,16 +6213,20 @@ def main(argv=None) -> int:
         zoo[0]["launches"]["ssd_scan"]
     emit({"phase": "moe", "ok": True, "ep_ms": ep["ep_ms"],
           "sort_ms": ep["sort_ms"],
-          "two_rank_wall_ms": ep["two_rank_wall_ms"]})
+          "two_rank_wall_ms": ep["two_rank_wall_ms"],
+          "ep_mesh_collectives": ep_mesh["nccl"]["collectives"]})
 
     fe = phase_frontends(smi)
+    remat = phase_remat(smi)
     summary["packed_agg"]["frontend_round"] = {
         k: fe["round"][k] for k in ("launches", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "bytes")}
     summary["packed_agg"]["train_upload_launches"] = {
         t["arch"]: t["launches"]["packed_agg"] for t in fe["train"]}
     emit({"phase": "frontends", "ok": True, "train_ms_per_step": {
-        t["arch"]: t["ms_per_step"] for t in fe["train"]}})
+        t["arch"]: t["ms_per_step"] for t in fe["train"]},
+        "remat_ms_per_step": {str(r["remat"]): r["ms_per_step"]
+                              for r in remat}})
 
     sharded = phase_sharded_train(smi)
     gloo = phase_sharded_gloo(smi)

@@ -63,6 +63,7 @@ def _rank(rank: int, world: int, store: str, src: str, out: str,
                   w[loc])
         if rank == 0:
             torch.save(got.cpu(), out)
+        dist.barrier()      # no rank tears its group down under a peer
     finally:
         dist.destroy_process_group()
 

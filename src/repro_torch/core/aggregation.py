@@ -57,3 +57,25 @@ def rbla_leaf(stacked: torch.Tensor, mask: torch.Tensor | None,
     fallback = torch.zeros_like(num) if prev is None else prev.float()
     return torch.where(den > 0, num / (den + _EPS),
                        fallback).to(stacked.dtype)
+
+
+AGGREGATORS = {
+    "rbla": rbla_leaf,
+    "zeropad": zeropad_leaf,
+}
+
+
+def aggregate(stacked_tree, mask_tree, weights, method: str = "rbla",
+              prev_tree=None):
+    """Aggregate a tree of stacked client leaves (``(n_clients, *shape)``).
+
+    Deprecated shim, as in the JAX package: resolves ``method`` through
+    the strategy registry (``repro_torch.core.strategy``) and runs its
+    plain tree path.  New code calls ``get_strategy(method)
+    .aggregate_tree(...)`` directly.  ``mask_tree`` has the same structure,
+    with leaves that broadcast against the stacked ones (a 0-d leaf: fully
+    shared); ``prev_tree`` holds the server's current values, kept by
+    strategies that retain them (rbla) where no participant owns a row."""
+    from .strategy import get_strategy
+    return get_strategy(method).aggregate_tree(stacked_tree, mask_tree,
+                                               weights, prev_tree)

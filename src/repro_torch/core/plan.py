@@ -28,6 +28,21 @@ turns a round into
    :class:`CohortSpec` (tree structure, shapes, dtypes, rank multiset,
    codec mix, backend, device, client mesh) and the strategy's
    ``plan_knobs`` in a bounded LRU; see ``AggregationStrategy.plan``.
+   The JAX plans also memoise their packed buckets per cohort (a
+   :class:`BufferMemo` over the stacked leaves); here there is nothing to
+   pack, because the grouped kernels read every leaf where it lies, so a
+   plan keeps no pack memo.  ``AggregationStrategy.aggregate_adapters``
+   memoises the stacking of a repeated cohort (:class:`BufferMemo`).
+4. **Donation.**  ``CompiledRound.__call__(..., donate=True)`` writes the
+   round's outputs into the previous global's A/B storage, where the JAX
+   plans donate it: the mean and robust rounds (plain and encoded) and
+   flora's stacking round, for a strategy that retains prev and a round
+   that has one (a side whose prev is not stored as the output is, in
+   dtype, layout and -- for the stack -- at the cap, gets a fresh one).
+   The grouped kernels take prev's storage as their output pointer
+   (``outs=``; each kernel's comment says why the alias is safe), and the
+   write keeps the stream rule of ``repro_torch.core.donation``.  The svd,
+   collective and per-leaf rounds ignore ``donate``, as JAX's do.
 
 On the ``distributed`` backend the mean family's round is one collective:
 each rank reduces its slice of the clients, every pair side where it lies,
@@ -54,8 +69,9 @@ from repro_torch.kernels.rbla_agg import (packed_agg_group_ref,
                                           packed_robust_group_ref,
                                           packed_stack_group,
                                           packed_stack_group_ref, stack_plan)
-from repro_torch.kernels.rbla_agg.ops import grouped_launch
+from repro_torch.kernels.rbla_agg.ops import grouped_launch, write_into
 
+from . import donation
 from .aggregation import _EPS
 from .compat import all_reduce_sum, client_group, default_mesh, local_slice
 from .masks import pad_to_rank
@@ -67,6 +83,72 @@ class PlanUnavailable(Exception):
     """A plan cannot be built for these inputs (bare leaves, mismatched
     prev shapes); callers take the per-leaf path, which handles
     everything."""
+
+
+class BufferMemo:
+    """Single-entry memo keyed by the *identity and version* of tensors
+    (the JAX package's ``BufferMemo``, whose arrays are immutable; here a
+    tensor's ``_version``, which every in-place edit bumps, stands in for
+    immutability):
+
+    * a fingerprint is every leaf's ``(id, _version)``: an in-place edit of
+      any leaf misses, and an id is trusted only while a weakref pins it to
+      its tensor;
+    * only tensors that need no gradient are fingerprinted;
+    * the payload is released eagerly: ``weakref.finalize`` on the leaves
+      drops the entry the moment any of them is collected, so a memo never
+      pins a dead cohort's bytes;
+    * with ``require_repeat=True`` a payload is kept only for a fingerprint
+      seen on consecutive stores: a loop whose cohorts never repeat keeps a
+      fingerprint and weakrefs, not a cohort-sized payload.
+    """
+
+    def __init__(self, require_repeat: bool = False):
+        self._require_repeat = require_repeat
+        self._entry = None             # (fingerprint, payload, refs, token)
+        self._candidate = None         # (fingerprint, refs): seen once
+
+    @staticmethod
+    def fingerprint(leaves) -> tuple | None:
+        if not leaves or not all(isinstance(v, torch.Tensor)
+                                 and not v.requires_grad for v in leaves):
+            return None
+        return tuple((id(v), v._version) for v in leaves)
+
+    def lookup(self, leaves):
+        """The stored payload iff ``leaves`` are exactly the tensors, at
+        exactly the versions, it was stored under; None otherwise."""
+        entry = self._entry
+        if entry is None:
+            return None
+        fp, payload, refs, _ = entry
+        if any(r() is None for r in refs):
+            self._entry = None
+            return None
+        return payload if self.fingerprint(list(leaves)) == fp else None
+
+    def store(self, leaves, payload) -> None:
+        import weakref
+        leaves = list(leaves)
+        fp = self.fingerprint(leaves)
+        if fp is None:
+            return
+        if self._require_repeat:
+            cand = self._candidate
+            if not (cand is not None and cand[0] == fp
+                    and all(r() is not None for r in cand[1])):
+                self._candidate = (fp, [weakref.ref(v) for v in leaves])
+                return
+        token = object()
+        self._entry = (fp, payload, [weakref.ref(v) for v in leaves], token)
+        wself = weakref.ref(self)
+
+        def _release(wself=wself, token=token):
+            m = wself()
+            if m is not None and m._entry is not None and m._entry[3] is token:
+                m._entry = None
+        for v in leaves:               # any leaf dying releases it
+            weakref.finalize(v, _release)
 
 
 def default_client_mesh(client_axis: str = "clients"):
@@ -377,7 +459,10 @@ def _pairs_at(tree, paths) -> list:
 class CompiledRound:
     """One aggregation round for a fixed :class:`CohortSpec`.
 
-    ``__call__(stacked_tree, weights, prev_tree=None)`` runs the round.
+    ``__call__(stacked_tree, weights, prev_tree=None, donate=False)`` runs
+    the round; ``donate=True`` writes it into ``prev_tree``'s A/B storage
+    where the plan honours donation (see the module docstring; the caller
+    must not read the old global afterwards).
     ``kind`` is "packed" (a planned round), "distributed" (the mean
     family's collective round) or "eager" (the per-leaf path);
     ``n_kernel_launches`` is the packed plan's device computations per
@@ -399,11 +484,29 @@ class CompiledRound:
         self.n_kernel_launches = n_kernel_launches
         self.n_fallback_pairs = n_fallback_pairs
 
-    def __call__(self, stacked_tree: PyTree, weights,
-                 prev_tree=None) -> PyTree:
+    def __call__(self, stacked_tree: PyTree, weights, prev_tree=None,
+                 donate: bool = False) -> PyTree:
         w = torch.as_tensor(weights, dtype=torch.float32,
                             device=self.spec.device)
-        return self._execute(stacked_tree, w, prev_tree)
+        return self._execute(stacked_tree, w, prev_tree, donate)
+
+
+def _donated(prevs, shapes, dtypes) -> list:
+    """Each segment's donated output: its prev where prev is stored as the
+    output is (shape, dtype, contiguous), else None (a fresh one)."""
+    return [p if p is not None and tuple(p.shape) == tuple(shape)
+            and p.dtype == dt and p.is_contiguous() else None
+            for p, shape, dt in zip(prevs, shapes, dtypes)]
+
+
+def _plain_into(fn):
+    """A plain twin that writes into ``outs=`` as the kernels do: the ref
+    kind runs the plain versions wherever the tensors lie, the card
+    included, where the public wrappers would launch."""
+    def run(*args, outs=None, **kw):
+        return write_into(outs, fn(*args, **kw))
+    return run
+
 
 
 def _out_rank_leaves(spec: CohortSpec, r_out_per_pair=None) -> list:
@@ -478,8 +581,10 @@ def _build_mean_round(strategy, spec: CohortSpec,
     else:
         name, combine = "packed_agg", packed_agg_group_ref
         kw.update(norm_by=strategy.norm_by, norm_restore=norm_restore)
+    combine = _plain_into(combine)
     if spec.kind == "kernel":       # the segments' geometry is checked here
         combine = functools.partial(grouped_launch, name)
+    shapes = [_side_shape(s) for s in slots]
     scale_key = {"A": "A_scale", "B": "B_scale"}
     nones = [None] * len(slots)
     rebuild, paths = [None], [None]
@@ -487,7 +592,7 @@ def _build_mean_round(strategy, spec: CohortSpec,
     def pairs_of(tree) -> list:
         return _pairs_at(tree, paths[0])
 
-    def execute(cohort, w, prev_tree):
+    def execute(cohort, w, prev_tree, donate):
         if rebuild[0] is None:
             first = cohort[0] if encoded else cohort
             rebuild[0] = _make_rebuilder(first)
@@ -505,8 +610,15 @@ def _build_mean_round(strategy, spec: CohortSpec,
             ab = pairs_of(cohort)
             xs = [ab[s.pair_idx][s.side] for s in slots]
             scales = nones
-        outs = combine(xs, masks, strategy.transform_weights(w, cr), prevs,
-                       scales=scales, **kw)
+        outs = None
+        if donate and retains:
+            outs = _donated(prevs, shapes, kw["out_dtypes"])
+            donation.begin_write(outs)
+        res = combine(xs, masks, strategy.transform_weights(w, cr), prevs,
+                      scales=scales, outs=outs, **kw)
+        if outs is not None:
+            donation.end_write(outs, (xs, scales, prevs))
+        outs = res
         pairs = [{"A": None, "B": None, "rank": rank_leaves[i]}
                  for i in range(len(spec.pairs))]       # the leaves' order
         for s, out in zip(slots, outs):
@@ -549,7 +661,7 @@ def _build_mean_distributed(strategy, spec: CohortSpec, slots, mask,
              + ([1] if by_weight else [s.rows for s in slots]))
     rebuild, paths = [None], [None]
 
-    def execute(stacked_tree, w, prev_tree):
+    def execute(stacked_tree, w, prev_tree, donate):
         if rebuild[0] is None:
             rebuild[0] = _make_rebuilder(stacked_tree)
             paths[0] = [p for p, _ in _walk_pairs(stacked_tree)]
@@ -678,11 +790,12 @@ def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
         except (ValueError, TypeError) as e:
             raise PlanUnavailable(str(e)) from e
     combine = (functools.partial(packed_stack_group, backend="kernel")
-               if spec.kind == "kernel" else packed_stack_group_ref)
+               if spec.kind == "kernel"
+               else _plain_into(packed_stack_group_ref))
     fallback = [pi for pi, p in enumerate(plans) if not p["packable"]]
     rebuild, paths = [None], [None]
 
-    def execute(stacked_tree, w, prev_tree):
+    def execute(stacked_tree, w, prev_tree, donate):
         if rebuild[0] is None:
             rebuild[0] = _make_rebuilder(stacked_tree)
             paths[0] = [p for p, _ in _walk_pairs(stacked_tree)]
@@ -690,12 +803,18 @@ def _build_stack_round(strategy, spec: CohortSpec) -> CompiledRound:
         prev_ab = _pairs_at(prev_tree, paths[0]) if spec.has_prev else None
         results: dict = {}
         if stack is not None:
-            outs = combine(stack, [ab[pi][side] for pi, side in sides],
-                           [None if ps is None else prev_ab[pi][side]
-                            for (pi, side), ps in zip(sides,
-                                                      stack.prev_shapes)],
-                           w)
-            results.update(zip(sides, outs))
+            xs = [ab[pi][side] for pi, side in sides]
+            prevs = [None if ps is None else prev_ab[pi][side]
+                     for (pi, side), ps in zip(sides, stack.prev_shapes)]
+            outs = None
+            if donate and spec.has_prev:
+                outs = _donated(prevs, stack.layout.shapes,
+                                stack.layout.out_dtypes)
+                donation.begin_write(outs)
+            res = combine(stack, xs, prevs, w, outs=outs)
+            if outs is not None:
+                donation.end_write(outs, (xs, prevs))
+            results.update(zip(sides, res))
         for pi in fallback:          # over the cap: SVD re-projection
             p = plans[pi]
             pA = pB = None
@@ -756,7 +875,7 @@ def _build_svd_round(strategy, spec: CohortSpec) -> CompiledRound:
                                             device=spec.device))
     rebuild = [None]
 
-    def execute(stacked_tree, w, prev_tree):
+    def execute(stacked_tree, w, prev_tree, donate):
         if rebuild[0] is None:
             rebuild[0] = _make_rebuilder(stacked_tree)
         ab = _ab_list(stacked_tree)
@@ -783,7 +902,7 @@ def _build_eager_round(strategy, spec: CohortSpec) -> CompiledRound:
     cannot take, and flora's and svd's gathered collectives)."""
     cr = _client_ranks(spec)
 
-    def execute(stacked_tree, w, prev_tree):
+    def execute(stacked_tree, w, prev_tree, donate):
         from repro_torch.lora import adapter_masks
         prev = prev_tree if strategy.retains_prev else None
         if spec.kind == "kernel":
@@ -913,7 +1032,8 @@ def build_fold_plan(strategy, spec: CohortSpec) -> Callable:
     return fold_fn
 
 
-__all__ = ["CohortSpec", "PairMeta", "CompiledRound", "PlanUnavailable",
+__all__ = ["BufferMemo", "CohortSpec", "PairMeta", "CompiledRound",
+           "PlanUnavailable",
            "build_cohort_spec", "build_encoded_cohort_spec", "build_plan",
            "build_fold_plan", "build_state_spec", "pair_side_rows",
            "default_client_mesh", "resolve_client_group"]

@@ -153,10 +153,13 @@ def _build_sim(cfg: FLConfig, device: torch.device, params=None,
                                   cfg.ratio_step, cfg.seed)
 
     # the seeded initial model is drawn on the CPU and moved, so a run
-    # starts from the same weights on every device
+    # starts from the same weights on every device; a caller's adapters are
+    # copied, as the synchronous rounds donate the global's storage
     gen = torch.Generator().manual_seed(cfg.seed)
     if params is None:
         params = tree_map(lambda t: t.to(device), model.init(gen))
+    if adapters is not None:
+        adapters = tree_map(torch.clone, adapters)
     mode = "fft" if cfg.method == "fft" else "lora"
     if mode == "lora":
         frozen_base, base_trainable = split_base_params(params,
@@ -205,7 +208,9 @@ def run_simulation(cfg: FLConfig, verbose: bool = False, *, device="cuda",
                    params=None, adapters=None,
                    batch_indices: Callable[[int, int], torch.Tensor]
                    | None = None) -> FLHistory:
-    """Synchronous rounds (paper Alg. 1) on ``device``.
+    """Synchronous rounds (paper Alg. 1) on ``device``; each round's
+    aggregation is donated the previous global's storage, as the JAX
+    simulator's is.
 
     ``params``/``adapters``: initial model in the port's format (see
     ``repro_torch.bridge``); ``batch_indices(round, client)``: the
@@ -241,8 +246,11 @@ def run_simulation(cfg: FLConfig, verbose: bool = False, *, device="cuda",
                 base_trainable=res.base_trainable,
                 n_examples=float(max(c.n, 1)), rank=c.rank))
             losses.append(float(res.loss))
+        # donate the old global's storage to the round: the loop reads
+        # only the returned state (clients re-slice from the new global,
+        # eval runs on it), so the server holds one copy of the adapters
         state = strategy.aggregate(state, updates, backend=cfg.agg_backend,
-                                   device=device)
+                                   device=device, donate=True)
         acc = rig.evaluate(state.base_trainable, state.adapters)
         hist.test_acc.append(acc)
         hist.train_loss.append(float(np.mean(losses)))

@@ -50,6 +50,17 @@
 // column mode an output row is contiguous along the rank axis and each
 // contributor's run is a contiguous read of its B row: 4-element vectors
 // where the run and the source allow, scalars at the run edges.
+//
+// Donation.  A donated flora round writes its outputs into the previous
+// global's storage when prev is stored at the cap (the plan's condition):
+// prev is the first contributor, so output rank row j < prev's rank is prev's
+// rank row j, at the same element, and stack_group_kernel's thread that reads
+// it is the one that writes it (row mode: a thread's vectors of one memory
+// row; column mode: a thread's output elements of its row, each read from its
+// own source element first).  No pointer of stack_group_kernel carries
+// __restrict__.  stack_kernel, the copy-list form, declares x, prev and out
+// __restrict__ and copies prev rows to other rows: donation never reaches it
+// (`packed_stack` takes no output argument); it always writes a fresh buffer.
 #include <string.h>
 
 #include "common.cuh"

@@ -21,6 +21,14 @@
 // Rows no client owns keep prev (or 0 without prev).  Dequantisation comes
 // before the clip or the sort.  The output is f32 or bf16 per segment.
 //
+// A donated round writes the output into prev's own storage; every path is
+// safe under that alias, and neither pointer carries __restrict__: the
+// thread that reads prev at an element writes the output there, after the
+// read, and no other thread reads it (clip_kernel's block owns a rank row,
+// pass 1 reads only the clients, pass 2 reads prev and writes at each
+// thread's own elements; sort_kernel and count_one read prev only for their
+// own elements).
+//
 // What bounds it, and the design.  The least time is bytes / 3.35 TB/s (H100
 // SXM): the owned rows of x once, the output once.  The bucket kernel this
 // replaces was bound by instructions at (10, 2048, 4096): one column a thread

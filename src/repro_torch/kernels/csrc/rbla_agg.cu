@@ -52,6 +52,17 @@
 // the mean again, rescaled.  Two runs give the same bits.  Its shared memory
 // holds 128 + 4 floats a client: up to about 440 clients, as before.
 //
+// A donated round writes its output into the previous global's own storage
+// (a segment's out pointer equal to its prev pointer).  Every path here is
+// safe under that alias, so no pointer carries __restrict__ (the helpers in
+// common.cuh take one pointer each): stream_kernel's thread that reads prev
+// at (out code, f) is the one that writes the output there, after the read,
+// and no other thread touches f (each element is one thread's, head and tail
+// included; in column mode a vector's K elements are K rank rows of one
+// memory row, read and written together).  norm_kernel's block owns a whole
+// rank row: pass 1 reads prev and writes nothing, and in pass 2 each thread
+// reads prev at e and writes the output at e, for its own e only.
+//
 // Plain C interface (loaded with ctypes).  Every entry point launches on the
 // given stream, never synchronises, allocates nothing, and returns the CUDA
 // error code of the launch (0 on success).

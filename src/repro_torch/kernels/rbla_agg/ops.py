@@ -197,25 +197,53 @@ def _f32(t, index: int, name: str, dtype=torch.float32):
 
 
 def grouped_launch(name: str, xs, masks, weights, prevs, *, cols, scales,
-                   mask_offs, out_dtypes, **kw) -> list:
+                   mask_offs, out_dtypes, outs=None, **kw) -> list:
     """The card path of :func:`packed_agg_group` (``name`` "packed_agg",
     ``kw`` its ``norm_by`` and ``norm_restore``) or
     :func:`packed_robust_group` ("packed_robust", ``kw`` its ``mode``,
     ``clip_norm`` and ``trim_frac``) without their argument checks: for a
     caller whose segments come from a checked geometry (the compiled
-    plans), every list given in full.  CPU tensors are refused, as the
-    kernel backend refuses them everywhere."""
+    plans), every list given in full (``outs`` as in
+    :func:`packed_agg_group`).  CPU tensors are refused, as the kernel
+    backend refuses them everywhere."""
     runtime.use_kernel("kernel", xs[0] if isinstance(xs[0], torch.Tensor)
                        else xs[0][0], name)
     if name == "packed_agg":
         mode = _norm_code(kw.get("norm_by", "mask")) \
             | _NORM_RESTORE * bool(kw.get("norm_restore", False))
         return _group_cuda(name, _lib(), xs, masks, weights, prevs, cols,
-                           scales, mask_offs, out_dtypes, mode)
+                           scales, mask_offs, out_dtypes, mode, outs=outs)
     return _group_cuda(name, _robust_lib(), xs, masks, weights, prevs, cols,
                        scales, mask_offs, out_dtypes, _MODE_CODES[kw["mode"]],
                        (float(kw.get("clip_norm", 0.0)),
-                        float(kw.get("trim_frac", 0.0))))
+                        float(kw.get("trim_frac", 0.0))), outs=outs)
+
+
+def _check_outs(name: str, outs, shapes, dtypes) -> tuple:
+    """``outs`` (None, or per segment None or the tensor to write) checked
+    against each output's shape and dtype: a given output is written in
+    place, so it must be contiguous and exactly the output's."""
+    if outs is None:
+        return (None,) * len(shapes)
+    outs = tuple(outs)
+    if len(outs) != len(shapes):
+        raise ValueError(f"{name}: {len(shapes)} segments, {len(outs)} outs")
+    for i, (o, shape, dt) in enumerate(zip(outs, shapes, dtypes)):
+        if o is not None and (tuple(o.shape) != tuple(shape)
+                              or o.dtype != dt or not o.is_contiguous()):
+            raise ValueError(
+                f"{name}: out {i} is {tuple(o.shape)} {o.dtype}"
+                f"{'' if o.is_contiguous() else ' (not contiguous)'}; "
+                f"the output is {tuple(shape)} {dt}, contiguous")
+    return outs
+
+
+def write_into(outs, results) -> list:
+    """The plain path's ``outs``: each result copied into its given output
+    (donated storage), the result itself where none is given."""
+    if outs is None:
+        return list(results)
+    return [r if o is None else o.copy_(r) for o, r in zip(outs, results)]
 
 
 @dataclasses.dataclass(eq=False)
@@ -258,12 +286,13 @@ def _layout(geo: tuple, esize: int) -> _Layout:
 
 
 def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
-                mask_offs, out_dtypes, mode, knobs=()):
+                mask_offs, out_dtypes, mode, knobs=(), outs=None):
     """Run a checked grouped call on the card: one launch per client-dtype
-    key (:func:`group_key`).  Returns the outputs in order, each a view of
-    one allocation per output dtype.  ``masks`` are the owner masks, or for
-    ``name`` "rbla_agg" the rank matrix (a segment's mask offset is then its
-    rank column)."""
+    key (:func:`group_key`).  Returns the outputs in order: ``outs[i]``
+    where it is given (checked by :func:`_check_outs`; written in place),
+    else a view of one allocation per output dtype.  ``masks`` are the
+    owner masks, or for ``name`` "rbla_agg" the rank matrix (a segment's
+    mask offset is then its rank column)."""
     x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
     dev, index = x0.device, x0.get_device()
     # rbla_agg's owner masks are an int32 rank matrix (agg_group.cuh)
@@ -274,6 +303,8 @@ def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
     by_key: dict = {}
     for i, x in enumerate(xs):
         by_key.setdefault(group_key(x), []).append(i)
+    given = _check_outs(name, outs, [leaf_shape(x) for x in xs],
+                        out_dtypes)
     outs = [None] * len(xs)
     keep = []
     with (torch.cuda.device(dev) if torch.cuda.current_device() != index
@@ -292,21 +323,26 @@ def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
                 if odt not in _OUT_CODES:
                     raise TypeError(f"{name}: out_dtype {odt} not in "
                                     f"{list(_OUT_CODES)}")
-            bufs = {dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
-                    for dt, sz in lay.sizes.items()}
+            bufs = ({dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
+                     for dt, sz in lay.sizes.items()}
+                    if any(given[i] is None for i in idx) else {})
             words = array.array("q", lay.words)
             ents = array.array("q", bytes(16 * n * lay.n_ents))
             ent = 0
             for j, i in enumerate(idx):
                 odt = lay.out_dtypes[j]
-                buf = bufs[odt]
-                out = buf.as_strided(lay.shapes[j], lay.strides[j],
-                                     lay.offsets[j])
+                out = given[i]
+                if out is None:
+                    out = bufs[odt].as_strided(lay.shapes[j], lay.strides[j],
+                                               lay.offsets[j])
+                elif out.get_device() != index:
+                    raise ValueError(f"{name}: out {i} is on {out.device}, "
+                                     f"the call on {dev}")
                 outs[i] = out
                 if not lay.numels[j]:
                     continue
                 w = 12 * j
-                words[w + 5] = buf.data_ptr() + lay.offsets[j] * odt.itemsize
+                words[w + 5] = out.data_ptr()
                 x, prev, sc = xs[i], prevs[i], scales[i]
                 clients = (x,) if isinstance(x, torch.Tensor) else x
                 for t in clients:
@@ -317,7 +353,8 @@ def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
                     clients = [t.contiguous() for t in clients]
                     keep.append(clients)
                 ptrs = [t.data_ptr() for t in clients]
-                vec = all(p % 16 == 0 for p in ptrs)
+                vec = words[w + 5] % 16 == 0 and all(p % 16 == 0
+                                                     for p in ptrs)
                 if prev is not None:
                     if prev.get_device() != index:
                         raise ValueError(f"{name}: prev is on {prev.device}, "
@@ -379,7 +416,7 @@ def _group_cuda(name, lib, xs, masks, weights, prevs, cols, scales,
 def packed_agg_group(xs, masks, weights, prevs=None, *, cols=None,
                      scales=None, mask_offs=None, out_dtypes=None,
                      norm_by: str = "mask", norm_restore: bool = False,
-                     backend: str = "auto"):
+                     outs=None, backend: str = "auto"):
     """Aggregate every leaf of a round in one call (the compiled plan's op):
     for each segment i the masked weighted mean of :func:`packed_agg` over
     the rank rows of leaf ``xs[i]``, in the leaf's own layout.
@@ -395,10 +432,14 @@ def packed_agg_group(xs, masks, weights, prevs=None, *, cols=None,
     ``(n, rank_rows)``, or per client a tensor or None).  ``prevs[i]``
     (the leaf's shape) is kept where no client owns a rank row.  Returns
     one tensor per segment in the leaf's shape and ``out_dtypes[i]``
-    (default the leaf's dtype).  On the card every segment whose clients
-    share their dtypes runs in ONE launch (``runtime.LAUNCHES
-    ["packed_agg"]`` counts each); on the CPU the plain version
-    :func:`packed_agg_group_ref` runs."""
+    (default the leaf's dtype).  ``outs[i]``, where given, is written in
+    place and returned: a contiguous tensor of the output's shape and
+    dtype, which may be ``prevs[i]`` itself (a donated previous global:
+    the kernels read prev and write the output at the same element, in the
+    same thread).  On the card every segment whose clients share their
+    dtypes runs in ONE launch (``runtime.LAUNCHES["packed_agg"]`` counts
+    each); on the CPU the plain version :func:`packed_agg_group_ref`
+    runs."""
     prevs, cols, scales, offs, dts = _group_args(
         "packed_agg", xs, masks, weights, prevs, cols, scales, mask_offs,
         out_dtypes)
@@ -406,11 +447,12 @@ def packed_agg_group(xs, masks, weights, prevs=None, *, cols=None,
     x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
     if runtime.use_kernel(backend, x0, "packed_agg"):
         return _group_cuda("packed_agg", _lib(), xs, masks, weights, prevs,
-                           cols, scales, offs, dts, mode)
-    return packed_agg_group_ref(xs, masks, torch.as_tensor(weights), prevs,
-                                cols=cols, scales=scales, mask_offs=offs,
-                                out_dtypes=dts, norm_by=norm_by,
-                                norm_restore=norm_restore)
+                           cols, scales, offs, dts, mode, outs=outs)
+    outs = _check_outs("packed_agg", outs, [leaf_shape(x) for x in xs], dts)
+    return write_into(outs, packed_agg_group_ref(
+        xs, masks, torch.as_tensor(weights), prevs, cols=cols,
+        scales=scales, mask_offs=offs, out_dtypes=dts, norm_by=norm_by,
+        norm_restore=norm_restore))
 
 
 def packed_agg(x, masks, weights, prev=None, *, norm_by: str = "mask",
@@ -576,11 +618,11 @@ def _check_robust(mode: str, n: int, on_card: bool) -> None:
 def packed_robust_group(xs, masks, weights, prevs=None, *, mode: str,
                         clip_norm: float = 0.0, trim_frac: float = 0.0,
                         cols=None, scales=None, mask_offs=None,
-                        out_dtypes=None, backend: str = "auto"):
+                        out_dtypes=None, outs=None, backend: str = "auto"):
     """The robust aggregation of every leaf of a round in one call:
     :func:`packed_robust`'s ``mode`` over the segments of
-    :func:`packed_agg_group` (same layout, masks, scales, prev rule and
-    outputs).  On the card one launch per client-dtype key
+    :func:`packed_agg_group` (same layout, masks, scales, prev rule,
+    outputs and ``outs``).  On the card one launch per client-dtype key
     (``runtime.LAUNCHES["packed_robust"]``); on the CPU the plain version
     :func:`packed_robust_group_ref`."""
     prevs, cols, scales, offs, dts = _group_args(
@@ -593,11 +635,13 @@ def packed_robust_group(xs, masks, weights, prevs=None, *, mode: str,
         return _group_cuda("packed_robust", _robust_lib(), xs, masks,
                            weights, prevs, cols, scales, offs, dts,
                            _MODE_CODES[mode],
-                           (float(clip_norm), float(trim_frac)))
-    return packed_robust_group_ref(
+                           (float(clip_norm), float(trim_frac)), outs=outs)
+    outs = _check_outs("packed_robust", outs, [leaf_shape(x) for x in xs],
+                       dts)
+    return write_into(outs, packed_robust_group_ref(
         xs, masks, torch.as_tensor(weights), prevs, mode=mode, cols=cols,
         scales=scales, mask_offs=offs, out_dtypes=dts, clip_norm=clip_norm,
-        trim_frac=trim_frac)
+        trim_frac=trim_frac))
 
 
 def packed_robust(x, masks, weights, prev=None, *, mode: str,
@@ -924,15 +968,18 @@ def _stack_layout(geo: tuple) -> _StackLayout:
 
 
 def _stack_group_cuda(lay: _StackLayout, xs, prevs, scales, weights,
-                      prev_weight, eps, name: str) -> list:
+                      prev_weight, eps, name: str, outs=None) -> list:
     """Run a checked grouped stack on the card in one launch: its static
     layout ``lay`` is built, a call fills in the pointers and the vector
-    flags.  Counts the launch as ``runtime.LAUNCHES[name]``."""
+    flags.  ``outs[i]``, where given (checked by :func:`_check_outs`), is
+    written in place.  Counts the launch as ``runtime.LAUNCHES[name]``."""
     x0 = xs[0]
     dev, index = x0.device, x0.get_device()
     words = array.array("q", lay.words)
-    bufs = {dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
-            for dt, sz in lay.sizes.items()}
+    given = _check_outs(name, outs, lay.shapes, lay.out_dtypes)
+    bufs = ({dt: torch.empty(max(sz, 1), dtype=dt, device=dev)
+             for dt, sz in lay.sizes.items()}
+            if any(o is None for o in given) else {})
     outs, keep = [], []
     w = None
     if _MASS in lay.modes:
@@ -942,8 +989,13 @@ def _stack_group_cuda(lay: _StackLayout, xs, prevs, scales, weights,
             if t is not None and t.get_device() != index:
                 raise ValueError(f"{name}: a leaf is on {t.device}, the "
                                  f"call on {dev}")
-        out = bufs[lay.out_dtypes[i]].as_strided(
-            lay.shapes[i], lay.strides[i], lay.offsets[i])
+        out = given[i]
+        if out is None:
+            out = bufs[lay.out_dtypes[i]].as_strided(
+                lay.shapes[i], lay.strides[i], lay.offsets[i])
+        elif out.get_device() != index:
+            raise ValueError(f"{name}: out {i} is on {out.device}, the "
+                             f"call on {dev}")
         outs.append(out)
         if not x.is_contiguous():
             x = x.contiguous()
@@ -1112,13 +1164,17 @@ def stack_plan(shapes, contribs, *, cap, dtypes, cols=None,
 
 
 def packed_stack_group(plan: StackPlan, xs, prevs=None, weights=None, *,
-                       backend: str = "auto"):
+                       outs=None, backend: str = "auto"):
     """The flora plan's stacking round in one call: segment i of ``plan``
     (:func:`stack_plan`) from the cohort leaf ``xs[i]`` and prev
     ``prevs[i]``, each read where it lies, into a new leaf at its cap in
     its own layout and dtype, as :func:`flora_stack_group` computes it
-    (``weights`` (n,) feed the "mass" scales).  On the card ONE launch of
-    the grouped stack kernel, counted as ``runtime.LAUNCHES
+    (``weights`` (n,) feed the "mass" scales).  ``outs[i]``, where given,
+    is written in place and returned: a contiguous tensor of the output's
+    shape and dtype, which may be ``prevs[i]`` when prev is stored at the
+    cap (a donated previous global: prev's rank row j lands on output row
+    j, read and written by one thread).  On the card ONE launch of the
+    grouped stack kernel, counted as ``runtime.LAUNCHES
     ["packed_stack"]``; on the CPU the plain twin
     :func:`packed_stack_group_ref`."""
     name = "packed_stack_group"
@@ -1142,8 +1198,10 @@ def packed_stack_group(plan: StackPlan, xs, prevs=None, weights=None, *,
     if runtime.use_kernel(backend, xs[0], "packed_stack"):
         return _stack_group_cuda(plan.layout, xs, prevs, plan.scales,
                                  weights, plan.prev_weight, plan.eps,
-                                 "packed_stack")
-    return packed_stack_group_ref(plan, xs, prevs, weights)
+                                 "packed_stack", outs=outs)
+    outs = _check_outs(name, outs, plan.layout.shapes,
+                       plan.layout.out_dtypes)
+    return write_into(outs, packed_stack_group_ref(plan, xs, prevs, weights))
 
 
 def flora_stack(x, scales, *, segs, out_rows: int, layers: int = 1,

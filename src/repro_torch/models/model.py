@@ -58,7 +58,7 @@ PyTree = Any
 @dataclass(frozen=True)
 class Model:
     cfg: Any
-    remat: Any = True            # accepted; autograd keeps what it needs
+    remat: Any = True            # False | True/"full" | "dots"
     alpha: float = 16.0
     scan_backend: str = "auto"   # auto | kernel | ref
     mla_absorbed: bool = False   # MLA's absorbed decode

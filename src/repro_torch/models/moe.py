@@ -238,10 +238,6 @@ def _moe_on_mesh(p: Mapping, lora: Mapping, h, cfg, alpha: float, g: int,
     from torch.distributed.tensor.experimental import local_map
 
     from repro_torch.sharding import P, rules
-    if cfg.moe_mode == "ep_a2a":
-        raise NotImplementedError(
-            "moe_mode='ep_a2a' takes whole tensors on every rank; under a "
-            "mesh the sort path's experts are sharded by the rules")
     mesh = h.device_mesh
     b, s, d = h.shape
     n, e = b * s, cfg.n_experts + cfg.moe_pad_experts

@@ -26,6 +26,14 @@ computes alike.  Each collective, forward and backward, is counted in
 group initialised for the wrapped form) this is a world of one: no
 collective is called.
 
+Under a mesh of DTensors (the sharding rules' placement,
+``repro_torch.launch.mesh``), the block's call runs :func:`moe_forward_ep`
+through ``local_map``, as the reference's ``shard_map`` does
+(:func:`moe_forward_ep_on_mesh`): the tokens split over ``(data...,
+"model")``, the expert weights and the ``experts/*`` adapter factors over
+``"model"`` by expert, everything else whole, and the two all-to-alls
+over the mesh's ``"model"`` group.
+
 Restrictions (raised): the expert count divisible by the model group's
 size; the batch divisible by the mesh's size.
 """
@@ -35,6 +43,8 @@ from typing import Mapping
 
 import torch
 import torch.distributed as dist
+
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import compat
 from repro_torch.tree import tree_leaves, tree_map
@@ -91,6 +101,82 @@ def _model_slice(t: torch.Tensor, j: int, e_local: int) -> torch.Tensor:
     return t[j * e_local:(j + 1) * e_local]
 
 
+def moe_forward_ep_on_mesh(p: Mapping, lora: Mapping | None, x: DTensor,
+                           cfg, alpha: float = 16.0) -> DTensor:
+    """The block's call on a mesh: ``x`` (B, S, d) and the leaves of ``p``
+    and ``lora`` DTensors (or plain tensors, taken as whole on every rank)
+    on one mesh whose last axis is ``"model"``.  ``local_map`` hands each
+    rank its tokens -- the batch split over every mesh axis, the data axes
+    first and ``"model"`` last (the reference's ``P((data..., "model"))``)
+    -- its ``E / ep`` experts' weights and ``experts/*`` factors
+    (``Shard(0)`` over ``"model"``), and everything else whole;
+    :func:`moe_forward_ep` then runs on the mesh's ``"model"`` group.  The
+    output keeps the tokens' placement.  Gradients: a rank's share of a
+    whole input is a partial sum over the mesh, of an expert leaf a
+    partial sum over the data axes; the tokens' is whole."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import P, rules
+    mesh = x.device_mesh
+    names = rules.axis_names(mesh)
+    if not names or names[-1] != MODEL_AXIS:
+        raise ValueError(f"moe_forward_ep_on_mesh: the mesh's axes {names} "
+                         f"must end in {MODEL_AXIS!r}")
+    e = cfg.n_experts + cfg.moe_pad_experts
+    ep = rules.axis_size(mesh, MODEL_AXIS)
+    if e % ep:
+        raise ValueError(f"moe_forward_ep_on_mesh: {e} experts do not "
+                         f"divide over {ep} model ranks")
+    b = x.shape[0]
+    if b % mesh.size():
+        raise ValueError(f"moe_forward_ep_on_mesh: batch {b} does not split "
+                         f"over the mesh's {mesh.size()} ranks")
+    lora = lora or {}
+    tok = rules.placements(P(names, None, None), mesh)
+    whole = tuple(Partial() for _ in names)
+
+    def expert(path) -> bool:
+        return path[0] == "experts" or (path[0].startswith("experts/")
+                                        and path[-1] in ("A", "B"))
+
+    paths, leaves = [], []
+
+    def walk(t, path):
+        if isinstance(t, Mapping):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        else:
+            paths.append(path)
+            leaves.append(t)
+    walk(p, ("p",))
+    walk(lora, ("lora",))
+    ins, grads = [tok], [tok]
+    for path, t in zip(paths, leaves):
+        if expert(path[1:]):
+            ins.append(rules.placements(
+                P(MODEL_AXIS, *([None] * (t.ndim - 1))), mesh))
+            grads.append(tuple(Shard(0) if a == MODEL_AXIS else Partial()
+                               for a in names))
+        else:
+            ins.append(rules.placements(P(*([None] * t.ndim)), mesh))
+            grads.append(whole)
+    group = mesh.get_group(MODEL_AXIS)
+
+    def body(x_l, *leaves_l):
+        trees = {"p": {}, "lora": {}}
+        for path, t in zip(paths, leaves_l):
+            node = trees
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        return moe_forward_ep(trees["p"], trees["lora"] or None, x_l, cfg,
+                              group=group, alpha=alpha)
+    return local_map(body, out_placements=list(tok), in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(x, *leaves)
+
+
 def moe_forward_ep_wrapped(p: Mapping, lora: Mapping | None,
                            x: torch.Tensor, cfg, alpha: float = 16.0, *,
                            mesh=None):
@@ -107,7 +193,10 @@ def moe_forward_ep_wrapped(p: Mapping, lora: Mapping | None,
 
     ``mesh=None`` takes the 1-D ``"model"`` mesh over the default
     process group (``compat.default_mesh``), or, with no group
-    initialised, a world of one (no collective)."""
+    initialised, a world of one (no collective).  A DTensor ``x`` runs
+    on its own mesh through :func:`moe_forward_ep_on_mesh`."""
+    if isinstance(x, DTensor):
+        return moe_forward_ep_on_mesh(p, lora, x, cfg, alpha)
     if mesh is None:
         mesh = compat.default_mesh(MODEL_AXIS)
     if mesh is None:
@@ -148,4 +237,5 @@ def moe_forward_ep_wrapped(p: Mapping, lora: Mapping | None,
     return outs[by_chunk].flatten(0, 1)
 
 
-__all__ = ["moe_forward_ep", "moe_forward_ep_wrapped"]
+__all__ = ["moe_forward_ep", "moe_forward_ep_wrapped",
+           "moe_forward_ep_on_mesh"]

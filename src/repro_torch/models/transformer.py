@@ -13,14 +13,27 @@ or the Mamba2 mixer (``"mamba"``); its feed-forward is the dense MLP
 :mod:`.moe_ep`) or none.  A GQA block with ``cross_attn`` attends to
 ``enc_out``, the encoder's output, which :func:`stage_forward` hands to
 every block (a mamba or MLA block ignores the flag, as the reference's
-does).  ``remat`` is accepted and does nothing: autograd keeps what the
-backward needs.
+does).
+
+``remat`` is the reference's activation checkpointing: in full mode, while
+autograd records, each repeat of a stage runs under
+``torch.utils.checkpoint.checkpoint`` (``use_reentrant=False``) with the
+policy of :data:`REMAT_POLICIES` -- "full" (or ``True``) saves nothing
+inside the repeat and recomputes its forward in the backward (JAX's
+``nothing_saveable``); "dots" saves the outputs of the matmuls without a
+batch dimension (``aten.mm``, ``aten.addmm``: the projections) and
+recomputes the rest, the batched ones (``bmm``: attention's scores)
+included (JAX's ``dots_with_no_batch_dims_saveable``).  It runs alike on
+whole tensors and on DTensors, through the ``local_map`` regions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.lora import init_pair
 from repro_torch.tree import tree_map
@@ -184,14 +197,36 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+#: the matmuls without a batch dimension, whose outputs "dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+#: checkpoint policy name -> the ``context_fn`` of
+#: ``torch.utils.checkpoint.checkpoint`` (None: save nothing)
+REMAT_POLICIES = {
+    "full": lambda: None,
+    "dots": lambda: functools.partial(create_selective_checkpoint_contexts,
+                                      _dots_policy),
+}
+
+
 def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
                   caches=None, pos=None, enc_out=None, alpha=16.0,
                   remat=False, scan_backend="auto", mla_absorbed=False,
                   capacity=None):
     """Loop over the stage's repeats. Returns (x, new_caches or None), the
-    caches stacked over the repeats; ``enc_out`` goes to every block."""
-    per_layer = []
-    for r in range(stage.repeat):
+    caches stacked over the repeats; ``enc_out`` goes to every block.
+
+    ``remat``: False | True ("full") | "full" | "dots" -- the checkpoint
+    policy of each repeat in full mode while autograd records (an unknown
+    name raises ``KeyError``, as the reference's lookup does)."""
+
+    def unit(x, r):
         bp_unit = _layer(sp, r)
         bl_unit = _layer(slora, r) if slora is not None else None
         cache_unit = _layer(caches, r) if caches is not None else None
@@ -210,7 +245,20 @@ def stage_forward(sp, slora, x, cfg, stage, *, mode, positions=None,
                 capacity=capacity)
             if cnew is not None:
                 new_caches[f"b{i}"] = cnew
-        per_layer.append(new_caches or None)
+        return x, new_caches or None
+
+    if remat and mode == "full":
+        context = REMAT_POLICIES["full" if remat is True else remat]()
+        if torch.is_grad_enabled():
+            kw = {} if context is None else {"context_fn": context}
+            plain = unit
+
+            def unit(x, r):
+                return checkpoint(plain, x, r, use_reentrant=False, **kw)
+    per_layer = []
+    for r in range(stage.repeat):
+        x, new_caches = unit(x, r)
+        per_layer.append(new_caches)
     if per_layer[0] is None:
         return x, None
     return x, tree_map(lambda *leaves: torch.stack(leaves), *per_layer)

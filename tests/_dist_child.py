@@ -123,6 +123,8 @@ def run_case(case, rank, world, device):
         y, _ = block_forward(p, lora, x, cfg, BlockSpec(**case["spec"]),
                              mode="full")
         return {"y": y}
+    if kind == "moe_ep_dtensor":     # moe_mode="ep_a2a" on DTensors
+        return _moe_ep_dtensor(case, device)
     if kind == "train":         # launch.train's loop on a test mesh
         from repro_torch.configs import get_config
         from repro_torch.launch import train
@@ -134,6 +136,56 @@ def run_case(case, rank, world, device):
                 "trained": _dictify(res["trained"]),
                 "adapters": _dictify(res["adapters"])}
     raise ValueError(f"unknown case kind {kind!r}")
+
+
+def _moe_ep_dtensor(case, device):
+    """The expert-parallel MoE's block call on a (data, model) test mesh of
+    DTensors: the params placed by the sharding rules, the ``experts/*``
+    factors by expert over "model", the rest of the adapters whole, x's
+    batch over "data"; the loss <y, cotangent> and its gradient w.r.t.
+    every LoRA factor, whole on every rank."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.moe_ep import moe_forward_ep_wrapped
+    from repro_torch.sharding import P, rules
+    cfg = get_config(case["arch"]).reduced(**case["overrides"])
+    mesh = make_test_mesh(tuple(case["mesh"]), device=device.type)
+    p = rules.place(to_torch(case["params"], device),
+                    rules.param_specs(case["params"], mesh), mesh)
+    lora = {}
+    for k, v in case["lora"].items():
+        lora[k] = {}
+        for f, t in v.items():
+            t = torch.as_tensor(t).to(device)
+            split = k.startswith("experts/") and f in ("A", "B")
+            lora[k][f] = distribute_tensor(
+                t, mesh, rules.placements(
+                    P("model" if split else None, *([None] * (t.ndim - 1))),
+                    mesh))
+    factors = [lora[k][f] for k in lora for f in ("A", "B")]
+    for t in factors:
+        t.requires_grad_(True)
+    x = distribute_tensor(torch.as_tensor(case["x"]).to(device), mesh,
+                          (Shard(0), Replicate()))
+    runtime.reset_counts()
+    if case.get("expect_raise"):     # refused before any collective
+        try:
+            moe_forward_ep_wrapped(p, lora, x, cfg)
+        except ValueError as e:
+            return {"raised": torch.tensor(int(case["expect_raise"]
+                                               in str(e)))}
+        return {"raised": torch.tensor(0)}
+    y = moe_forward_ep_wrapped(p, lora, x, cfg)
+    fwd = dict(runtime.COLLECTIVES)
+    ct = torch.as_tensor(case["cotangent"]).to(device)
+    loss = (y.full_tensor() * ct).sum()
+    grads = iter(torch.autograd.grad(loss, factors))
+    return {"y": y.full_tensor(), "loss": loss.detach(),
+            "fwd_all_to_all": torch.tensor(fwd["all_to_all"]),
+            "grad": {k: {f: next(grads).full_tensor() for f in ("A", "B")}
+                     for k in lora}}
 
 
 def _dictify(tree):

@@ -131,8 +131,8 @@ def async_reference_inputs(cfg, r_storage=None):
 def _np_tree(tree):
     if isinstance(tree, dict):
         return {k: _np_tree(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+    if isinstance(tree, torch.Tensor):      # a copy: a CPU tensor's numpy
+        return tree.detach().cpu().numpy().copy()   # view would follow it
     return np.asarray(tree)
 
 
@@ -140,7 +140,7 @@ def spy_states(monkeypatch, cls):
     """Record, as numpy trees, the adapters and base trainables of every
     server state ``cls.aggregate`` returns (patched on the class, so the
     configured copies of ``with_options`` are seen too; copied at once,
-    because the JAX loop donates each round's buffers to the next)."""
+    because both loops donate each round's buffers to the next)."""
     seen = []
     orig = cls.aggregate
 

@@ -1,0 +1,9 @@
+"""``bwd_ms.train``: the device ms of a client step's backward phase
+(``train.backward`` in ``repro_torch.launch.train.make_step``: the
+gradient, the recompute of ``remat="full"`` included; a CUDA event pair
+on the step's stream) over the traced round's steps (``train.step``)."""
+from gpubench.lib import recorder
+
+
+def read(ctx):
+    return recorder.per_step_ms("backward")

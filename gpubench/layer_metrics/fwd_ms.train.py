@@ -1,0 +1,9 @@
+"""``fwd_ms.train``: the device ms of a client step's forward phase
+(``train.forward`` in ``repro_torch.launch.train.make_step``, a CUDA event
+pair on the step's stream) over the traced round's steps
+(``train.step``)."""
+from gpubench.lib import recorder
+
+
+def read(ctx):
+    return recorder.per_step_ms("forward")

@@ -37,6 +37,7 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
+from repro_torch.obs.trace import read_back
 from repro_torch.tree import tree_map
 
 #: registered codec names, in negotiation-preference order.
@@ -198,14 +199,15 @@ def validate_encoded_adapters(adapters) -> None:
             if key not in pair:
                 continue
             s = torch.as_tensor(pair[key]).float()
-            if not bool((torch.isfinite(s) & (s > 0)).all()):
+            if not read_back("codec", bool,
+                             (torch.isfinite(s) & (s > 0)).all()):
                 raise UploadValidationError(
                     f"non-finite or non-positive quantization scale in "
                     f"{name}.{key}", reason="bad_scale")
             width = (pair[side].shape[-1] if side == "A"
                      else pair[side].shape[-2])
             limit = _F32_MAX / (_INT8_QMAX * math.sqrt(max(width, 1)))
-            if bool((s > limit).any()):
+            if read_back("codec", bool, (s > limit).any()):
                 raise UploadValidationError(
                     f"quantization scale overflow in {name}.{key}: decoded "
                     f"row norm would exceed float32 range",

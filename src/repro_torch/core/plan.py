@@ -70,6 +70,7 @@ from repro_torch.kernels.rbla_agg import (packed_agg_group_ref,
                                           packed_stack_group,
                                           packed_stack_group_ref, stack_plan)
 from repro_torch.kernels.rbla_agg.ops import grouped_launch, write_into
+from repro_torch.obs.trace import read_back
 
 from . import donation
 from .aggregation import _EPS
@@ -198,8 +199,14 @@ def _walk_pairs(tree, path=()):
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return read_back("plan.spec", host_array, x)
     return np.asarray(x)
+
+
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """``x``'s values in a host array (a copy from the card for a device
+    tensor)."""
+    return x.detach().cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,12 +55,14 @@ from repro_torch.kernels.rbla_agg import (axpy_fold_group,
                                           rbla_agg_group)
 from repro_torch.kernels.runtime import (BACKENDS, resolve_backend,
                                         resolve_device)
+from repro_torch.obs.trace import count, read_back, trace_span
 from repro_torch.tree import tree_leaves, tree_map
 
 from .aggregation import _EPS, fedavg_leaf, rbla_leaf, zeropad_leaf
 from .compat import all_gather_slices, all_reduce_sum, local_slice
 from .lowrank import product_factors, svd_project_stacked
 from .masks import pad_to_rank, stacked_rank_masks
+from .plan import host_array
 from .variants import rank_proportional_weights, rbla_norm_leaf
 
 PyTree = Any
@@ -407,10 +409,13 @@ class AggregationStrategy:
         got = cache.get(key)
         if got is not None:
             stats["hits"] += 1
+            count("plan_cache", "hit")
             cache.move_to_end(key)
             return got
         stats["misses"] += 1
-        built = build_plan(self, cohort_spec)
+        count("plan_cache", "miss")
+        with trace_span("plan.build"):
+            built = build_plan(self, cohort_spec)
         cache[key] = built
         while len(cache) > PLAN_CACHE_SIZE:
             cache.popitem(last=False)
@@ -421,14 +426,15 @@ class AggregationStrategy:
         """Plan for an already-stacked cohort; ``None`` when the cohort
         cannot be described host-side (bare leaves)."""
         from .plan import PlanUnavailable, build_cohort_spec
-        try:
-            spec = build_cohort_spec(stacked, kind=kind, r_max=r_max,
-                                     client_ranks=client_ranks,
-                                     prev_tree=prev, mesh=mesh,
-                                     client_axis=client_axis)
-        except PlanUnavailable:
-            return None
-        return self.plan(None, spec)
+        with trace_span("plan"):
+            try:
+                spec = build_cohort_spec(stacked, kind=kind, r_max=r_max,
+                                         client_ranks=client_ranks,
+                                         prev_tree=prev, mesh=mesh,
+                                         client_axis=client_axis)
+            except PlanUnavailable:
+                return None
+            return self.plan(None, spec)
 
     def _plan_encoded_round(self, client_adapters, codecs, kind, *, r_max,
                             client_ranks, prev):
@@ -437,13 +443,14 @@ class AggregationStrategy:
         :meth:`plan`'s cache: a codec-mix change re-plans, a rank-multiset
         repeat under the same mix hits."""
         from .plan import PlanUnavailable, build_encoded_cohort_spec
-        try:
-            spec = build_encoded_cohort_spec(
-                client_adapters, codecs, kind=kind, r_max=r_max,
-                client_ranks=client_ranks, prev_tree=prev)
-            return self.plan(None, spec)
-        except PlanUnavailable:
-            return None
+        with trace_span("plan"):
+            try:
+                spec = build_encoded_cohort_spec(
+                    client_adapters, codecs, kind=kind, r_max=r_max,
+                    client_ranks=client_ranks, prev_tree=prev)
+                return self.plan(None, spec)
+            except PlanUnavailable:
+                return None
 
     # ------------------------------------------------------ (a) leaf math --
     def leaf(self, stacked, mask, weights, prev=None):
@@ -760,17 +767,20 @@ class AggregationStrategy:
         memo (see :meth:`aggregate_adapters`)."""
         from .plan import BufferMemo
         leaves = [t for ad in client_adapters for t in tree_leaves(ad)]
-        memo = self.__dict__.get("_stack_memo")
-        if memo is None:
-            # require_repeat: a normal FL loop (fresh uploads every round)
-            # keeps a fingerprint between rounds, not a stacked copy
-            memo = self.__dict__["_stack_memo"] = BufferMemo(
-                require_repeat=True)
-        stacked = memo.lookup(leaves)
-        if stacked is None:
-            stacked = stack_trees(client_adapters)
-            memo.store(leaves, stacked)
-        return stacked
+        with trace_span("strategy.stack",
+                        device=leaves[0] if leaves else None):
+            memo = self.__dict__.get("_stack_memo")
+            if memo is None:
+                # require_repeat: a normal FL loop (fresh uploads every
+                # round) keeps a fingerprint between rounds, not a stacked
+                # copy
+                memo = self.__dict__["_stack_memo"] = BufferMemo(
+                    require_repeat=True)
+            stacked = memo.lookup(leaves)
+            if stacked is None:
+                stacked = stack_trees(client_adapters)
+                memo.store(leaves, stacked)
+            return stacked
 
     def finalize_tree(self, out: PyTree, r_max: int | None) -> PyTree:
         """Fixed-rank strategies reset every pair's live rank to r_max."""
@@ -1427,7 +1437,7 @@ class FloraStrategy(AggregationStrategy):
                 "flora needs the client ranks (pass client_ranks, or "
                 "aggregate adapter trees whose pairs carry scalar ranks)")
         if isinstance(ranks, torch.Tensor):
-            ranks = ranks.detach().cpu().numpy()
+            ranks = read_back("strategy", host_array, ranks)
         arr = np.asarray(ranks).astype(np.int64)
         if arr.ndim == 2:            # layer-stacked (n, L): must be uniform
             if not np.all(arr == arr[:, :1]):
@@ -1520,7 +1530,8 @@ class FloraStrategy(AggregationStrategy):
         if prev_pair is None:
             return None
         # read to the host first: a copy, and no reduction on the card
-        return int(torch.as_tensor(prev_pair["rank"]).cpu().max())
+        return int(read_back("strategy", host_array,
+                             torch.as_tensor(prev_pair["rank"])).max())
 
     def finalize_tree(self, out: PyTree, r_max: int | None) -> PyTree:
         return out                       # live ranks already written
@@ -1586,7 +1597,8 @@ class FloraStrategy(AggregationStrategy):
             def fold_pair(pair, upd_pair):
                 meta = extra["pairs"][idx[0]]
                 idx[0] += 1
-                rk = torch.as_tensor(upd_pair["rank"]).cpu().numpy()
+                rk = read_back("strategy", host_array,
+                               torch.as_tensor(upd_pair["rank"]))
                 if rk.size > 1 and not np.all(rk == rk.flat[0]):
                     raise NotImplementedError(
                         "flora supports layer-stacked pairs only when "

@@ -67,7 +67,8 @@ from repro_torch.core.strategy import (ClientUpdate, FoldState, ServerState,
                                        _state_device, get_strategy)
 from repro_torch.fl.comm import (BufferedUpdate, DedupWindow, UpdateBuffer,
                                  tree_bytes)
-from repro_torch.obs import STALENESS_BUCKETS, get_registry, span
+from repro_torch.obs import (STALENESS_BUCKETS, get_registry, read_back,
+                             span, trace_span)
 from repro_torch.tree import tree_leaves, tree_map
 
 #: the machine-readable rejection reasons ``fl_updates_rejected_total``
@@ -343,51 +344,52 @@ class AsyncAggregator:
         Every raise increments ``fl_updates_rejected_total`` under
         exactly one reason.  Returns the set of wire codecs the upload
         used (for the codec-mix counters)."""
-        n = float(update.n_examples)
-        if not (math.isfinite(n) and n > 0.0):
-            self._reject("bad_mass")
-            raise ValueError(
-                "rejected client update: n_examples must be positive and "
-                f"finite, got {update.n_examples!r}")
-        used = set()
-        for path, p in _iter_adapter_pairs(update.adapters):
-            used.add(codec_of_pair(p))
-            # structural integrity: a truncated/garbled upload (lost
-            # frames, a proxy cutting the payload short) must be rejected
-            # here, not crash a fused kernel three layers down
-            a, b = p["A"], p["B"]
-            if (a.ndim < 2 or b.ndim < 2
-                    or a.shape[-2] != b.shape[-1]):
-                self._reject("malformed")
-                name = "/".join(str(s) for s in path) or "<root>"
+        with trace_span("fl.validate"):
+            n = float(update.n_examples)
+            if not (math.isfinite(n) and n > 0.0):
+                self._reject("bad_mass")
                 raise ValueError(
-                    f"rejected client update: truncated or malformed "
-                    f"pair {name}: A {tuple(a.shape)} / B "
-                    f"{tuple(b.shape)} do not share a rank axis")
-        bad = sorted(used - set(self.codecs))
-        if bad:
-            self._reject("codec_not_allowed")
-            raise ValueError(
-                f"rejected client update: upload codec {bad} not in the "
-                f"negotiated set {list(self.codecs)}")
-        # scale sanity first: a NaN scale should name the scale, not fall
-        # through to the generic non-finite message below
-        try:
-            validate_encoded_adapters(update.adapters)
-        except UploadValidationError as e:
-            self._reject(e.reason)      # "bad_scale" | "overflow"
-            raise
-        for name, tree in (("adapters", update.adapters),
-                           ("base_trainable", update.base_trainable)):
-            for x in tree_leaves(tree):
-                # one bool read back to the host per float leaf
-                if (x.is_floating_point()
-                        and not bool(torch.isfinite(x).all())):
-                    self._reject("nan_tensor")
+                    "rejected client update: n_examples must be positive "
+                    f"and finite, got {update.n_examples!r}")
+            used = set()
+            for path, p in _iter_adapter_pairs(update.adapters):
+                used.add(codec_of_pair(p))
+                # structural integrity: a truncated/garbled upload (lost
+                # frames, a proxy cutting the payload short) must be
+                # rejected here, not crash a fused kernel three layers down
+                a, b = p["A"], p["B"]
+                if (a.ndim < 2 or b.ndim < 2
+                        or a.shape[-2] != b.shape[-1]):
+                    self._reject("malformed")
+                    name = "/".join(str(s) for s in path) or "<root>"
                     raise ValueError(
-                        "rejected client update: non-finite values in "
-                        f"{name}")
-        return used
+                        f"rejected client update: truncated or malformed "
+                        f"pair {name}: A {tuple(a.shape)} / B "
+                        f"{tuple(b.shape)} do not share a rank axis")
+            bad = sorted(used - set(self.codecs))
+            if bad:
+                self._reject("codec_not_allowed")
+                raise ValueError(
+                    f"rejected client update: upload codec {bad} not in "
+                    f"the negotiated set {list(self.codecs)}")
+            # scale sanity first: a NaN scale should name the scale, not
+            # fall through to the generic non-finite message below
+            try:
+                validate_encoded_adapters(update.adapters)
+            except UploadValidationError as e:
+                self._reject(e.reason)      # "bad_scale" | "overflow"
+                raise
+            for name, tree in (("adapters", update.adapters),
+                               ("base_trainable", update.base_trainable)):
+                for x in tree_leaves(tree):
+                    # one bool read back to the host per float leaf
+                    if (x.is_floating_point() and not read_back(
+                            "validate", bool, torch.isfinite(x).all())):
+                        self._reject("nan_tensor")
+                        raise ValueError(
+                            "rejected client update: non-finite values in "
+                            f"{name}")
+            return used
 
     def submit(self, update: ClientUpdate, model_version: int | None = None,
                now: float = 0.0, pulled_at: float | None = None,

@@ -22,6 +22,8 @@ import struct
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import trace_span
+
 from .. import build, runtime
 from ..runtime import check_launch as _check_launch
 from ..runtime import stream_handle as _stream
@@ -205,18 +207,22 @@ def grouped_launch(name: str, xs, masks, weights, prevs, *, cols, scales,
     caller whose segments come from a checked geometry (the compiled
     plans), every list given in full (``outs`` as in
     :func:`packed_agg_group`).  CPU tensors are refused, as the kernel
-    backend refuses them everywhere."""
-    runtime.use_kernel("kernel", xs[0] if isinstance(xs[0], torch.Tensor)
-                       else xs[0][0], name)
-    if name == "packed_agg":
-        mode = _norm_code(kw.get("norm_by", "mask")) \
-            | _NORM_RESTORE * bool(kw.get("norm_restore", False))
-        return _group_cuda(name, _lib(), xs, masks, weights, prevs, cols,
-                           scales, mask_offs, out_dtypes, mode, outs=outs)
-    return _group_cuda(name, _robust_lib(), xs, masks, weights, prevs, cols,
-                       scales, mask_offs, out_dtypes, _MODE_CODES[kw["mode"]],
-                       (float(kw.get("clip_norm", 0.0)),
-                        float(kw.get("trim_frac", 0.0))), outs=outs)
+    backend refuses them everywhere.  Traced as
+    ``kernel.grouped_launch``, with its device time."""
+    x0 = xs[0] if isinstance(xs[0], torch.Tensor) else xs[0][0]
+    runtime.use_kernel("kernel", x0, name)
+    with trace_span("kernel.grouped_launch", device=x0):
+        if name == "packed_agg":
+            mode = _norm_code(kw.get("norm_by", "mask")) \
+                | _NORM_RESTORE * bool(kw.get("norm_restore", False))
+            return _group_cuda(name, _lib(), xs, masks, weights, prevs,
+                               cols, scales, mask_offs, out_dtypes, mode,
+                               outs=outs)
+        return _group_cuda(name, _robust_lib(), xs, masks, weights, prevs,
+                           cols, scales, mask_offs, out_dtypes,
+                           _MODE_CODES[kw["mode"]],
+                           (float(kw.get("clip_norm", 0.0)),
+                            float(kw.get("trim_frac", 0.0))), outs=outs)
 
 
 def _check_outs(name: str, outs, shapes, dtypes) -> tuple:

@@ -24,6 +24,8 @@ import functools
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.obs.trace import trace_span
+
 from .. import build, runtime
 from .ref import chunk_len, ssd_scan_ref
 
@@ -153,9 +155,12 @@ def ssd_scan(xdt, dta, bm, cm, chunk: int = 256, *, backend: str = "auto"):
     outputs) run on the tensor cores with fp32 accumulation and count as
     one launch.  A shape beyond its limits (more than 65535 64-row tiles
     in a chunk or 64 x 64 tiles of P x N, or 2^31 blocks) fails the launch
-    with CUDA's "invalid argument"."""
+    with CUDA's "invalid argument".  Traced as ``kernel.ssd_scan``, with
+    its device time, on either path."""
     _check_shapes(xdt, dta, bm, cm)
-    if runtime.use_kernel(backend, xdt, "ssd_scan"):
-        _check_launch(xdt, dta, bm, cm)
-        return _ssd_op(xdt, dta, bm, cm, chunk_len(xdt.shape[1], chunk))
-    return ssd_scan_ref(xdt, dta, bm, cm, chunk)
+    with trace_span("kernel.ssd_scan", device=xdt):
+        if runtime.use_kernel(backend, xdt, "ssd_scan"):
+            _check_launch(xdt, dta, bm, cm)
+            return _ssd_op(xdt, dta, bm, cm,
+                           chunk_len(xdt.shape[1], chunk))
+        return ssd_scan_ref(xdt, dta, bm, cm, chunk)

@@ -64,6 +64,7 @@ from repro_torch.kernels import runtime
 from repro_torch.launch.mesh import describe, launcher_mesh
 from repro_torch.lora import attach_ranks, strip_ranks
 from repro_torch.models.model import make_model
+from repro_torch.obs import trace_span
 from repro_torch.optim import adam, apply_updates
 from repro_torch.sharding import rules
 from repro_torch.tree import tree_leaves, tree_map
@@ -86,15 +87,26 @@ def make_step(model, params, ranks, opt):
     """One training step over the adapter factors: ``step(factors,
     opt_state, tokens) -> (factors, opt_state, loss)``, the loss
     ``model.loss`` with the frozen ``params`` and the factors' gradient
-    from ``torch.autograd``, in the factors' placement on a mesh."""
+    from ``torch.autograd``, in the factors' placement on a mesh.  Traced
+    as ``train.step`` around ``train.forward`` (the loss),
+    ``train.backward`` (the gradient, a remat's recompute included) and
+    ``train.optimizer`` (the update and its application), each with its
+    device time."""
     def step(factors, opt_state, tokens):
-        live = tree_map(lambda t: t.detach().requires_grad_(True), factors)
-        loss = model.loss(params, attach_ranks(live, ranks),
-                          {"tokens": tokens})
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-        grads = tree_map(lambda f: _like(next(grads), f), factors)
-        updates, opt_state = opt.update(grads, opt_state, factors)
-        return apply_updates(factors, updates), opt_state, loss.detach()
+        dev = tokens.device
+        with trace_span("train.step", device=dev):
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            factors)
+            with trace_span("train.forward", device=dev):
+                loss = model.loss(params, attach_ranks(live, ranks),
+                                  {"tokens": tokens})
+            with trace_span("train.backward", device=dev):
+                grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+                grads = tree_map(lambda f: _like(next(grads), f), factors)
+            with trace_span("train.optimizer", device=dev):
+                updates, opt_state = opt.update(grads, opt_state, factors)
+                factors = apply_updates(factors, updates)
+            return factors, opt_state, loss.detach()
     return step
 
 

@@ -62,7 +62,7 @@ def test_the_import_check_covers_every_slice():
     walked = set(_modules())
     for name in ("repro_torch.fl.async_agg", "repro_torch.serving.store",
                  "repro_torch.serving.engine", "repro_torch.obs.export",
-                 "repro_torch.obs.health", "repro_torch.obs.timing",
+                 "repro_torch.obs.health", "repro_torch.obs.trace",
                  "repro_torch.kernels.lora_matmul.ops",
                  "repro_torch.kernels.lora_matmul.ref",
                  "repro_torch.kernels.ssd_scan.ops",

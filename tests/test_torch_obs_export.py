@@ -1,9 +1,9 @@
-"""The port's ``obs.export``, ``obs.health`` and ``obs.timing`` against the
-JAX package's on the same counters: the Prometheus text and its parse, the
+"""The port's ``obs.export`` and ``obs.health`` against the JAX package's
+on the same counters: the Prometheus text and its parse, the
 JSON-lines snapshot, and ``ServiceHealth`` over twin async services and
 serving stores driven with the same uploads (counts, staleness, rejections,
 codec mix, plan cache, span counts and store occupancy equal; span
-durations are wall time and differ).  Then the timing helpers on the CPU.
+durations are wall time and differ).
 """
 import json
 
@@ -153,28 +153,3 @@ def test_service_health_of_a_lone_store():
                              "page_occupancy": store.occupancy()}
     assert "service" not in view and view["rejections"] == {}
     del pin
-
-
-def test_timing_helpers_on_the_cpu():
-    calls = []
-
-    def fn():
-        calls.append(1)
-        return {"y": torch.ones(3), "n": 1}
-    assert tobs.block(fn())["n"] == 1
-    assert tobs.time_fn(fn, iters=2) >= 0.0
-    assert len(calls) == 4                          # warm-up + 2 + block
-    assert tobs.time_fn(fn, iters=1, reduce="mean") >= 0.0
-    with pytest.raises(ValueError, match="min|mean"):
-        tobs.time_fn(fn, reduce="median")
-    reg = _record(tobs.MetricsRegistry())
-    payload = tobs.bench_payload("serve", smoke=True, case={"m": 1},
-                                 results=[1], registry=reg, extra=2)
-    want = jobs.bench_payload("serve", smoke=True, case={"m": 1},
-                              results=[1], registry=_record(
-                                  jobs.MetricsRegistry()), extra=2)
-    assert set(payload) == set(want)
-    assert payload["obs"] == want["obs"]
-    assert payload["backend"] == ("cuda" if torch.cuda.is_available()
-                                  else "cpu")
-    assert payload["env"]["torch_version"] == torch.__version__
